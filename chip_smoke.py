@@ -7,19 +7,34 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``); exits non-zero with
 no result without them, or without the rest of the repository beside it.
 Phases, each followed by a JSON line with its seconds:
 
-1. device   the card's name and power limit, as ``nvidia-smi`` reports them;
-2. build    the CUDA kernels from ``src/repro_torch/csrc`` (register counts);
-3. kernels  each kernel against its plain PyTorch version on the card, both
-            dtypes, ragged shapes, flags exact, at the default and at a
-            non-default tangent floor ``g_min_frac``;
-4. cpu      the port on the card against the port on the CPU (small mesh);
-5. prefetch ``schedule="prefetch"`` ≡ ``"serial"`` bitwise on the card;
-6. main     Proposed 2 at full size through ``methods.run``: 294,912 TET10
-            elements, 150 springs per point (θ = 7.08 GB in pinned host
-            memory), ``npart=8``, prefetch, fp64, 8 steps;
-7. timing   each kernel of the main path at the shapes that path gives it,
-            against its plain version and its bound, and a breakdown of one
-            full-size step.
+1.  device     the card's name and power limit, as ``nvidia-smi`` reports them;
+2.  build      the CUDA kernels from ``src/repro_torch/csrc`` (registers and
+               spills of every kernel instance);
+3.  kernels    each kernel against its plain PyTorch version on the card:
+               multispring and the EBE product in both dtypes, ragged shapes,
+               flags exact, at the default and a non-default tangent floor;
+               flash attention in fp32 and bf16 over GQA, ragged, Sq < Skv,
+               window, softcap, non-causal, Sq × Skv and dh ∈ {128, 256,
+               192 with dv 128} cases;
+4.  cpu        the FEM port on the card against the port on the CPU;
+5.  prefetch   ``schedule="prefetch"`` ≡ ``"serial"`` bitwise on the card;
+6.  main       Proposed 2 at full size through ``methods.run``: 294,912 TET10
+               elements, 150 springs per point (θ = 7.08 GB in pinned host
+               memory), ``npart=8``, prefetch, fp64, 8 steps;
+7.  lm_cpu     qwen3-1.7b at full width, 2 layers, fp32: prefill + 4 decode
+               steps on the card against the CPU, and prefill→decode against
+               ``forward`` on the card;
+8.  lm_main    qwen3-1.7b at full width and depth (28 layers), bf16 compute:
+               prefill of 4 × 4,096 tokens (28 flash launches), then 32
+               greedy decode steps;
+9.  lm_offload ``generate`` with the KV cache in pinned host memory (4 blocks
+               of 7 layers, prefetch) gives the resident tokens; the same
+               tokens stepped through both decode steps give bitwise equal
+               logits and caches;
+10. timing     each kernel at the shapes its main path gives it, against its
+               plain version, its bound and (flash) SDPA, with flash held in
+               fp32 and bf16 there too; a breakdown of one full-size FEM step,
+               of one prefill and of one decode step.
 
 It prints one ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -40,9 +55,56 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, non-tensor-core for fp32/fp64)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"torch.float64": 34e12, "torch.float32": 67e12}
+PEAK_FLOPS = {"torch.float64": 34e12, "torch.float32": 67e12, "torch.bfloat16": 989e12}  # bf16: tensor cores
 MS_OPS_PER_SPRING = 124  # counted from csrc/multispring.cu (pow as one op)
 EBE_OPS_PER_ELEM = 2448  # 4 points × (2·90 g + 2·90 H + 2·36 Dε + 2·90 Bᵀσ)
+FEM_KERNELS = ("multispring", "ebe_matvec_f64", "ebe_matvec_f32")
+# (B, Hq, Hkv, Sq, Skv, dh, dv, causal, window, softcap, strided q/k/v)
+FLASH_CASES = [
+    (1, 2, 2, 64, 64, 32, 32, True, None, None, False),
+    (2, 4, 2, 100, 100, 64, 64, True, None, None, False),   # GQA, ragged
+    (1, 2, 1, 48, 160, 64, 64, True, None, None, False),    # Sq < Skv
+    (1, 2, 2, 96, 96, 64, 64, True, 32, None, False),       # window
+    (1, 2, 2, 80, 80, 64, 64, True, None, 30.0, False),     # softcap
+    (1, 3, 1, 64, 64, 40, 40, False, None, None, False),    # non-causal, odd dh
+] + [(1, 2, 1, min(sq, skv), skv, 32, 32, True, None, None, False)
+     for sq in (1, 7, 33, 130) for skv in (64, 129, 200)] + [
+    (2, 16, 8, 100, 150, 128, 128, True, None, None, True),  # qwen3's heads, strided as in the layer
+    (1, 4, 2, 100, 150, 256, 256, True, 64, 50.0, False),
+    (1, 4, 2, 100, 150, 192, 128, True, None, None, False),  # MLA's dh ≠ dv
+]
+FLASH_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def ptxas_report(log):
+    """Registers and spill bytes of every kernel instance, from ``-Xptxas -v``."""
+    kinds = {"d": "double", "f": "float", "13__nv_bfloat16": "bf16"}
+    out = {}
+    for chunk in log.split("Compiling entry function '")[1:]:
+        m = re.search(r"(ms_update_kernel|ebe_kernel|flash_kernel)I(d|f|13__nv_bfloat16)(?:Li(\d+)E)?E",
+                      chunk.split("'", 1)[0])
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+        if m and regs:
+            name = f"{m.group(1)}<{kinds[m.group(2)]}{', ' + m.group(3) if m.group(3) else ''}>"
+            out[name] = {"registers": int(regs.group(1)),
+                         "spill_store_bytes": int(spill.group(1)) if spill else None,
+                         "spill_load_bytes": int(spill.group(2)) if spill else None}
+    return out
 
 
 def emit(obj):
@@ -77,11 +139,15 @@ def main() -> int:
     import numpy as np
 
     from repro_torch import kernels
+    from repro_torch.configs import ARCHS
     from repro_torch.core import hetmem
     from repro_torch.fem import meshgen, methods, multispring as ms, spmv
     from repro_torch.kernels import _build
     from repro_torch.kernels.ebe_matvec import ops as ebe_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.multispring import ops as ms_ops
+    from repro_torch.models import layers as L, transformer as T
+    from repro_torch.serving import decode as serve
 
     # plain versions run on the card below: full fp32, no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -97,9 +163,7 @@ def main() -> int:
 
     with Phase("build"):
         _build.library()
-        regs = re.findall(r"Compiling entry function '\w*?(ms_update_kernel|ebe_kernel)I([fd])E\w*'"
-                          r".*?Used (\d+) registers", _build.ptxas_log(), re.S)
-        emit({"registers": {f"{name}<{'double' if t == 'd' else 'float'}>": int(n) for name, t, n in regs}})
+        emit({"registers_spills": ptxas_report(_build.ptxas_log())})
 
     def rel_err(a, b):
         return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
@@ -148,6 +212,28 @@ def main() -> int:
                 emit({"check": "ebe_matvec", "dtype": str(dt), "E": E, "coef": c is not None,
                       "max_rel_err": err, "tol": etol})
                 require(err <= etol, f"ebe_matvec disagrees: {err} > {etol}")
+
+        for case in FLASH_CASES:
+            B, Hq, Hkv, Sq, Skv, dh, dv, causal, window, cap, strided = case
+            for dt in (torch.float32, torch.bfloat16):
+                g = torch.Generator(device=dev).manual_seed(Sq * 1000 + Skv)
+
+                def heads(H, S, d):  # [B,H,S,d], or a transposed view of [B,S,H,d] as the layer gives
+                    shape = (B, S, H, d) if strided else (B, H, S, d)
+                    x = torch.randn(shape, device=dev, generator=g).to(dt)
+                    return x.transpose(1, 2) if strided else x
+
+                q, k, v = heads(Hq, Sq, dh), heads(Hkv, Skv, dh), heads(Hkv, Skv, dv)
+                kw = dict(causal=causal, window=window, softcap=cap)
+                out_k = fa_ops.flash_attention_cuda(q, k, v, **kw)
+                out_p = fa_ops.flash_attention_ref(q, k, v, **kw)
+                torch.cuda.synchronize()
+                err = float((out_k.float() - out_p.float()).abs().max())
+                tol = FLASH_TOL[str(dt)]
+                emit({"check": "flash_attention", "dtype": str(dt), "case": case, "max_abs_err": err,
+                      "tol": tol})
+                require(out_k.dtype == dt and tuple(out_k.shape) == (B, Hq, Sq, dv), "flash output shape/dtype")
+                require(err <= tol, f"flash_attention disagrees: {err} > {tol} at {case} ({dt})")
 
     def wave_for(nt, dt):
         t = np.arange(nt) * dt
@@ -220,12 +306,127 @@ def main() -> int:
               "max_abs_v_observed": float(v.abs().max()), "max_abs_v_field": float(res["v"].abs().max()),
               "max_abs_u_field": float(res["u"].abs().max())})
         require(bool(res["converged"].all()), "a full-size step did not converge")
-        require(all(n > 0 for n in launches.values()), f"a kernel of the path never launched: {launches}")
+        require(all(launches[n] > 0 for n in FEM_KERNELS), f"a kernel of the path never launched: {launches}")
         require(pinned, "θ blocks are not pinned host tensors")
         require(peak < theta_bytes, f"peak device memory {peak} ≥ θ bytes {theta_bytes}")
         require(bool(torch.isfinite(v).all()) and bool(torch.isfinite(res["u"]).all()), "result not finite")
         require(float(res["v"].abs().max()) > 0, "the wave moved nothing")
         require(tuple(res["u"].shape) == (mesh.n_nodes, 3), "u has the wrong shape")
+
+    qwen = ARCHS["qwen3-1.7b"]
+
+    def greedy(logits):
+        return logits[:, -1].argmax(-1, keepdim=True)
+
+    with Phase("lm_cpu"):
+        # full width, 2 layers, fp32: the card against the CPU on the same weights
+        cfg_s = dataclasses.replace(qwen, n_layers=2, dtype="float32")
+        p_cpu = T.init_params(cfg_s, torch.Generator().manual_seed(0), "cpu")
+        p_gpu = _tree_to(p_cpu, dev)
+        B, S0, NEW = 2, 64, 4
+        toks = torch.randint(0, qwen.vocab_size, (B, S0 + NEW), generator=torch.Generator().manual_seed(1))
+        runs = {}
+        for name, params_, d in (("cpu", p_cpu, torch.device("cpu")), ("gpu", p_gpu, dev)):
+            t = toks.to(d)
+            lg, st = T.prefill(params_, cfg_s, {"tokens": t[:, :S0]}, cache_len=S0 + NEW)
+            out = [lg[:, 0]]
+            for i in range(S0, S0 + NEW):
+                lg, st = T.decode_step(params_, cfg_s, t[:, i:i + 1], st)
+                out.append(lg[:, 0])
+            runs[name] = torch.stack(out, 1).cpu()
+        fwd = T.forward(p_gpu, cfg_s, {"tokens": toks.to(dev)})[0][:, S0 - 1:].cpu()
+        scale = float(runs["cpu"].abs().max())
+        err_cpu = float((runs["gpu"] - runs["cpu"]).abs().max())
+        err_fwd = float((runs["gpu"] - fwd).abs().max())
+        same_tokens = torch.equal(runs["gpu"].argmax(-1), runs["cpu"].argmax(-1))
+        emit({"check": "lm_gpu_vs_cpu", "arch": cfg_s.name, "layers": 2, "dtype": "float32", "B": B,
+              "prompt": S0, "decode_steps": NEW, "max_abs_err_vs_cpu": err_cpu, "max_abs_err_vs_forward": err_fwd,
+              "atol": 5e-5 * scale, "greedy_tokens_equal": same_tokens})
+        require(err_cpu <= 5e-5 * scale, f"LM logits on the card differ from the CPU: {err_cpu}")
+        require(err_fwd <= 5e-5 * scale, f"prefill→decode differs from forward on the card: {err_fwd}")
+        require(same_tokens, "greedy tokens differ between card and CPU")
+        del p_cpu, p_gpu, runs, fwd, st, lg
+
+    with Phase("lm_main"):
+        cfg_l = qwen  # 28 layers, bf16 compute, fp32 parameters
+        params = T.init_params(cfg_l, torch.Generator(device=dev).manual_seed(0), dev)
+        n_params = sum(x.numel() for x in _leaves(params))
+        B, S0, NEW, C = 4, 4096, 32, 4128
+        prompt_main = torch.randint(0, cfg_l.vocab_size, (B, S0), device=dev,
+                                    generator=torch.Generator(device=dev).manual_seed(1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()  # counts of the main path's run only
+        t0 = time.perf_counter()
+        logits, state = T.prefill(params, cfg_l, {"tokens": prompt_main}, cache_len=C)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        flash_prefill = kernels.launch_counts()["flash_attention"]
+        require(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+        tok, gen = greedy(logits), []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(NEW):
+            gen.append(tok)
+            logits, state = T.decode_step(params, cfg_l, tok, state)
+            tok = greedy(logits)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        lm_launches = kernels.launch_counts()
+        gen = torch.cat(gen, 1)
+        emit({"arch": cfg_l.name, "layers": cfg_l.n_layers, "params": n_params, "B": B, "prompt": S0,
+              "cache_len": C, "new_tokens": NEW, "prefill_s": prefill_s,
+              "prefill_tokens_per_s": B * S0 / prefill_s, "decode_s": decode_s,
+              "decode_tokens_per_s": B * NEW / decode_s, "peak_device_bytes": torch.cuda.max_memory_allocated(),
+              "flash_launches_prefill": flash_prefill,
+              "flash_launches_decode": lm_launches["flash_attention"] - flash_prefill,
+              "launches": lm_launches, "tokens_row0": gen[0, :8].tolist()})
+        require(flash_prefill == cfg_l.n_layers, f"{flash_prefill} flash launches in prefill, not {cfg_l.n_layers}")
+        require(lm_launches["flash_attention"] == flash_prefill, "decode launched the flash kernel")
+        require(bool(torch.isfinite(logits).all()), "decode logits not finite")
+        require(tuple(gen.shape) == (B, NEW), f"generated {tuple(gen.shape)}, not {(B, NEW)}")
+        require(state["pos"] == S0 + NEW, "decode state position")
+        del state, logits
+
+    with Phase("lm_offload"):
+        B, S0, NEW, npart = 4, 64, 32, 4
+        prompt = torch.randint(0, qwen.vocab_size, (B, S0), device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res_tok = serve.generate(params, qwen, prompt, NEW)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        off_tok = serve.generate(params, qwen, prompt, NEW, serve.ServeConfig(kv_offload=True, kv_npart=npart),
+                                 kv_schedule="prefetch")
+        torch.cuda.synchronize()
+        res_s, off_s = t1 - t0, time.perf_counter() - t1
+        # the generated tokens stepped through both decode steps, as generate
+        # steps them: every step's logits, the last one's included, and the
+        # final caches bitwise equal
+        C = S0 + NEW
+        state = T.init_decode_state(qwen, B, C, dtype=L.dt(qwen), device=dev)
+        ostate, kv = {"pos": 0}, serve.make_kv_blocks(qwen, B, C, npart, dtype=L.dt(qwen), device=dev)
+        steps_equal = 0
+        for t in range(C):
+            lg, state = T.decode_step(params, qwen, res_tok[:, t:t + 1], state)
+            olg, ostate, kv = serve.decode_step_offloaded(params, qwen, res_tok[:, t:t + 1], ostate, kv,
+                                                          schedule="prefetch")
+            steps_equal += int(torch.equal(olg, lg))
+        kv_equal = all(torch.equal(torch.cat([blk[i] for blk in kv]).to(dev), state["layers"][name])
+                       for i, name in enumerate(("k", "v")))
+        pinned = all(hetmem.is_pinned_host(x) for blk in kv for x in blk)
+        emit({"check": "offloaded_vs_resident", "B": B, "prompt": S0, "new_tokens": NEW, "kv_npart": npart,
+              "layers_per_block": qwen.n_layers // npart, "schedule": "prefetch",
+              "tokens_equal": torch.equal(off_tok, res_tok), "steps_with_bitwise_logits": steps_equal,
+              "steps": C, "kv_bitwise": kv_equal, "kv_blocks_pinned_host": pinned,
+              "resident_generate_s": res_s, "offloaded_generate_s": off_s})
+        require(tuple(off_tok.shape) == (B, S0 + NEW), "generate returned the wrong shape")
+        require(torch.equal(off_tok, res_tok), "offloaded generate's tokens differ from resident")
+        require(steps_equal == C, f"offloaded logits differ from resident at {C - steps_equal} of {C} steps")
+        require(kv_equal, "offloaded KV cache differs from resident")
+        require(pinned, "KV blocks are not pinned host tensors")
+        del state, ostate, kv, lg, olg
 
     def cuda_ms(fn, reps):
         fn()
@@ -315,6 +516,99 @@ def main() -> int:
             "ebe_diag_inverse_ms": diag_ms,
             "solve_and_rest_ms": step_s * 1e3 - stream_ms - diag_ms,
             "outer_iters": [r["iters"] for r in steps]}})
+        # flash attention at lm_main's shape: B 4, Hq 16, Hkv 8, S 4,096, dh 128, causal,
+        # laid out as the layer gives it: q and k contiguous (rope's output), v
+        # a transposed view of the [B,S,Hkv,dh] projection
+        g = torch.Generator(device=dev).manual_seed(3)
+        Bf, Hq, Hkv, S, dh = 4, qwen.n_heads, qwen.n_kv_heads, 4096, qwen.hd
+        q = torch.randn((Bf, Hq, S, dh), device=dev, generator=g)
+        k = torch.randn((Bf, Hkv, S, dh), device=dev, generator=g)
+        v_bshd = torch.randn((Bf, S, Hkv, dh), device=dev, generator=g)
+        # fp32 at the reference's 2e-5: at S 4,096 most rows average thousands
+        # of keys, so |o| is ~0.03 and only fp32 holds those rows sharply
+        args = (q, k, v_bshd.transpose(1, 2))
+        err32 = float((fa_ops.flash_attention_cuda(*args) - fa_ops.flash_attention_ref(*args)).abs().max())
+        require(err32 <= FLASH_TOL["torch.float32"], f"flash_attention fp32 disagrees at the main path's shape: {err32}")
+        q, k, v = q.bfloat16(), k.bfloat16(), v_bshd.bfloat16().transpose(1, 2)
+        del args, v_bshd
+        out_k, out_p = fa_ops.flash_attention_cuda(q, k, v), fa_ops.flash_attention_ref(q, k, v)
+        err = float((out_k.float() - out_p.float()).abs().max())
+        # bf16 relative to each value: 2 ulps of |o| plus 2^-5 of its row's rms
+        # (p rounds to bf16 at different running maxima in the two versions,
+        # an error of ~0.3% of the row's rms with no floor at o ≈ 0)
+        ref32 = out_p.float()
+        ulp = torch.where(ref32 == 0, 0.0, torch.ldexp(torch.ones_like(ref32), torch.frexp(ref32)[1] - 8))
+        lim = 2 * ulp + 2**-5 * ref32.pow(2).mean(-1, keepdim=True).sqrt()
+        ratio = float(((out_k.float() - ref32).abs() / lim).max())
+        require(ratio <= 1.0, f"flash_attention bf16 disagrees at the main path's shape: {ratio} of its limit")
+        sdpa = torch.nn.functional.scaled_dot_product_attention  # yardstick only: the port never calls it
+        lib = sdpa(q, k, v, is_causal=True, enable_gqa=True).float()
+        lib_err, lib_ratio = float((lib - ref32).abs().max()), float(((lib - ref32).abs() / lim).max())
+        del ref32, ulp, lim, lib
+        pairs = S * (S + 1) // 2  # (q, k) pairs the causal mask keeps
+        b_fa, by = bound(nbytes(q, k, v, out_k), 4 * Bf * Hq * pairs * dh, torch.bfloat16)
+        fa_ms = cuda_ms(lambda: fa_ops.flash_attention_cuda(q, k, v), 5)
+        rows.append({"name": "flash_attention", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+                     "replaces": "src/repro/kernels/flash_attention/flash_attention.py:83",
+                     "launches": lm_launches["flash_attention"], "max_abs_err": err,
+                     "ms": fa_ms, "plain_ms": cuda_ms(lambda: fa_ops.flash_attention_ref(q, k, v), 2),
+                     "bound_ms": b_fa, "bound_by": by,
+                     "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 10),
+                     "detail": {"B": Bf, "Hq": Hq, "Hkv": Hkv, "S": S, "dh": dh, "dtype": "torch.bfloat16",
+                                "causal": True, "v_strided": True, "bf16_err_over_limit": ratio,
+                                "bf16_limit": "2 ulp(|o|) + 2^-5 rms(o row)", "fp32_max_abs_err": err32,
+                                "fp32_tol": FLASH_TOL["torch.float32"], "sdpa_max_abs_err": lib_err,
+                                "sdpa_err_over_limit": lib_ratio,
+                                "fp32_cuda_core_floor_ms": 4 * Bf * Hq * pairs * dh / PEAK_FLOPS["torch.float32"] * 1e3}})
+        del q, k, v, out_k, out_p
+        # breakdown of one prefill at lm_main's shape (CUDA events)
+        x = torch.randn((4, S, qwen.d_model), device=dev, generator=g).to(torch.bfloat16)
+        lp = T.layer(params["layers"], 0)
+
+        def layer_matmuls():
+            a = lp["attn"]
+            for w in (a["wq"], a["wk"], a["wv"]):
+                L.proj(x, w.to(x.dtype))
+            x @ a["wo"].to(x.dtype).reshape(-1, qwen.d_model)
+            h = L.proj(x, lp["mlp"]["w1"].to(x.dtype))
+            h @ lp["mlp"]["w2"].to(x.dtype)
+            L.proj(x, lp["mlp"]["w3"].to(x.dtype))
+
+        prefill_ms = cuda_ms(lambda: T.prefill(params, qwen, {"tokens": prompt_main}, cache_len=4128), 1)
+        mm_ms = qwen.n_layers * cuda_ms(layer_matmuls, 3)
+        emit({"prefill_breakdown": {
+            "prefill_ms": prefill_ms, "flash_total_ms": qwen.n_layers * fa_ms,
+            "matmuls_with_weight_casts_ms": mm_ms,
+            "rest_ms": prefill_ms - qwen.n_layers * fa_ms - mm_ms}})
+        # one decode step at lm_main's shape (cache 4,128, pos 4,096): host
+        # enqueue time, synchronised step time, and the kernels' own time from
+        # the profiler, whose sum over the step time is the device's busy share
+        state = T.prefill(params, qwen, {"tokens": prompt_main}, cache_len=4128)[1]
+        tok, n = prompt_main[:, -1:], 8
+
+        def steps():
+            for _ in range(n):
+                T.decode_step(params, qwen, tok, state)  # rewrites slot 4,096 each time
+
+        steps()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps()
+        enqueue_ms = (time.perf_counter() - t0) / n * 1e3
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / n * 1e3
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            steps()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernel_ms = sum(getattr(e, "self_device_time_total", 0) for e in events) / n / 1e3
+        emit({"decode_breakdown": {
+            "step_ms": step_ms, "host_enqueue_ms": enqueue_ms, "device_kernel_ms": kernel_ms,
+            "device_busy_share": kernel_ms / step_ms,
+            "device_ops_per_step": sum(e.count for e in events if getattr(e, "self_device_time_total", 0)) / n,
+            "top_device_ops_ms_per_step": {e.key: getattr(e, "self_device_time_total", 0) / n / 1e3 for e in sorted(
+                events, key=lambda e: -getattr(e, "self_device_time_total", 0))[:6]}}})
+        del state
         print(smi, flush=True)
         emit({"kernel_detail": {r["name"]: r["detail"] for r in rows}})
         emit({"kernels": [{k: v for k, v in r.items() if k != "detail"} for r in rows]})

@@ -4,7 +4,9 @@
 dict with the reference ``Mesh``'s numpy fields; :func:`carry_from_numpy`
 turns a mid-run Proposed 2 carry (as numpy) into the port's carry on an
 operator set's device, so both packages can continue from the same
-nonlinear state.  There are no learned weights on this path.
+nonlinear state.  :func:`params_from_numpy` and
+:func:`decode_state_from_numpy` do the same for a language model's
+parameters and for a decode state (the KV caches after a prefill).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.fem import meshgen, multispring as ms, newmark
 from repro_torch.fem.methods import partition_springs, springs_to_host
+from repro_torch.models import transformer
 
 _MATERIAL_FIELDS = tuple(f.name for f in dataclasses.fields(meshgen.Material))
 
@@ -71,3 +74,36 @@ def carry_from_numpy(carry: dict[str, Any], ops, *, streamed: bool):
     if cfg.precond_every > 1:
         tail += (T(carry["Minv"]), int(carry["step"]))
     return (nm, springs, T(carry["D"]), T(carry["alpha"]), T(carry["beta_e"]), *tail)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # numpy has no bf16 of its own: go through fp32, exactly
+        return torch.tensor(a.astype(np.float32), device=device).to(torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
+def _tree(tree: Any, device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _tree(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)
+
+
+def params_from_numpy(tree: dict[str, Any], cfg, device) -> dict[str, Any]:
+    """The port's parameters for ``cfg`` from the JAX ``init_params`` tree
+    (leaves as numpy arrays; same keys, stacked ``[L,…]`` layer tensors)."""
+    transformer.check_supported(cfg)
+    expected = {"embed", "layers", "final_norm"} | ({"lm_head"} if not cfg.tie_embeddings else set())
+    if set(tree) != expected:
+        raise ValueError(f"parameter tree has keys {sorted(tree)}, expected {sorted(expected)}")
+    params = _tree(tree, device)
+    if transformer.n_stacked(params["layers"]) != cfg.n_layers:
+        raise ValueError(f"layer stack of {transformer.n_stacked(params['layers'])}, cfg has {cfg.n_layers}")
+    return params
+
+
+def decode_state_from_numpy(state: dict[str, Any], cfg, device) -> dict[str, Any]:
+    """The port's decode state from the JAX one (``{"pos", "layers": {"k",
+    "v"}}``, numpy leaves), e.g. the state a JAX ``prefill`` returned."""
+    transformer.check_supported(cfg)
+    return {"pos": int(np.asarray(state["pos"])), "layers": _tree(state["layers"], device)}

@@ -75,15 +75,28 @@ class StreamPlan:
 
 class StreamResult(NamedTuple):
     state: PartitionedState
+    carry: Any
     extras: list
 
 
 class StreamEngine:
     """Executes a :class:`StreamPlan` over a :class:`PartitionedState`.
 
-    ``fn(dev_block, *per_block_j, *broadcast)`` sees device-resident
-    operands and returns the evolved block (a list of tensors), or
-    ``(block', extra)`` with ``collect=True``.
+    The per-block kernel ``fn`` sees device-resident operands and returns the
+    evolved block (a list of tensors):
+
+    ==============================  =========================================
+    plan                            ``fn`` signature → return
+    ==============================  =========================================
+    plain                           ``fn(blk, *pb_j, *bc) → blk'``
+    ``collect=True``                ``… → (blk', extra)``
+    ``carry=…`` passed to ``run``   ``fn(blk, carry, *pb_j, *bc) → (blk', carry')``
+    carry + collect                 ``… → (blk', carry', extra)``
+    ==============================  =========================================
+
+    A carry threads through the blocks in order (the serving decode's hidden
+    state flowing through layer groups).  It does not hold back prefetch:
+    the copies depend only on the host blocks, not on the carry.
     """
 
     def __init__(self, plan: StreamPlan):
@@ -93,7 +106,8 @@ class StreamEngine:
         raise NotImplementedError(f"StreamEngine.kmap (k-set ensembles) is {_LATER}")
 
     def run(self, fn: Callable[..., Any], state: PartitionedState, *,
-            per_block: Sequence[Sequence[Any]] = (), broadcast: Sequence[Any] = ()) -> StreamResult:
+            per_block: Sequence[Sequence[Any]] = (), broadcast: Sequence[Any] = (),
+            carry: Any = None) -> StreamResult:
         plan = self.plan
         blocks = state.blocks
         npart = len(blocks)
@@ -103,10 +117,17 @@ class StreamEngine:
             if len(pb) != npart:
                 raise ValueError(f"per_block[{i}] has {len(pb)} entries, expected {npart}")
         bc = tuple(broadcast)
+        has_carry = carry is not None
+        box = [carry]  # the carry after the blocks called so far
 
         def call(j, dev_blk):
-            out = fn(dev_blk, *(pb[j] for pb in per_block), *bc)
-            return out if plan.collect else (out, None)
+            args = (*(pb[j] for pb in per_block), *bc)
+            if not has_carry:
+                out = fn(dev_blk, *args)
+                return out if plan.collect else (out, None)
+            out = fn(dev_blk, box[0], *args)
+            new_blk, box[0], extra = out if plan.collect else (*out, None)
+            return new_blk, extra
 
         extras: list = []
         if not (plan.offload and transfers_real(plan.device)):
@@ -119,7 +140,7 @@ class StreamEngine:
             out_blocks = self._serial(call, blocks, extras)
         else:
             out_blocks = self._prefetch(call, blocks, extras)
-        return StreamResult(state=PartitionedState(blocks=out_blocks),
+        return StreamResult(state=PartitionedState(blocks=out_blocks), carry=box[0],
                             extras=extras if plan.collect else [])
 
     def _serial(self, call, blocks, extras):

@@ -21,6 +21,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.device import resolve_device
+
 BACKEND_SPECS = ("auto", "cuda", "torch")
 _RESOLVED = ("cuda", "torch")
 
@@ -71,10 +73,11 @@ class KernelBackend:
         return functools.partial(ms_ops.update, tile_p=self.tile_p)
 
 
-def resolve(cfg, *, device="cpu") -> KernelBackend:
+def resolve(cfg, *, device=None) -> KernelBackend:
     """Resolve a :class:`~repro_torch.fem.methods.SeismicConfig`'s backend knobs
-    for ``device``.  Per kernel: the per-kernel override (``ebe_backend``/
+    for ``device`` (``None`` → the card).  Per kernel: the per-kernel override (``ebe_backend``/
     ``ms_backend``, "" = inherit) > the global ``backend``."""
+    device = resolve_device(device)
     return KernelBackend(
         ebe=resolve_spec(cfg.ebe_backend or cfg.backend, device),
         multispring=resolve_spec(cfg.ms_backend or cfg.backend, device),
@@ -83,12 +86,14 @@ def resolve(cfg, *, device="cpu") -> KernelBackend:
     )
 
 
-def make_operators(mesh, cfg, *, device="cpu"):
+def make_operators(mesh, cfg, *, device=None):
     """The production ``FemOperators`` constructor: resolve ``cfg``'s backend
-    spec for ``device``, wire the chosen kernels in, and attach the resolved
+    spec for ``device`` (``None`` → the card, see ``device.resolve_device``),
+    wire the chosen kernels in, and attach the resolved
     :class:`KernelBackend` as ``ops.kernel_backend``."""
     from repro_torch.fem import methods
 
+    device = resolve_device(device)
     kb = resolve(cfg, device=device)
     ops = methods.FemOperators(mesh, cfg, device=device, element_kernel=kb.element_kernel(),
                                multispring_fn=kb.multispring_fn())

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.core import hetmem
 from repro_torch.core.stream import StreamEngine, StreamPlan
+from repro_torch.device import resolve_device
 from repro_torch.fem import assembly, multispring as ms, newmark, quadrature as quad, solver, spmv
 
 DIAG_CHUNK = 32768  # elements per chunk of ebe_diag_inverse's B-matrix einsum
@@ -62,32 +63,20 @@ class StepAux(NamedTuple):
     converged: bool = True
 
 
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card.  Without one this raises: the CPU runs only
-    when the caller asks for it."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; the port runs on the card unless the "
-            "caller passes device='cpu'"
-        )
-    return dev
-
-
 class FemOperators:
     """Mesh-bound operators of Proposed 2, with everything the matvecs read
     held on the device in each dtype they use (fp64 outer, fp32 inner)."""
 
     _state_keys = ms.STATE_KEYS
 
-    def __init__(self, mesh, cfg: SeismicConfig, *, device="cpu", element_kernel=None,
+    def __init__(self, mesh, cfg: SeismicConfig, *, device=None, element_kernel=None,
                  multispring_fn=None):
         from repro_torch.kernels.ebe_matvec import ops as ebe_ops
         from repro_torch.kernels.multispring import ops as ms_ops
 
         self.mesh = mesh
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         dt, dev = cfg.rdtype, self.device
 
         def T(a):

@@ -23,6 +23,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 NSPRING_DEFAULT = 150
 STATE_KEYS = ("gamma_rev", "tau_rev", "gamma_prev", "gamma_max", "direction", "virgin")
 FLAG_KEYS = ("direction", "virgin")
@@ -66,8 +68,11 @@ class SpringParams:
 
 
 def init_state(n_points: int, nspring: int = NSPRING_DEFAULT, dtype=torch.float64,
-               device="cpu", pin_memory: bool = False) -> dict[str, torch.Tensor]:
-    """Fresh (virgin) spring state for ``n_points`` evaluation points."""
+               device=None, pin_memory: bool = False) -> dict[str, torch.Tensor]:
+    """Fresh (virgin) spring state for ``n_points`` evaluation points, on
+    ``device`` (``None`` → the card)."""
+    device = resolve_device(device)
+
     def full(value, dt):
         x = torch.empty((n_points, nspring), dtype=dt, device=device, pin_memory=pin_memory)
         return x.fill_(value)
@@ -180,8 +185,10 @@ def hysteretic_damping(state: dict[str, torch.Tensor], params: SpringParams) -> 
     return (1.0 - gsec_ratio).mean(dim=1)  # [P] in [0,1); caller scales by h_max
 
 
-def material_params_for_mesh(mesh, dtype=torch.float64, device="cpu") -> SpringParams:
-    """Broadcast the per-element material table to evaluation points [E*P]."""
+def material_params_for_mesh(mesh, dtype=torch.float64, device=None) -> SpringParams:
+    """Broadcast the per-element material table to evaluation points [E*P],
+    on ``device`` (``None`` → the card)."""
+    device = resolve_device(device)
     P = mesh.wdet.shape[1]
 
     def rep(attr):

@@ -17,6 +17,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.device import resolve_device
+
 
 class NewmarkState(NamedTuple):
     u: torch.Tensor  # [N,3]
@@ -25,8 +27,9 @@ class NewmarkState(NamedTuple):
     q: torch.Tensor  # internal force [N,3]
 
 
-def init_state(n_nodes: int, dtype=torch.float64, device="cpu") -> NewmarkState:
-    z = torch.zeros((n_nodes, 3), dtype=dtype, device=device)
+def init_state(n_nodes: int, dtype=torch.float64, device=None) -> NewmarkState:
+    """Zero state on ``device`` (``None`` → the card)."""
+    z = torch.zeros((n_nodes, 3), dtype=dtype, device=resolve_device(device))
     return NewmarkState(u=z, v=z, a=z, q=z)
 
 

@@ -34,9 +34,10 @@ def check_arg(kernel: str, name: str, x, shape, dtype, device) -> None:
 def counters() -> dict[str, LaunchCounter]:
     """Every kernel's launch counter, by kernel name."""
     from repro_torch.kernels.ebe_matvec import ops as ebe_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.multispring import ops as ms_ops
 
-    return {c.name: c for c in (ms_ops.counter, ebe_ops.counter_f64, ebe_ops.counter_f32)}
+    return {c.name: c for c in (ms_ops.counter, ebe_ops.counter_f64, ebe_ops.counter_f32, fa_ops.counter)}
 
 
 def launch_counts() -> dict[str, int]:

@@ -19,7 +19,7 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("multispring.cu", "ebe_matvec.cu")
+SOURCES = ("multispring.cu", "ebe_matvec.cu", "flash_attention.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIBNAME = "librepro_torch_kernels.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -82,15 +82,21 @@ def ptxas_log() -> str:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _D = ctypes.c_double
 
-# C signatures: every pointer and the stream are c_void_p, sizes are c_int.
-_SIGNATURES = {
+# C entry points ``<base>_<suffix>``, one per dtype suffix, with their
+# signatures: every pointer and the stream are c_void_p, sizes are c_int,
+# strides c_longlong.
+_ENTRY_POINTS = {
     # eps, grev, trev, gprev, gmax, dir, virg, G0, gr, beta, bulk, n, w,
     # g_min_frac, P, S, tile_p, sig, D, frac, ngrev, ntrev, ngprev, ngmax, ndir, nvirg, stream
-    "ms_update": [_P] * 13 + [_D, _I, _I, _I] + [_P] * 9 + [_P],
+    "ms_update": (("f32", "f64"), [_P] * 13 + [_D, _I, _I, _I] + [_P] * 9 + [_P]),
     # u, D, Jinv, wdet, coef (nullable), gradn, E, tile_e, out, stream
-    "ebe_element_matvec": [_P] * 6 + [_I, _I, _P, _P],
+    "ebe_element_matvec": (("f32", "f64"), [_P] * 6 + [_I, _I, _P, _P]),
+    # q, k, v, out, B, Hq, Hkv, Sq, Skv, dh, dv, q/k/v strides (batch, head, row),
+    # scale, causal, window (0: none), softcap (0: none), stream
+    "flash_attention": (("f32", "bf16"), [_P] * 4 + [_I] * 7 + [_L] * 9 + [_D, _I, _I, _D, _P]),
 }
 
 
@@ -98,8 +104,8 @@ _SIGNATURES = {
 def library() -> ctypes.CDLL:
     """The loaded kernel library, with argtypes set on every entry point."""
     lib = ctypes.CDLL(str(build()))
-    for base, argtypes in _SIGNATURES.items():
-        for suffix in ("f32", "f64"):
+    for base, (suffixes, argtypes) in _ENTRY_POINTS.items():
+        for suffix in suffixes:
             fn = getattr(lib, f"{base}_{suffix}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

@@ -1,0 +1,22 @@
+"""Public entry of the flash attention kernel.
+
+The kernel is chosen by the tensors' device: on a CPU tensor
+:func:`flash_attention` runs the plain version (``ref.flash_attention_ref``);
+on a CUDA tensor it launches ``csrc/flash_attention.cu`` or raises.  There
+is no fallback from one to the other.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.flash_attention.flash_attention import counter, flash_attention_cuda
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
+                    softcap: float | None = None, scale: float | None = None):
+    """``o [B,Hq,Sq,dv]`` for ``q [B,Hq,Sq,dh]``, ``k [B,Hkv,Skv,dh]``, ``v [B,Hkv,Skv,dv]``."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)
+
+
+__all__ = ["flash_attention", "flash_attention_cuda", "flash_attention_ref", "counter"]

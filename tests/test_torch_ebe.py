@@ -44,10 +44,10 @@ def test_element_product_matches_oracle_and_pallas(dtype, tol, with_coef):
 def elastic():
     """Mesh (3,3,3) with the elastic tangent from the port's multispring."""
     m = meshgen.generate(3, 3, 3, pad_elems_to=8)
-    params = ms.material_params_for_mesh(m)
+    params = ms.material_params_for_mesh(m, device="cpu")
     n, w = (torch.tensor(a) for a in ms.spring_directions(30))
     npts = m.n_elem * quad.NPOINT
-    _, D0, _ = ms.update(torch.zeros((npts, 6), dtype=torch.float64), ms.init_state(npts, 30), params, n, w)
+    _, D0, _ = ms.update(torch.zeros((npts, 6), dtype=torch.float64), ms.init_state(npts, 30, device="cpu"), params, n, w)
     return m, D0.reshape(m.n_elem, quad.NPOINT, 6, 6)
 
 

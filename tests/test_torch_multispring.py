@@ -49,7 +49,7 @@ def test_update_path_matches_oracle_and_pallas(dtype, tol, nspring):
         n_t, w_t = torch.tensor(n, dtype=tdt), torch.tensor(w, dtype=tdt)
         st_ref = ref_ms.init_state(P, nspring, dtype)
         st_pal = dict(st_ref)
-        st_port = ms.init_state(P, nspring, tdt)
+        st_port = ms.init_state(P, nspring, tdt, device="cpu")
         eps = np.zeros((P, 6), dtype)
         for _ in range(6):
             eps = eps + rng.normal(scale=8e-4, size=(P, 6)).astype(dtype)
@@ -84,7 +84,8 @@ def test_tangent_floor_follows_g_min_frac(g_min_frac):
         p_port = ms.SpringParams(**{k: torch.tensor(v) for k, v in raw.items()}, g_min_frac=g_min_frac)
         p_default = ms.SpringParams(**{k: torch.tensor(v) for k, v in raw.items()})
         n, w = ms.spring_directions(S)
-        st_ref, st_port, st_def = ref_ms.init_state(P, S), ms.init_state(P, S), ms.init_state(P, S)
+        st_ref = ref_ms.init_state(P, S)
+        st_port, st_def = ms.init_state(P, S, device="cpu"), ms.init_state(P, S, device="cpu")
         eps = np.zeros((P, 6))
         for _ in range(4):
             eps = eps + rng.normal(scale=3e-3, size=(P, 6))
@@ -96,7 +97,7 @@ def test_tangent_floor_follows_g_min_frac(g_min_frac):
 
 
 def test_state_is_40_bytes_per_spring():
-    st = ms.init_state(5, 12, torch.float64)
+    st = ms.init_state(5, 12, torch.float64, device="cpu")
     assert ms.state_bytes_per_spring(st) == 40
     assert [st[k].dtype for k in ms.STATE_KEYS] == [torch.float64] * 4 + [torch.int32] * 2
     assert ms.state_bytes_per_spring(st) == ref_ms.state_bytes_per_spring(
@@ -111,7 +112,7 @@ def test_tangent_matches_finite_difference_and_is_psd(seed, beta):
     p = ms.SpringParams(*(torch.full((1,), v, dtype=torch.float64) for v in (1e8, 1e-3, beta, 2e8)))
     n, w = (torch.tensor(a) for a in ms.spring_directions(12))
     rng = np.random.default_rng(seed)
-    st = ms.init_state(1, 12)
+    st = ms.init_state(1, 12, device="cpu")
     eps = torch.zeros((1, 6), dtype=torch.float64)
     for _ in range(5):
         step = rng.normal(scale=4e-4, size=(1, 6))

@@ -15,10 +15,10 @@ from repro_torch.fem import assembly, meshgen, multispring as ms, quadrature as 
 def spd():
     """Dense stiffness of the elastic (2,2,2) mesh + a mass term (numpy)."""
     m = meshgen.generate(2, 2, 2, pad_elems_to=4)
-    params = ms.material_params_for_mesh(m)
+    params = ms.material_params_for_mesh(m, device="cpu")
     n, w = (torch.tensor(a) for a in ms.spring_directions(12))
     npts = m.n_elem * quad.NPOINT
-    _, D0, _ = ms.update(torch.zeros((npts, 6), dtype=torch.float64), ms.init_state(npts, 12), params, n, w)
+    _, D0, _ = ms.update(torch.zeros((npts, 6), dtype=torch.float64), ms.init_state(npts, 12, device="cpu"), params, n, w)
     K_e = assembly.element_stiffness(D0.reshape(m.n_elem, quad.NPOINT, 6, 6),
                                      torch.tensor(m.Jinv), torch.tensor(m.wdet))
     A = assembly.dense_assemble(K_e, m.elem_dofs, m.ndof).numpy()

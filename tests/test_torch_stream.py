@@ -98,3 +98,39 @@ def test_partition_and_host_placement_on_cpu():
     blk = [parts[0]["a"], parts[0]["b"]]
     assert all(x is y for x, y in zip(hetmem.put_host(blk, "cpu"), blk))  # identity on the CPU
     assert not hetmem.transfers_real("cpu") and hetmem.transfers_real("cuda")
+
+
+@pytest.mark.parametrize("schedule,depth", [("serial", 1), ("prefetch", 1), ("prefetch", 2)])
+def test_carry_threads_through_blocks_in_order(schedule, depth):
+    """``fn(blk, carry, *pb_j, *bc) → (blk', carry')``: the carry visits the
+    blocks in order, prefetch(k) ≡ serial bitwise, and with ``collect`` the
+    extras come third."""
+    ps = _state(npart=4)
+    offs = [torch.tensor(float(j + 1)) for j in range(4)]
+    order = []
+
+    def fn(blk, h, off, scale):
+        order.append(int(off))
+        a, b = blk
+        h = torch.tanh(h * scale + a.sum(0)) + off
+        return [a + h[0], b * scale], h
+
+    h0 = torch.linspace(-1, 1, 5)
+    plan = StreamPlan(npart=4, schedule=schedule, prefetch=depth)
+    res = StreamEngine(plan).run(fn, ps, per_block=(offs,), broadcast=(torch.tensor(0.5),), carry=h0)
+    ref_h, ref_blocks = h0, []
+    for j, (a, b) in enumerate(_state(npart=4).blocks):
+        ref_h = torch.tanh(ref_h * 0.5 + a.sum(0)) + (j + 1)
+        ref_blocks.append([a + ref_h[0], b * 0.5])
+    assert order == [1, 2, 3, 4]
+    assert torch.equal(res.carry, ref_h)
+    assert torch.equal(_flat(res.state), torch.cat([x.reshape(-1) for blk in ref_blocks for x in blk]))
+    serial = StreamEngine(StreamPlan(npart=4)).run(fn, _state(npart=4), per_block=(offs,),
+                                                   broadcast=(torch.tensor(0.5),), carry=h0)
+    assert torch.equal(serial.carry, res.carry) and torch.equal(_flat(serial.state), _flat(res.state))
+
+    collected = StreamEngine(StreamPlan(npart=4, collect=True)).run(
+        lambda blk, h: (blk, h + 1, h.sum()), _state(npart=4), carry=torch.zeros(2))
+    assert torch.equal(collected.carry, torch.full((2,), 4.0))
+    assert [float(e) for e in collected.extras] == [0.0, 2.0, 4.0, 6.0]
+    assert StreamEngine(StreamPlan(npart=4)).run(_kernel, _state(), broadcast=(torch.tensor(1.0),)).carry is None
