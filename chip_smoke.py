@@ -13,9 +13,11 @@ Phases, each followed by a JSON line with its seconds:
 3.  kernels    each kernel against its plain PyTorch version on the card:
                multispring and the EBE product in both dtypes, ragged shapes,
                flags exact, at the default and a non-default tangent floor;
-               flash attention in fp32 and bf16 over GQA, ragged, Sq < Skv,
-               window, softcap, non-causal, Sq × Skv and dh ∈ {128, 256,
-               192 with dv 128} cases;
+               flash attention in fp32 (CUDA-core kernel) and bf16 (wgmma/TMA
+               kernel) over GQA, ragged, Sq < Skv, window, softcap,
+               non-causal, Sq × Skv, dh ∈ {128, 256, 192 with dv 128}, dh and
+               dv not multiples of 8 (the padding step) and Sq 1 against
+               4,096 keys;
 4.  cpu        the FEM port on the card against the port on the CPU;
 5.  prefetch   ``schedule="prefetch"`` ≡ ``"serial"`` bitwise on the card;
 6.  main       Proposed 2 at full size through ``methods.run``: 294,912 TET10
@@ -23,18 +25,19 @@ Phases, each followed by a JSON line with its seconds:
                memory), ``npart=8``, prefetch, fp64, 8 steps;
 7.  lm_cpu     qwen3-1.7b at full width, 2 layers, fp32: prefill + 4 decode
                steps on the card against the CPU, and prefill→decode against
-               ``forward`` on the card;
+               ``forward`` on the card (the fp32 flash kernel's path);
 8.  lm_main    qwen3-1.7b at full width and depth (28 layers), bf16 compute:
-               prefill of 4 × 4,096 tokens (28 flash launches), then 32
-               greedy decode steps;
+               prefill of 4 × 4,096 tokens (28 launches of the wgmma flash
+               kernel, none of the fp32 one), then 32 greedy decode steps
+               (no flash launch);
 9.  lm_offload ``generate`` with the KV cache in pinned host memory (4 blocks
                of 7 layers, prefetch) gives the resident tokens; the same
                tokens stepped through both decode steps give bitwise equal
                logits and caches;
 10. timing     each kernel at the shapes its main path gives it, against its
                plain version, its bound and (flash) SDPA, with flash held in
-               fp32 and bf16 there too; a breakdown of one full-size FEM step,
-               of one prefill and of one decode step.
+               fp32 and bf16 there too and timed in both; a breakdown of one
+               full-size FEM step, of one prefill and of one decode step.
 
 It prints one ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -72,6 +75,8 @@ FLASH_CASES = [
     (2, 16, 8, 100, 150, 128, 128, True, None, None, True),  # qwen3's heads, strided as in the layer
     (1, 4, 2, 100, 150, 256, 256, True, 64, 50.0, False),
     (1, 4, 2, 100, 150, 192, 128, True, None, None, False),  # MLA's dh ≠ dv
+    (1, 2, 1, 50, 90, 36, 20, True, None, None, True),     # dh, dv not multiples of 8: bf16 pads for TMA
+    (1, 4, 2, 1, 4096, 128, 128, True, None, None, False),  # one query row against a long cache
 ]
 FLASH_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
 
@@ -92,15 +97,19 @@ def _tree_to(tree, device):
 
 def ptxas_report(log):
     """Registers and spill bytes of every kernel instance, from ``-Xptxas -v``."""
-    kinds = {"d": "double", "f": "float", "13__nv_bfloat16": "bf16"}
+    kinds = {"d": "double", "f": "float"}
     out = {}
     for chunk in log.split("Compiling entry function '")[1:]:
-        m = re.search(r"(ms_update_kernel|ebe_kernel|flash_kernel)I(d|f|13__nv_bfloat16)(?:Li(\d+)E)?E",
-                      chunk.split("'", 1)[0])
+        mangled = chunk.split("'", 1)[0]
+        m = re.search(r"(ms_update_kernel|ebe_kernel)I(d|f)E", mangled)
+        fa = re.search(r"(flash_kernel|flash_wgmma_kernel)ILi(\d+)E", mangled)
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
-        if m and regs:
-            name = f"{m.group(1)}<{kinds[m.group(2)]}{', ' + m.group(3) if m.group(3) else ''}>"
+        if (m or fa) and regs:
+            if fa:  # flash_kernel is the fp32 CUDA-core kernel, flash_wgmma_kernel the bf16 one
+                name = f"{fa.group(1)}<{'bf16' if 'wgmma' in fa.group(1) else 'float'}, {fa.group(2)}>"
+            else:
+                name = f"{m.group(1)}<{kinds[m.group(2)]}>"
             out[name] = {"registers": int(regs.group(1)),
                          "spill_store_bytes": int(spill.group(1)) if spill else None,
                          "spill_load_bytes": int(spill.group(2)) if spill else None}
@@ -225,7 +234,11 @@ def main() -> int:
 
                 q, k, v = heads(Hq, Sq, dh), heads(Hkv, Skv, dh), heads(Hkv, Skv, dv)
                 kw = dict(causal=causal, window=window, softcap=cap)
+                before = kernels.instance_counts()
                 out_k = fa_ops.flash_attention_cuda(q, k, v, **kw)
+                ran = {n: c - before[n] for n, c in kernels.instance_counts().items()}
+                require(ran == {n: int(n == fa_ops.COUNTERS[dt].name) for n in ran},
+                        f"flash {dt} went through {ran}, not {fa_ops.COUNTERS[dt].name} alone")
                 out_p = fa_ops.flash_attention_ref(q, k, v, **kw)
                 torch.cuda.synchronize()
                 err = float((out_k.float() - out_p.float()).abs().max())
@@ -326,6 +339,7 @@ def main() -> int:
         B, S0, NEW = 2, 64, 4
         toks = torch.randint(0, qwen.vocab_size, (B, S0 + NEW), generator=torch.Generator().manual_seed(1))
         runs = {}
+        kernels.reset_launch_counts()  # counts of this path's run only: the fp32 flash kernel's path
         for name, params_, d in (("cpu", p_cpu, torch.device("cpu")), ("gpu", p_gpu, dev)):
             t = toks.to(d)
             lg, st = T.prefill(params_, cfg_s, {"tokens": t[:, :S0]}, cache_len=S0 + NEW)
@@ -335,13 +349,16 @@ def main() -> int:
                 out.append(lg[:, 0])
             runs[name] = torch.stack(out, 1).cpu()
         fwd = T.forward(p_gpu, cfg_s, {"tokens": toks.to(dev)})[0][:, S0 - 1:].cpu()
+        cpu_path_launches = kernels.instance_counts()
         scale = float(runs["cpu"].abs().max())
         err_cpu = float((runs["gpu"] - runs["cpu"]).abs().max())
         err_fwd = float((runs["gpu"] - fwd).abs().max())
         same_tokens = torch.equal(runs["gpu"].argmax(-1), runs["cpu"].argmax(-1))
         emit({"check": "lm_gpu_vs_cpu", "arch": cfg_s.name, "layers": 2, "dtype": "float32", "B": B,
               "prompt": S0, "decode_steps": NEW, "max_abs_err_vs_cpu": err_cpu, "max_abs_err_vs_forward": err_fwd,
-              "atol": 5e-5 * scale, "greedy_tokens_equal": same_tokens})
+              "atol": 5e-5 * scale, "greedy_tokens_equal": same_tokens, "flash_launches": cpu_path_launches})
+        require(cpu_path_launches == {"flash_attention_bf16": 0, "flash_attention_f32": 2 * cfg_s.n_layers},
+                f"fp32 prefill + forward made flash launches {cpu_path_launches}")
         require(err_cpu <= 5e-5 * scale, f"LM logits on the card differ from the CPU: {err_cpu}")
         require(err_fwd <= 5e-5 * scale, f"prefill→decode differs from forward on the card: {err_fwd}")
         require(same_tokens, "greedy tokens differ between card and CPU")
@@ -362,6 +379,7 @@ def main() -> int:
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         flash_prefill = kernels.launch_counts()["flash_attention"]
+        prefill_by_kernel = kernels.instance_counts()
         require(bool(torch.isfinite(logits).all()), "prefill logits not finite")
         tok, gen = greedy(logits), []
         torch.cuda.synchronize()
@@ -378,10 +396,11 @@ def main() -> int:
               "cache_len": C, "new_tokens": NEW, "prefill_s": prefill_s,
               "prefill_tokens_per_s": B * S0 / prefill_s, "decode_s": decode_s,
               "decode_tokens_per_s": B * NEW / decode_s, "peak_device_bytes": torch.cuda.max_memory_allocated(),
-              "flash_launches_prefill": flash_prefill,
+              "flash_launches_prefill": prefill_by_kernel,
               "flash_launches_decode": lm_launches["flash_attention"] - flash_prefill,
               "launches": lm_launches, "tokens_row0": gen[0, :8].tolist()})
-        require(flash_prefill == cfg_l.n_layers, f"{flash_prefill} flash launches in prefill, not {cfg_l.n_layers}")
+        require(prefill_by_kernel == {"flash_attention_bf16": cfg_l.n_layers, "flash_attention_f32": 0},
+                f"prefill's flash launches {prefill_by_kernel}, not {cfg_l.n_layers} of the wgmma kernel alone")
         require(lm_launches["flash_attention"] == flash_prefill, "decode launched the flash kernel")
         require(bool(torch.isfinite(logits).all()), "decode logits not finite")
         require(tuple(gen.shape) == (B, NEW), f"generated {tuple(gen.shape)}, not {(B, NEW)}")
@@ -524,13 +543,29 @@ def main() -> int:
         q = torch.randn((Bf, Hq, S, dh), device=dev, generator=g)
         k = torch.randn((Bf, Hkv, S, dh), device=dev, generator=g)
         v_bshd = torch.randn((Bf, S, Hkv, dh), device=dev, generator=g)
-        # fp32 at the reference's 2e-5: at S 4,096 most rows average thousands
-        # of keys, so |o| is ~0.03 and only fp32 holds those rows sharply
+        sdpa = torch.nn.functional.scaled_dot_product_attention  # yardstick only: the port never calls it
+        pairs = S * (S + 1) // 2  # (q, k) pairs the causal mask keeps
+        flops = 4 * Bf * Hq * pairs * dh
+        # fp32 (the CUDA-core kernel) at the reference's 2e-5: at S 4,096 most
+        # rows average thousands of keys, so |o| is ~0.03 and only fp32 holds
+        # those rows sharply
         args = (q, k, v_bshd.transpose(1, 2))
-        err32 = float((fa_ops.flash_attention_cuda(*args) - fa_ops.flash_attention_ref(*args)).abs().max())
+        out32 = fa_ops.flash_attention_cuda(*args)
+        err32 = float((out32 - fa_ops.flash_attention_ref(*args)).abs().max())
         require(err32 <= FLASH_TOL["torch.float32"], f"flash_attention fp32 disagrees at the main path's shape: {err32}")
+        b32, by32 = bound(nbytes(*args, out32), flops, torch.float32)
+        rows.append({"name": "flash_attention_f32", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+                     "replaces": "src/repro/kernels/flash_attention/flash_attention.py:83",
+                     "launches": cpu_path_launches["flash_attention_f32"], "max_abs_err": err32,
+                     "ms": cuda_ms(lambda: fa_ops.flash_attention_cuda(*args), 3),
+                     "plain_ms": cuda_ms(lambda: fa_ops.flash_attention_ref(*args), 1),
+                     "bound_ms": b32, "bound_by": by32,
+                     "library_ms": cuda_ms(lambda: sdpa(*args, is_causal=True, enable_gqa=True), 3),
+                     "detail": {"B": Bf, "Hq": Hq, "Hkv": Hkv, "S": S, "dh": dh, "dtype": "torch.float32",
+                                "causal": True, "v_strided": True, "tol": FLASH_TOL["torch.float32"],
+                                "launches_from": "lm_cpu (fp32 prefill + forward on the card)"}})
         q, k, v = q.bfloat16(), k.bfloat16(), v_bshd.bfloat16().transpose(1, 2)
-        del args, v_bshd
+        del args, v_bshd, out32
         out_k, out_p = fa_ops.flash_attention_cuda(q, k, v), fa_ops.flash_attention_ref(q, k, v)
         err = float((out_k.float() - out_p.float()).abs().max())
         # bf16 relative to each value: 2 ulps of |o| plus 2^-5 of its row's rms
@@ -541,25 +576,22 @@ def main() -> int:
         lim = 2 * ulp + 2**-5 * ref32.pow(2).mean(-1, keepdim=True).sqrt()
         ratio = float(((out_k.float() - ref32).abs() / lim).max())
         require(ratio <= 1.0, f"flash_attention bf16 disagrees at the main path's shape: {ratio} of its limit")
-        sdpa = torch.nn.functional.scaled_dot_product_attention  # yardstick only: the port never calls it
         lib = sdpa(q, k, v, is_causal=True, enable_gqa=True).float()
         lib_err, lib_ratio = float((lib - ref32).abs().max()), float(((lib - ref32).abs() / lim).max())
         del ref32, ulp, lim, lib
-        pairs = S * (S + 1) // 2  # (q, k) pairs the causal mask keeps
-        b_fa, by = bound(nbytes(q, k, v, out_k), 4 * Bf * Hq * pairs * dh, torch.bfloat16)
-        fa_ms = cuda_ms(lambda: fa_ops.flash_attention_cuda(q, k, v), 5)
-        rows.append({"name": "flash_attention", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+        b_fa, by = bound(nbytes(q, k, v, out_k), flops, torch.bfloat16)
+        fa_ms = cuda_ms(lambda: fa_ops.flash_attention_cuda(q, k, v), 20)
+        rows.append({"name": "flash_attention_bf16", "route": "cuda",
+                     "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
                      "replaces": "src/repro/kernels/flash_attention/flash_attention.py:83",
-                     "launches": lm_launches["flash_attention"], "max_abs_err": err,
+                     "launches": prefill_by_kernel["flash_attention_bf16"], "max_abs_err": err,
                      "ms": fa_ms, "plain_ms": cuda_ms(lambda: fa_ops.flash_attention_ref(q, k, v), 2),
                      "bound_ms": b_fa, "bound_by": by,
-                     "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 10),
+                     "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 20),
                      "detail": {"B": Bf, "Hq": Hq, "Hkv": Hkv, "S": S, "dh": dh, "dtype": "torch.bfloat16",
                                 "causal": True, "v_strided": True, "bf16_err_over_limit": ratio,
-                                "bf16_limit": "2 ulp(|o|) + 2^-5 rms(o row)", "fp32_max_abs_err": err32,
-                                "fp32_tol": FLASH_TOL["torch.float32"], "sdpa_max_abs_err": lib_err,
-                                "sdpa_err_over_limit": lib_ratio,
-                                "fp32_cuda_core_floor_ms": 4 * Bf * Hq * pairs * dh / PEAK_FLOPS["torch.float32"] * 1e3}})
+                                "bf16_limit": "2 ulp(|o|) + 2^-5 rms(o row)", "sdpa_max_abs_err": lib_err,
+                                "sdpa_err_over_limit": lib_ratio, "tflop_per_s": flops / (fa_ms / 1e3) / 1e12}})
         del q, k, v, out_k, out_p
         # breakdown of one prefill at lm_main's shape (CUDA events)
         x = torch.randn((4, S, qwen.d_model), device=dev, generator=g).to(torch.bfloat16)

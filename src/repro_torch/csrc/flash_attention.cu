@@ -1,43 +1,40 @@
-// Blocked online-softmax attention for Hopper (sm_90a), never forming S×S:
+// Blocked online-softmax attention in fp32 on the CUDA cores (sm_90a),
+// never forming S×S:
 //   o = softmax(mask(softcap(scale · q kᵀ))) v
 // with GQA (query head h reads KV head h / group), a causal mask offset by
 // Skv − Sq, a sliding window, tanh soft-capping and the real kv length.
 //
 // Replaces: flash_attention_pallas / _flash_kernel in
-//   src/repro/kernels/flash_attention/flash_attention.py (the TPU kernel).
+//   src/repro/kernels/flash_attention/flash_attention.py (the TPU kernel),
+// for fp32 inputs.  bf16 goes to flash_attention_wgmma.cu (tensor cores);
+// TF32 tensor cores could not hold the reference's fp32 tolerance of 2e-5.
 // Plain version: repro_torch.kernels.flash_attention.ref.flash_attention_ref
 // (the blocked form of models/layers.flash_attention_jnp).
 //
 // Numerics, as the TPU kernel: scores, running max, running sum and the
 // output accumulator in fp32; masked scores are -1e30 (not -inf, so a tile
 // masked for a whole row gives exp(0) and is wiped by the next correction
-// instead of NaN); p is rounded to v's dtype before the P·V product while
-// the running sum takes p unrounded; the result acc / (l + 1e-30) is
-// written in q's dtype.
+// instead of NaN); the result is acc / (l + 1e-30).
 //
 // What bounds it on an H100: operations.  Causal prefill at B 4, Hq 16,
-// S 4,096, dh 128 is 2.75e11 FLOP against ~0.2 GB of q, k, v and o, so the
-// bound is the bf16 tensor-core rate (0.28 ms); this kernel uses the fp32
-// CUDA cores only, whose peak (67 TFLOP/s) alone allows no better than
-// 4.1 ms.  Tensor cores (mma.sync / wgmma), TMA and pipelining are later
-// work; this design is the simple one that is right first.
+// S 4,096, dh 128 is 2.75e11 FLOP; the fp32 CUDA cores' peak (67 TFLOP/s)
+// allows no better than 4.1 ms.  fp32 is not the serving dtype: it runs for
+// the card ≡ CPU checks, so this design stays the simple one.
 //
 // Design: one block of 256 threads per (64 query rows, query head, batch).
-// The q tile is staged once in shared memory as fp32; the kernel then walks
-// 32-key tiles of K and V (staged as fp32, rows padded by one word so
-// column reads are free of bank conflicts).  Each thread computes a 4×2
-// patch of the 64×32 score tile, four threads per row reduce its max and
-// sum with shuffles, and each thread keeps a 4 × D/16 patch of the output
-// accumulator in registers.  Key tiles that are masked for every row of
-// the query tile (above the causal diagonal, behind the window) are not
-// visited: their contribution is wiped by the correction factor once a
-// row has a real maximum, and every row has one (Sq ≤ Skv).  Ragged Sq,
-// Skv, dh and dv are bounds on the loads and stores (zero-filled in shared
-// memory), not padding of the inputs; the head-dim bucket D (64, 128, 256)
-// is a template argument, as is the dtype (fp32, bf16).  q, k and v are
+// The q tile is staged once in shared memory; the kernel then walks
+// 32-key tiles of K and V (rows padded by one word so column reads are free
+// of bank conflicts).  Each thread computes a 4×2 patch of the 64×32 score
+// tile, four threads per row reduce its max and sum with shuffles, and each
+// thread keeps a 4 × D/16 patch of the output accumulator in registers.  Key
+// tiles that are masked for every row of the query tile (above the causal
+// diagonal, behind the window) are not visited: their contribution is wiped
+// by the correction factor once a row has a real maximum, and every row has
+// one (Sq ≤ Skv).  Ragged Sq, Skv, dh and dv are bounds on the loads and
+// stores (zero-filled in shared memory), not padding of the inputs; the
+// head-dim bucket D (64, 128, 256) is a template argument.  q, k and v are
 // read through their batch, head and row strides (unit stride in the last
 // dimension), so the transposed projections need no copy; o is contiguous.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -54,25 +51,15 @@ struct Params {
   int causal, window;    // window 0 → none
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) { return __float2bfloat16_rn(x); }
-
 template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1) + 3 * kBQ);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ out, const Params p) {
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+             float* __restrict__ out, const Params p) {
   extern __shared__ float smem[];
   constexpr int QS = D + 1;    // row stride of sQ and sK
   constexpr int PS = kBK + 1;  // row stride of sP
@@ -88,13 +75,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / p.group;
-  const T* qg = q + b * p.qsb + h * p.qsh;
-  const T* kg = k + b * p.ksb + hk * p.ksh;
-  const T* vg = v + b * p.vsb + hk * p.vsh;
+  const float* qg = q + b * p.qsb + h * p.qsh;
+  const float* kg = k + b * p.ksb + hk * p.ksh;
+  const float* vg = v + b * p.vsb + hk * p.vsh;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, c = i % D, row = q0 + r;
-    sQ[r * QS + c] = (row < p.sq && c < p.dh) ? to_f(qg[row * p.qss + c]) : 0.f;
+    sQ[r * QS + c] = (row < p.sq && c < p.dh) ? qg[row * p.qss + c] : 0.f;
   }
   if (tid < kBQ) {
     sM[tid] = kNeg;
@@ -117,8 +104,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     __syncthreads();  // the last tile's readers are done with sK, sV, sP
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int r = i / D, c = i % D, key = k0 + r;
-      sK[r * QS + c] = (key < p.skv && c < p.dh) ? to_f(kg[key * p.kss + c]) : 0.f;
-      sV[r * D + c] = (key < p.skv && c < p.dv) ? to_f(vg[key * p.vss + c]) : 0.f;
+      sK[r * QS + c] = (key < p.skv && c < p.dh) ? kg[key * p.kss + c] : 0.f;
+      sV[r * D + c] = (key < p.skv && c < p.dv) ? vg[key * p.vss + c] : 0.f;
     }
     __syncthreads();
 
@@ -166,9 +153,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       float sum = 0.f;
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        const float pe = expf(row[e] - m_new);
-        sum += pe;
-        row[e] = to_f(from_f<T>(pe));  // p in v's dtype for P·V
+        row[e] = expf(row[e] - m_new);
+        sum += row[e];
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -203,7 +189,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
   __syncthreads();  // sL is written (also when no tile was visited)
 
-  T* og = out + ((long long)b * p.hq + h) * p.sq * p.dv;
+  float* og = out + ((long long)b * p.hq + h) * p.sq * p.dv;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i, row = q0 + r;
@@ -212,25 +198,24 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = tx + 16 * j;
-      if (c < p.dv) og[(long long)row * p.dv + c] = from_f<T>(acc[i][j] / den);
+      if (c < p.dv) og[(long long)row * p.dv + c] = acc[i][j] / den;
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch_d(const void* q, const void* k, const void* v, void* out, int B, const Params& p,
              void* stream) {
   constexpr size_t smem = smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(flash_kernel<T, D>,
+  cudaError_t e = cudaFuncSetAttribute(flash_kernel<D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((p.sq + kBQ - 1) / kBQ, p.hq, B);
-  flash_kernel<T, D><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, p);
+  flash_kernel<D><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int Hq, int Hkv,
            int Sq, int Skv, int dh, int dv, long long qsb, long long qsh, long long qss,
            long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
@@ -241,9 +226,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Hq
   const Params p{Hq / Hkv, Sq, Skv, dh, dv, Hq, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss,
                  (float)scale, (float)softcap, causal, window};
   const int d = dh > dv ? dh : dv;
-  if (d <= 64) return launch_d<T, 64>(q, k, v, out, B, p, stream);
-  if (d <= 128) return launch_d<T, 128>(q, k, v, out, B, p, stream);
-  if (d <= 256) return launch_d<T, 256>(q, k, v, out, B, p, stream);
+  if (d <= 64) return launch_d<64>(q, k, v, out, B, p, stream);
+  if (d <= 128) return launch_d<128>(q, k, v, out, B, p, stream);
+  if (d <= 256) return launch_d<256>(q, k, v, out, B, p, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -258,6 +243,4 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Hq
   q, k, v, out, B, Hq, Hkv, Sq, Skv, dh, dv, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, \
       scale, causal, window, softcap, stream
 
-extern "C" int flash_attention_f32(FLASH_ARGS) { return launch<float>(FLASH_PASS); }
-
-extern "C" int flash_attention_bf16(FLASH_ARGS) { return launch<__nv_bfloat16>(FLASH_PASS); }
+extern "C" int flash_attention_f32(FLASH_ARGS) { return launch(FLASH_PASS); }

@@ -8,17 +8,27 @@ from __future__ import annotations
 
 
 class LaunchCounter:
-    """Count of kernel launches made by one wrapper."""
+    """Count of kernel launches made by one wrapper.  A counter made with a
+    ``parent`` counts one instance of a kernel (a dtype with a kernel of its
+    own) and adds each launch to its parent's count too."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, parent: "LaunchCounter | None" = None):
         self.name = name
         self.n = 0
+        self.parent = parent
+        self.parts: list[LaunchCounter] = []
+        if parent is not None:
+            parent.parts.append(self)
 
     def add(self) -> None:
         self.n += 1
+        if self.parent is not None:
+            self.parent.add()
 
     def reset(self) -> None:
         self.n = 0
+        for part in self.parts:
+            part.reset()
 
 
 def check_arg(kernel: str, name: str, x, shape, dtype, device) -> None:
@@ -42,6 +52,11 @@ def counters() -> dict[str, LaunchCounter]:
 
 def launch_counts() -> dict[str, int]:
     return {name: c.n for name, c in counters().items()}
+
+
+def instance_counts() -> dict[str, int]:
+    """Launches of each kernel instance that has a counter of its own."""
+    return {part.name: part.n for c in counters().values() for part in c.parts}
 
 
 def reset_launch_counts() -> None:

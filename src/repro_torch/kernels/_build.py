@@ -19,7 +19,7 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("multispring.cu", "ebe_matvec.cu", "flash_attention.cu")
+SOURCES = ("multispring.cu", "ebe_matvec.cu", "flash_attention.cu", "flash_attention_wgmma.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIBNAME = "librepro_torch_kernels.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -85,6 +85,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _D = ctypes.c_double
 
+_FLASH_ARGS = [_P] * 4 + [_I] * 7 + [_L] * 9 + [_D, _I, _I, _D, _P]
+
 # C entry points ``<base>_<suffix>``, one per dtype suffix, with their
 # signatures: every pointer and the stream are c_void_p, sizes are c_int,
 # strides c_longlong.
@@ -96,7 +98,8 @@ _ENTRY_POINTS = {
     "ebe_element_matvec": (("f32", "f64"), [_P] * 6 + [_I, _I, _P, _P]),
     # q, k, v, out, B, Hq, Hkv, Sq, Skv, dh, dv, q/k/v strides (batch, head, row),
     # scale, causal, window (0: none), softcap (0: none), stream
-    "flash_attention": (("f32", "bf16"), [_P] * 4 + [_I] * 7 + [_L] * 9 + [_D, _I, _I, _D, _P]),
+    "flash_attention": (("f32",), _FLASH_ARGS),  # CUDA cores
+    "flash_attention_wgmma": (("bf16",), _FLASH_ARGS),  # tensor cores, TMA
 }
 
 

@@ -1,9 +1,19 @@
-"""Binding of ``csrc/flash_attention.cu`` (ctypes, plain C interface).
+"""Binding of the flash attention kernels (ctypes, plain C interface).
 
-Launches on the current CUDA stream; the output ``[B,Hq,Sq,dv]`` is
+The dtype alone chooses the kernel, and both are hand-written:
+
+* bfloat16 → ``csrc/flash_attention_wgmma.cu``: wgmma on the tensor cores,
+  q, k and v brought in by TMA through a ring of shared-memory stages;
+* float32 → ``csrc/flash_attention.cu``: the CUDA cores (TF32 tensor cores
+  could not hold the reference's fp32 tolerance).
+
+Each launches on the current CUDA stream; the output ``[B,Hq,Sq,dv]`` is
 allocated here with ``torch.empty``.  q, k and v are passed with their batch,
 head and row strides, so the transposed projections of the attention layer
-go in without a copy; the last dimension must have unit stride.
+go in without a copy; the last dimension must have unit stride.  TMA needs
+more: a 16-byte aligned base and strides and head dims that are multiples
+of 8 elements.  :func:`pad_for_tma` copies a bf16 input that breaks that
+into a zero-padded contiguous one first, and the same kernel runs on it.
 """
 from __future__ import annotations
 
@@ -12,22 +22,65 @@ import torch
 from repro_torch.kernels import LaunchCounter
 
 MAX_HEAD_DIM = 256
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-counter = LaunchCounter("flash_attention")
+TMA_ELEMS = 8  # 16 bytes of bf16: TMA's unit of address, stride and row
+# C entry point of each dtype's kernel
+ENTRY = {torch.bfloat16: "flash_attention_wgmma_bf16", torch.float32: "flash_attention_f32"}
+counter = LaunchCounter("flash_attention")  # every flash launch, of either kernel
+COUNTERS = {torch.bfloat16: LaunchCounter("flash_attention_bf16", parent=counter),
+            torch.float32: LaunchCounter("flash_attention_f32", parent=counter)}
 
 
 def _fail(msg: str):
     raise ValueError(f"flash_attention: {msg}")
 
 
+def tma_strides(x: torch.Tensor) -> tuple[int, int, int]:
+    """Batch, head and row strides of ``x [B,H,S,d]`` for a tensor map.  A
+    dimension of extent 1 is never stepped, so it takes the stride it would
+    have if contiguous over the dimensions inside it."""
+    strides = list(x.stride())
+    for i in (2, 1, 0):
+        if x.shape[i] == 1:
+            strides[i] = strides[i + 1] * x.shape[i + 1]
+    return strides[0], strides[1], strides[2]
+
+
+def tma_ready(x: torch.Tensor) -> bool:
+    """Whether TMA can read ``x [B,H,S,d]`` in place: unit stride in ``d``,
+    a 16-byte aligned base, and ``d`` and the other strides multiples of 8."""
+    return (x.stride(3) == 1 and x.data_ptr() % (TMA_ELEMS * x.element_size()) == 0
+            and x.shape[3] % TMA_ELEMS == 0 and all(s % TMA_ELEMS == 0 for s in tma_strides(x)))
+
+
+def pad_for_tma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """The layout step before the wgmma kernel: each of q, k, v as it is where
+    TMA can read it, else copied into a contiguous tensor whose head dim is
+    zero-padded to a multiple of 8 (q and k to the same one).  Zero columns
+    of q and k add nothing to the scores; zero columns of v give output
+    columns that the caller slices off.  The caller passes the scale of the
+    unpadded dh explicitly."""
+    def fit(x, d):
+        if x.shape[3] == d and tma_ready(x):
+            return x
+        out = x.new_zeros((*x.shape[:3], d))
+        out[..., :x.shape[3]] = x
+        return out
+
+    def up(d):
+        return -(-d // TMA_ELEMS) * TMA_ELEMS
+
+    dh, dv = up(q.shape[3]), up(v.shape[3])
+    return fit(q, dh), fit(k, dh), fit(v, dv)
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                          window: int | None = None, softcap: float | None = None,
                          scale: float | None = None) -> torch.Tensor:
-    """``o [B,Hq,Sq,dv]`` from the CUDA kernel (see the plain version for the function)."""
+    """``o [B,Hq,Sq,dv]`` from the CUDA kernel of q's dtype (see the plain version for the function)."""
     if q.device.type != "cuda":
         _fail(f"the CUDA kernel needs CUDA tensors, got {q.device}")
     dt, dev = q.dtype, q.device
-    if dt not in _SUFFIX:
+    if dt not in ENTRY:
         _fail(f"dtype {dt} not supported (float32, bfloat16)")
     for name, x in (("k", k), ("v", v)):
         if x.device != dev or x.dtype != dt:
@@ -54,14 +107,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, c
 
     from repro_torch.kernels import _build
 
-    out = torch.empty((B, Hq, Sq, dv), dtype=dt, device=dev)
-    fn = getattr(_build.library(), "flash_attention_" + _SUFFIX[dt])
-    err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, Hkv, Sq, Skv, dh, dv,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        float(dh**-0.5 if scale is None else scale), int(causal), int(window or 0),
-        float(softcap or 0.0), torch.cuda.current_stream(dev).cuda_stream,
+    scale = float(dh**-0.5 if scale is None else scale)
+    if dt == torch.bfloat16:
+        q, k, v = pad_for_tma(q, k, v)
+    out = torch.empty((B, Hq, Sq, v.shape[3]), dtype=dt, device=dev)
+    err = getattr(_build.library(), ENTRY[dt])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, Hkv, Sq, Skv, q.shape[3], v.shape[3],
+        *tma_strides(q), *tma_strides(k), *tma_strides(v),
+        scale, int(causal), int(window or 0), float(softcap or 0.0), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "flash_attention")
-    counter.add()
-    return out
+    COUNTERS[dt].add()
+    return out if out.shape[3] == dv else out[..., :dv].contiguous()

@@ -2,12 +2,14 @@
 
 The kernel is chosen by the tensors' device: on a CPU tensor
 :func:`flash_attention` runs the plain version (``ref.flash_attention_ref``);
-on a CUDA tensor it launches ``csrc/flash_attention.cu`` or raises.  There
-is no fallback from one to the other.
+on a CUDA tensor it launches the kernel of its dtype (bf16:
+``csrc/flash_attention_wgmma.cu``, fp32: ``csrc/flash_attention.cu``) or
+raises.  There is no fallback from one to the other.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.flash_attention.flash_attention import counter, flash_attention_cuda
+from repro_torch.kernels.flash_attention.flash_attention import (COUNTERS, ENTRY, counter, flash_attention_cuda,
+                                                                  pad_for_tma, tma_ready, tma_strides)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 
@@ -19,4 +21,5 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     return flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)
 
 
-__all__ = ["flash_attention", "flash_attention_cuda", "flash_attention_ref", "counter"]
+__all__ = ["flash_attention", "flash_attention_cuda", "flash_attention_ref", "pad_for_tma", "tma_ready", "tma_strides",
+           "counter", "COUNTERS", "ENTRY"]

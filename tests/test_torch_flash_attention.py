@@ -101,3 +101,69 @@ def test_strided_inputs_give_the_same_result():
     qs, ks, vs = (torch.tensor(x).transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
     assert not vs.is_contiguous()
     np.testing.assert_array_equal(fa.flash_attention(qs, ks, vs).numpy(), dense)
+
+
+@pytest.mark.parametrize("dh,dv", [(36, 20), (40, 40), (192, 128)])
+def test_tma_padding_leaves_the_result(dh, dv):
+    """The layout step before the wgmma kernel: inputs padded to TMA's
+    16-byte unit, run with the unpadded dh's scale and sliced back, give the
+    unpadded result (v strided as the attention layer gives it)."""
+    q, k, v = _inputs(11, 1, 4, 2, 40, 72, dh, dv=dv)
+    qt, kt = torch.tensor(q), torch.tensor(k)
+    vt = torch.tensor(v).transpose(1, 2).contiguous().transpose(1, 2)
+    qp, kp, vp = fa.pad_for_tma(qt, kt, vt)
+    for x, xp in ((qt, qp), (kt, kp), (vt, vp)):
+        assert xp.shape[:3] == x.shape[:3] and xp.shape[3] % 8 == 0 and fa.tma_ready(xp)
+        torch.testing.assert_close(xp[..., :x.shape[3]], x, rtol=0, atol=0)
+        assert not xp[..., x.shape[3]:].any()
+        assert (xp is x) == (x.shape[3] % 8 == 0)  # aligned inputs go in without a copy
+    kw = dict(causal=True, window=24)
+    want = flash_attention_ref(qt, kt, vt, **kw)
+    got = flash_attention_ref(qp, kp, vp, scale=dh**-0.5, **kw)[..., :dv]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-6)
+
+
+def test_tma_layout_checks():
+    """Misaligned bases and strides are copied; extent-1 dimensions take a
+    stride that TMA accepts, whatever torch gave them."""
+    flat = torch.zeros(1 + 2 * 3 * 16, dtype=torch.bfloat16)
+    odd = flat[1:].view(1, 2, 3, 16)  # base 2 bytes off 16-byte alignment
+    assert not fa.tma_ready(odd)
+    assert fa.pad_for_tma(odd, odd, odd)[0].data_ptr() % 16 == 0
+    wide = torch.zeros(1, 2, 3, 20, dtype=torch.bfloat16)[..., :16]  # row stride 20: not a multiple of 8
+    assert not fa.tma_ready(wide) and fa.tma_ready(fa.pad_for_tma(wide, wide, wide)[0])
+    one = torch.zeros(4, 1, 8, 16, dtype=torch.bfloat16).as_strided((4, 1, 1, 16), (128, 3, 5, 1))
+    assert fa.tma_strides(one) == (128, 16, 16) and fa.tma_ready(one)
+
+
+def test_dtype_selects_the_kernel():
+    """bf16 goes to the wgmma/TMA kernel and fp32 to the CUDA-core kernel,
+    each with its own launch counter; the CUDA-core source has no bf16
+    instance, and the Hopper source issues wgmma for both products and loads
+    through TMA into an mbarrier-guarded ring."""
+    from repro_torch import kernels
+    from repro_torch.kernels import _build
+
+    assert fa.ENTRY == {torch.bfloat16: "flash_attention_wgmma_bf16", torch.float32: "flash_attention_f32"}
+    entries = {f"{base}_{s}" for base, (suffixes, _) in _build._ENTRY_POINTS.items() for s in suffixes}
+    assert set(fa.ENTRY.values()) <= entries and "flash_attention_bf16" not in entries
+    assert {c.name for c in fa.COUNTERS.values()} == {"flash_attention_bf16", "flash_attention_f32"}
+    assert all(c.parent is fa.counter for c in fa.COUNTERS.values())
+    assert set(kernels.instance_counts()) == {"flash_attention_bf16", "flash_attention_f32"}
+    hopper = (_build.CSRC / "flash_attention_wgmma.cu").read_text()
+    for ptx in ("wgmma.mma_async", "m64n64k16.f32.bf16.bf16", "cp.async.bulk.tensor", "mbarrier.try_wait",
+                "setmaxnreg"):
+        assert ptx in hopper
+    assert "flash_attention_wgmma.cu" in _build.SOURCES
+    assert "bfloat16" not in (_build.CSRC / "flash_attention.cu").read_text()
+
+
+def test_launch_counter_parts():
+    from repro_torch.kernels import LaunchCounter
+
+    whole = LaunchCounter("k")
+    a, b = LaunchCounter("k_a", parent=whole), LaunchCounter("k_b", parent=whole)
+    a.add(), a.add(), b.add()
+    assert (whole.n, a.n, b.n) == (3, 2, 1)
+    whole.reset()
+    assert (whole.n, a.n, b.n) == (0, 0, 0)
