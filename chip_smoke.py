@@ -11,8 +11,11 @@ Phases, each followed by a JSON line with its seconds:
 2.  build      the CUDA kernels from ``src/repro_torch/csrc`` (registers and
                spills of every kernel instance);
 3.  kernels    each kernel against its plain PyTorch version on the card:
-               multispring and the EBE product in both dtypes, ragged shapes,
-               flags exact, at the default and a non-default tangent floor;
+               multispring in both dtypes, P ragged, flags exact, at the
+               default and a non-default tangent floor; the EBE product
+               (gather fused in) in both dtypes on a random x and a random
+               int32 connectivity with repeated nodes, E ragged and E
+               smaller than a tile, at three tile sizes;
                flash attention in fp32 (CUDA-core kernel) and bf16 (wgmma/TMA
                kernel) over GQA, ragged, Sq < Skv, window, softcap,
                non-causal, Sq × Skv, dh ∈ {128, 256, 192 with dv 128}, dh and
@@ -37,7 +40,10 @@ Phases, each followed by a JSON line with its seconds:
 10. timing     each kernel at the shapes its main path gives it, against its
                plain version, its bound and (flash) SDPA, with flash held in
                fp32 and bf16 there too and timed in both; a breakdown of one
-               full-size FEM step, of one prefill and of one decode step.
+               whole EBE matvec (kernel, slot-table scatter) in both dtypes,
+               of one full-size FEM step (with the multispring kernel summed
+               over the step's blocks beside the streamed pass and the θ
+               copy alone), of one prefill and of one decode step.
 
 It prints one ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -116,6 +122,44 @@ def ptxas_report(log):
     return out
 
 
+# one fp64 power as the multispring kernel takes it, and one fp64 division
+SASS_PROBE = r"""
+extern "C" __global__ void probe_power(const double* x, const double* b, double* y) {
+  y[threadIdx.x] = exp2(b[threadIdx.x] * log2(x[threadIdx.x]));
+}
+extern "C" __global__ void probe_division(const double* x, const double* b, double* y) {
+  y[threadIdx.x] = b[threadIdx.x] / (1.0 + x[threadIdx.x]);
+}
+"""
+FP64_OPS = ("DFMA", "DADD", "DMUL", "DSETP", "DMNMX")
+
+
+def sass_fp64_counts(lib, nvcc):
+    """Static fp64 instructions (and all instructions) of the FEM kernels'
+    fp64 instances in the built library, and of one power and one division
+    (``SASS_PROBE``), from ``cuobjdump -sass``."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    build_dir = os.path.dirname(lib)
+    probe_src, probe_bin = os.path.join(build_dir, "sass_probe.cu"), os.path.join(build_dir, "sass_probe.cubin")
+    with open(probe_src, "w") as f:
+        f.write(SASS_PROBE)
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-cubin", "-o", probe_bin,
+                    probe_src], check=True, capture_output=True)
+    out = {}
+    for path in (str(lib), probe_bin):
+        text = subprocess.run([tool, "-sass", path], capture_output=True, text=True, check=True).stdout
+        for chunk in re.split(r"\n\s+Function : ", text)[1:]:
+            name = chunk.split("\n", 1)[0].strip()
+            key = next((k for k in ("ms_update_kernelIdE", "ebe_kernelIdE", "probe_power", "probe_division")
+                        if k in name), None)
+            if key is None:
+                continue
+            ops = re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", chunk, re.M)
+            out[key] = {"instructions": len(ops), "fp64": sum(op in FP64_OPS for op in ops),
+                        "mufu": ops.count("MUFU")}
+    return out
+
+
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
@@ -171,8 +215,10 @@ def main() -> int:
               "device": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()})
 
     with Phase("build"):
+        lib = _build.build()
         _build.library()
         emit({"registers_spills": ptxas_report(_build.ptxas_log())})
+        emit({"sass_static_counts": sass_fp64_counts(lib, _build._nvcc())})
 
     def rel_err(a, b):
         return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
@@ -180,9 +226,10 @@ def main() -> int:
     with Phase("kernels"):
         K = ms.STATE_KEYS
         for dt, tol in ((torch.float64, 1e-12), (torch.float32, 3e-5)):
-            for gmf in (1e-3, 0.3):
+            # P not a multiple of the block's points; S 195 takes two staged chunks
+            for gmf, S in ((1e-3, 150), (0.3, 150), (1e-3, 195)):
                 rng = np.random.default_rng(7)
-                P, S = 29, 150  # P not a multiple of the block's points
+                P = 29
                 prm = ms.SpringParams(*(torch.tensor(rng.uniform(lo, hi, P), dtype=dt, device=dev)
                                         for lo, hi in ((5e7, 5e8), (5e-4, 5e-3), (0.7, 1.0), (1e8, 1e9))),
                                       g_min_frac=gmf)
@@ -208,19 +255,25 @@ def main() -> int:
                 require(worst <= tol, f"multispring disagrees: {worst} > {tol}")
             g = torch.Generator(device=dev).manual_seed(1)
             etol = 1e-13 if dt == torch.float64 else 5e-6
-            E = 1001  # not a multiple of the block's elements
-            u = torch.randn((E, 10, 3), dtype=dt, device=dev, generator=g)
-            Q = torch.randn((E, 4, 6, 6), dtype=torch.float64, device=dev, generator=g)
-            D = (Q @ Q.transpose(-1, -2)).to(dt).contiguous()
-            Jinv = torch.randn((E, 3, 3), dtype=dt, device=dev, generator=g)
-            wdet = torch.rand((E, 4), dtype=dt, device=dev, generator=g)
-            coef = torch.rand((E,), dtype=dt, device=dev, generator=g) + 0.5
-            for c in (coef, None):
-                err = rel_err(ebe_ops.ebe_element_matvec_cuda(u, D, Jinv, wdet, c),
-                              ebe_ops.ebe_element_matvec_ref(u, D, Jinv, wdet, c))
-                emit({"check": "ebe_matvec", "dtype": str(dt), "E": E, "coef": c is not None,
-                      "max_rel_err": err, "tol": etol})
-                require(err <= etol, f"ebe_matvec disagrees: {err} > {etol}")
+            N = 400
+            # E not a multiple of a tile, and E smaller than one
+            for E, tiles in ((1001, (ebe_ops.TILE_E, 4, 64)), (5, (ebe_ops.TILE_E,))):
+                x = torch.randn((N, 3), dtype=dt, device=dev, generator=g)
+                conn = torch.randint(0, N, (E, 10), device=dev, generator=g, dtype=torch.int32)
+                conn[::3, 9] = conn[::3, 0]  # repeated nodes within an element
+                Q = torch.randn((E, 4, 6, 6), dtype=torch.float64, device=dev, generator=g)
+                D = (Q @ Q.transpose(-1, -2)).to(dt).contiguous()
+                Jinv = torch.randn((E, 3, 3), dtype=dt, device=dev, generator=g)
+                wdet = torch.rand((E, 4), dtype=dt, device=dev, generator=g)
+                coef = torch.rand((E,), dtype=dt, device=dev, generator=g) + 0.5
+                u = spmv.gather_elem(x, conn.long())
+                for c in (coef, None):
+                    ref = ebe_ops.ebe_element_matvec_ref(u, D, Jinv, wdet, c)
+                    for te in tiles:
+                        err = rel_err(ebe_ops.ebe_matvec_cuda(x, conn, D, Jinv, wdet, c, tile_e=te), ref)
+                        emit({"check": "ebe_matvec", "dtype": str(dt), "E": E, "N": N, "tile_e": te,
+                              "coef": c is not None, "max_rel_err": err, "tol": etol})
+                        require(err <= etol, f"ebe_matvec disagrees: {err} > {etol} (E {E}, tile_e {te})")
 
         for case in FLASH_CASES:
             B, Hq, Hkv, Sq, Skv, dh, dv, causal, window, cap, strided = case
@@ -490,17 +543,23 @@ def main() -> int:
                      "plain_ms": cuda_ms(lambda: ms_ops.multispring_ref(*args), 5),
                      "bound_ms": b_ms, "bound_by": by, "library_ms": None,
                      "detail": {"P": chunk, "S": cfg.nspring, "dtype": str(cfg.rdtype),
-                                "max_rel_err": rel, "tol": 1e-12}})
+                                "max_rel_err": rel, "tol": 1e-12, "tile_p": ms_ops.TILE_P}})
         del blk, out_k, out_p, args
-        # EBE element product at the full mesh, fp64 (outer) and fp32 (inner)
+        # EBE element product (gather fused in) at the full mesh, fp64 (outer)
+        # and fp32 (inner), and one whole matvec with its parts
+        matvec_parts = {}
         for dt, name in ((torch.float64, "ebe_matvec_f64"), (torch.float32, "ebe_matvec_f32")):
             maps = ops.maps[dt]
-            u_e = spmv.gather_elem(nm.u.to(dt), maps.conn)
+            x = nm.u.to(dt).contiguous()
             Dx = D.to(dt).contiguous()
             coef = (1.0 + (2.0 / cfg.dt) * beta_e).to(dt)
-            a = (u_e, Dx, maps.Jinv, maps.wdet, coef)
-            fk, fp = ebe_ops.ebe_element_matvec_cuda(*a), ebe_ops.ebe_element_matvec_ref(*a)
-            f64 = ebe_ops.ebe_element_matvec_ref(*(x.double() for x in a))  # same inputs, in fp64
+            a = (x, maps.conn32, Dx, maps.Jinv, maps.wdet, coef)
+
+            def plain(x, conn, *rest):
+                return ebe_ops.ebe_element_matvec_ref(spmv.gather_elem(x, conn), *rest)
+
+            fk, fp = ebe_ops.ebe_matvec_cuda(*a), plain(x, maps.conn, *a[2:])
+            f64 = plain(x.double(), maps.conn, *(t.double() for t in a[2:]))  # same inputs, in fp64
             vs_fp64 = {"kernel": rel_err(fk.double(), f64), "plain": rel_err(fp.double(), f64)}
             del f64
             # fp32 on the main path's data: u is dominated by a smooth, nearly
@@ -509,22 +568,42 @@ def main() -> int:
             # random inputs above (5e-6); vs_fp64 shows both orders' error.
             rel, etol = rel_err(fk, fp), (1e-13 if dt == torch.float64 else 2e-5)
             require(rel <= etol, f"{name} disagrees at full size: {rel} (vs fp64: {vs_fp64})")
+            # the bytes the fused kernel must move: x once, conn as int32, D,
+            # J⁻¹, wdet, coef and f_e (a kernel fed the gathered u_e [E,10,3]
+            # would count u_e in place of x and conn)
             b_e, by = bound(nbytes(*a, fk), ops.n_elem * EBE_OPS_PER_ELEM, dt)
+            k_ms = cuda_ms(lambda: ebe_ops.ebe_matvec_cuda(*a), 50)
             rows.append({"name": name, "route": "cuda", "source": "src/repro_torch/csrc/ebe_matvec.cu",
                          "replaces": "src/repro/kernels/ebe_matvec/ebe_matvec.py:99",
                          "launches": launches[name], "max_abs_err": float((fk - fp).abs().max()),
-                         "ms": cuda_ms(lambda: ebe_ops.ebe_element_matvec_cuda(*a), 50),
-                         "plain_ms": cuda_ms(lambda: ebe_ops.ebe_element_matvec_ref(*a), 5),
+                         "ms": k_ms, "plain_ms": cuda_ms(lambda: plain(x, maps.conn, *a[2:]), 5),
                          "bound_ms": b_e, "bound_by": by, "library_ms": None,
-                         "detail": {"E": ops.n_elem, "dtype": str(dt), "max_rel_err": rel, "tol": etol,
-                                    "max_rel_err_vs_fp64": vs_fp64}})
-            del a, fk, fp, Dx, u_e
+                         "detail": {"E": ops.n_elem, "N": ops.n_nodes, "dtype": str(dt), "max_rel_err": rel,
+                                    "tol": etol, "max_rel_err_vs_fp64": vs_fp64, "tile_e": ebe_ops.TILE_E,
+                                    "bound_bytes": nbytes(*a, fk), "bound_counts": "x, conn int32, D, Jinv, "
+                                    "wdet, coef, f_e (gather fused)"}})
+            # one whole spmv.ebe_matvec (CUDA events) and its parts; the
+            # gather runs inside the kernel
+            matvec_parts[str(dt)] = {
+                "matvec_ms": cuda_ms(lambda: spmv.ebe_matvec(x, Dx, maps, coef), 20),
+                "gather_ms": None, "kernel_ms": k_ms,
+                "scatter_ms": cuda_ms(lambda: spmv.scatter_add(fk, maps.dof_slots), 20)}
+            del a, fk, fp, Dx, x
+        emit({"ebe_matvec_breakdown": matvec_parts})
         # breakdown of one full-size step (CUDA events)
         copy_only = cuda_ms(lambda: [h.copy_(h.to(dev, non_blocking=True), non_blocking=True)
                                      for blk_ in ps.blocks for h in blk_], 1)
         eps_all = spmv.strain_at_points(nm.u, ops.maps[cfg.rdtype])
         bp = ops.block_params(cfg.npart)
         stream_ms = cuda_ms(lambda: methods._streamed_multispring(ops, eps_all, ps, bp), 2)
+        # the multispring kernel alone over the step's blocks, each block's
+        # state resident on the card
+        ms_blocks_ms = 0.0
+        for j, blk_h in enumerate(ps.blocks):
+            blk_j = {k: h.to(dev) for k, h in zip(ms.STATE_KEYS, blk_h)}
+            a_j = (eps_all[j * chunk:(j + 1) * chunk], blk_j, bp[j], ops.n_dirs, ops.w_dirs)
+            ms_blocks_ms += cuda_ms(lambda: ms_ops.multispring_cuda(*a_j), 5)
+            del blk_j, a_j
         diag_ms = cuda_ms(lambda: ops.ebe_diag_inverse(D, beta_e, alpha), 3)
         step_s = sorted(r["seconds"] for r in steps)[len(steps) // 2]
         emit({"breakdown": {
@@ -532,6 +611,7 @@ def main() -> int:
             "theta_copy_only_h2d_d2h_ms": copy_only,
             "theta_link_GB_per_s": 2 * theta_bytes / (copy_only / 1e3) / 1e9,
             "streamed_multispring_ms": stream_ms,
+            "multispring_kernel_over_blocks_ms": ms_blocks_ms,
             "ebe_diag_inverse_ms": diag_ms,
             "solve_and_rest_ms": step_s * 1e3 - stream_ms - diag_ms,
             "outer_iters": [r["iters"] for r in steps]}})

@@ -1,127 +1,390 @@
-// Matrix-free element-by-element (EBE) product for Hopper (sm_90a):
-//   f_e = Σ_p wdet_p · coef_e · B_pᵀ D_p B_p u_e
+// Matrix-free element-by-element (EBE) product for Hopper (sm_90a), with
+// the gather of the element's nodal values fused in:
+//   f_e = Σ_p wdet_p · coef_e · B_pᵀ D_p B_p u_e,   u_e = x[conn_e]
 // with B_p rebuilt from J⁻¹ and the reference shape-function gradients, so
-// no K_e and no B is ever stored.
+// no K_e, no B and no gathered [E,10,3] copy of x is ever stored.
 //
 // Replaces: ebe_element_matvec_pallas / _ebe_kernel in
-//   src/repro/kernels/ebe_matvec/ebe_matvec.py (the TPU kernel).
-// Plain version: repro_torch.fem.spmv.ebe_element_matvec.
+//   src/repro/kernels/ebe_matvec/ebe_matvec.py (the TPU kernel), together
+//   with the gather in front of it.
+// Plain version: repro_torch.fem.spmv.gather_elem + ebe_element_matvec.
 //
 // What bounds it on an H100: bytes.  Per element it reads D (144 values),
-// u (30), J⁻¹ (9), wdet (4) and coef (1) and writes f (30): about 1.7 KB in
-// fp64 and 0.9 KB in fp32, for about 2.4 kflop, well below the card's
-// ops:byte balance point in either type.
+// J⁻¹ (9), wdet (4), coef (1) and conn (10 int32) once, and writes f (30):
+// about 1.5 KB in fp64 and 0.8 KB in fp32, for about 2.4 kflop, well below
+// the card's ops:byte balance point in either type.  x (10 MB in fp64 at
+// the full-size mesh) is read through the connectivity and stays in L2.
 //
-// Design: one thread per element, templated on float/double, with the
-// 4 points × 10 nodes × 3 components unrolled; the element index is the
-// thread index (the TPU's [k,E] transposes and 128-lane padding are not
-// carried over).  The 120 reference gradients (GRADN_REF of the port's
-// quadrature module, many of them zero) are staged once per block in shared
-// memory.  The physical gradients are rebuilt per node from J⁻¹ where they
-// are used, instead of being held for all 10 nodes, to keep the fp64
-// register count down; __launch_bounds__ caps the block at 256 threads.
-// The ragged edge is the bound `e < E`.  There are no atomics: the
-// assembly (scatter) stays outside, deterministic, in PyTorch.
+// Design: a persistent grid walks tiles of TE consecutive elements (TE a
+// multiple of 4, at most 64).  Because D, J⁻¹, wdet, coef and conn are
+// element-major, a tile's share of each is one contiguous range: one warp
+// copies it into shared memory with Hopper's bulk asynchronous copy
+// (cp.async.bulk, completing on an mbarrier), double-buffered, so the next
+// tile's bytes arrive while this one computes.  Then the block gathers the
+// tile's u_e = x[conn] into shared memory, and four threads share an
+// element, one per Gauss point p:
+//   Hr = Σ_n u_n ⊗ ∇̂N_pn (reference gradients, held in registers),
+//   H = Hr J⁻¹, ε = sym(H), σ = wdet_p coef D_p ε, S = σ J⁻ᵀ,
+//   f_n = S ∇̂N_pn,
+// so the physical gradients are never formed.  D_p is read as 16-byte
+// vectors; fp64 pads each element's D to 146 values in shared memory (one
+// copy per element) so that the eight threads of a quarter warp, two
+// elements × four points, hit eight different 16-byte bank groups; fp32
+// needs no padding.  The four points' f are summed by a reduce-scatter of
+// two shuffle rounds (23 values a thread instead of 60), each sum in a
+// fixed order, then staged in shared memory and stored as 16-byte vectors.
+// The ragged last tile (E not a multiple of TE) is loaded by plain loads.
+// There are no atomics: the assembly (scatter) stays outside, deterministic.
 #include <cuda_runtime.h>
+#include <cstdint>
 
 namespace {
 
 constexpr int kNPoint = 4;
 constexpr int kNNode = 10;
-constexpr int kMaxThreads = 256;
+constexpr int kDof = kNNode * 3;      // 30 values of u_e and f_e
+constexpr int kDElem = kNPoint * 36;  // 144 values of D per element
+constexpr int kMaxTile = 64;          // elements per tile (4 threads each)
+
+// Shared-memory layout, for one tile of `te` elements.  Every range starts
+// on a 16-byte boundary when te is a multiple of 4.
+template <typename T>
+struct Smem {
+  static constexpr int kDStride = sizeof(T) == 8 ? kDElem + 2 : kDElem;  // see the design note
+  int te;
+  __host__ __device__ size_t d() const { return 0; }
+  __host__ __device__ size_t jinv() const { return d() + sizeof(T) * te * kDStride; }
+  __host__ __device__ size_t wdet() const { return jinv() + sizeof(T) * te * 9; }
+  __host__ __device__ size_t coef() const { return wdet() + sizeof(T) * te * kNPoint; }
+  __host__ __device__ size_t conn() const { return coef() + sizeof(T) * te; }
+  __host__ __device__ size_t stage() const { return conn() + sizeof(int) * te * kNNode; }
+  // [2 mbarriers | reference gradients | stage 0 | stage 1 | u | f]
+  __host__ __device__ size_t gref() const { return 16; }
+  __host__ __device__ size_t stages() const { return gref() + sizeof(T) * kNPoint * kDof; }
+  __host__ __device__ size_t u() const { return stages() + 2 * stage(); }
+  __host__ __device__ size_t f() const { return u() + sizeof(T) * te * kDof; }
+  __host__ __device__ size_t total() const { return f() + sizeof(T) * te * kDof; }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete; a copy that never
+// lands traps after ~2^34 cycles instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    const long long now = clock64();
+    if (t0 == 0) t0 = now;
+    else if (now - t0 > (1ll << 34)) __trap();
+  }
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both 16-byte
+// aligned, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
 
 template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-ebe_kernel(const T* __restrict__ u, const T* __restrict__ D, const T* __restrict__ Jinv,
-           const T* __restrict__ wdet, const T* __restrict__ coef,
-           const T* __restrict__ gradn, int E, T* __restrict__ out) {
-  __shared__ T gref[kNPoint * kNNode * 3];
-  for (int i = threadIdx.x; i < kNPoint * kNNode * 3; i += blockDim.x) gref[i] = gradn[i];
+__device__ __forceinline__ T shfl_xor(T v, int off) {
+  return __shfl_xor_sync(0xffffffffu, v, off);
+}
+
+template <typename T>
+struct Args {
+  const T* x;
+  const int* conn;
+  const T* D;
+  const T* Jinv;
+  const T* wdet;
+  const T* coef;  // nullable: coef 1
+  int E;
+};
+
+// Warp 0 starts the bulk copies of a full tile into `stage`.
+template <typename T>
+__device__ __forceinline__ void issue_tile(const Args<T>& a, const Smem<T>& L, unsigned char* stage,
+                                           uint32_t bar, long long e0, int lane) {
+  const int te = L.te;
+  if (lane == 0) {
+    // earlier generic-proxy reads of this stage come before the async writes
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    const uint32_t bytes = sizeof(T) * te * (kDElem + 9 + kNPoint + (a.coef ? 1 : 0)) + sizeof(int) * te * kNNode;
+    mbar_expect_tx(bar, bytes);
+  }
+  __syncwarp();
+  if (Smem<T>::kDStride == kDElem) {
+    if (lane == 0) bulk_load(smem_u32(stage + L.d()), a.D + e0 * kDElem, sizeof(T) * te * kDElem, bar);
+  } else {
+    for (int e = lane; e < te; e += 32)
+      bulk_load(smem_u32(stage + L.d() + sizeof(T) * e * Smem<T>::kDStride), a.D + (e0 + e) * kDElem,
+                sizeof(T) * kDElem, bar);
+  }
+  if (lane == 1) bulk_load(smem_u32(stage + L.jinv()), a.Jinv + e0 * 9, sizeof(T) * te * 9, bar);
+  if (lane == 2) bulk_load(smem_u32(stage + L.wdet()), a.wdet + e0 * kNPoint, sizeof(T) * te * kNPoint, bar);
+  if (lane == 3 && a.coef) bulk_load(smem_u32(stage + L.coef()), a.coef + e0, sizeof(T) * te, bar);
+  if (lane == 4) bulk_load(smem_u32(stage + L.conn()), a.conn + e0 * kNNode, sizeof(int) * te * kNNode, bar);
+}
+
+// The block loads a ragged tile of `n` < te elements with plain loads.
+template <typename T>
+__device__ __forceinline__ void load_ragged(const Args<T>& a, const Smem<T>& L, unsigned char* stage,
+                                            long long e0, int n) {
+  T* Ds = reinterpret_cast<T*>(stage + L.d());
+  for (int k = threadIdx.x; k < n * kDElem; k += blockDim.x)
+    Ds[(k / kDElem) * Smem<T>::kDStride + k % kDElem] = a.D[e0 * kDElem + k];
+  for (int k = threadIdx.x; k < n * 9; k += blockDim.x)
+    reinterpret_cast<T*>(stage + L.jinv())[k] = a.Jinv[e0 * 9 + k];
+  for (int k = threadIdx.x; k < n * kNPoint; k += blockDim.x)
+    reinterpret_cast<T*>(stage + L.wdet())[k] = a.wdet[e0 * kNPoint + k];
+  if (a.coef)
+    for (int k = threadIdx.x; k < n; k += blockDim.x) reinterpret_cast<T*>(stage + L.coef())[k] = a.coef[e0 + k];
+  for (int k = threadIdx.x; k < n * kNNode; k += blockDim.x)
+    reinterpret_cast<int*>(stage + L.conn())[k] = a.conn[e0 * kNNode + k];
+}
+
+// This thread's Gauss point's 6×6 D as 16-byte vector loads from shared memory.
+__device__ __forceinline__ void load_d(const double* src, double* d) {
+#pragma unroll
+  for (int k = 0; k < 18; ++k) {
+    const double2 v = reinterpret_cast<const double2*>(src)[k];
+    d[2 * k] = v.x;
+    d[2 * k + 1] = v.y;
+  }
+}
+__device__ __forceinline__ void load_d(const float* src, float* d) {
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const float4 v = reinterpret_cast<const float4*>(src)[k];
+    d[4 * k] = v.x;
+    d[4 * k + 1] = v.y;
+    d[4 * k + 2] = v.z;
+    d[4 * k + 3] = v.w;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(4 * kMaxTile)
+ebe_kernel(Args<T> a, const T* __restrict__ gradn, int te, T* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Smem<T> L{te};
+  const uint32_t bar0 = smem_u32(smem);
+  T* gref = reinterpret_cast<T*>(smem + L.gref());
+  T* us = reinterpret_cast<T*>(smem + L.u());
+  T* fs = reinterpret_cast<T*>(smem + L.f());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int el = tid >> 2, p = tid & 3;  // element of the tile, Gauss point
+  const int ntiles = (a.E + te - 1) / te;
+
+  // the reference gradients go through shared memory: where the compiler
+  // re-reads gr[] in the tile loop rather than hold it, the re-reads stay
+  // out of L1/L2 (read from global, the fp32 instance ran slower)
+  for (int k = tid; k < kNPoint * kDof; k += blockDim.x) gref[k] = gradn[k];
+  if (tid == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
-
-  T ji[9];
+  T gr[kDof];  // ∂N_n/∂ξ_k at this thread's point, gr[n*3+k]
 #pragma unroll
-  for (int k = 0; k < 9; ++k) ji[k] = Jinv[e * 9 + k];
-  const T c = coef ? coef[e] : T(1);
-  const T* ue = u + e * 30;
+  for (int k = 0; k < kDof; ++k) gr[k] = gref[p * kDof + k];
 
-  T f[30];
-#pragma unroll
-  for (int k = 0; k < 30; ++k) f[k] = T(0);
+  auto full = [&](int tile) { return (long long)(tile + 1) * te <= a.E; };
+  if (warp == 0 && blockIdx.x < ntiles && full(blockIdx.x))
+    issue_tile(a, L, smem + L.stages(), bar0, (long long)blockIdx.x * te, lane);
 
+  int it = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+    const int s = it & 1;
+    unsigned char* stage = smem + L.stages() + s * L.stage();
+    const int next = tile + gridDim.x;
+    if (warp == 0 && next < ntiles && full(next))
+      issue_tile(a, L, smem + L.stages() + (s ^ 1) * L.stage(), bar0 + 8 * (s ^ 1),
+                 (long long)next * te, lane);
+
+    const long long e0 = (long long)tile * te;
+    const int n = full(tile) ? te : a.E - (int)e0;
+    if (n == te) mbar_wait(bar0 + 8 * s, (it >> 1) & 1);
+    else load_ragged(a, L, stage, e0, n);
+    if (n != te) __syncthreads();
+
+    // gather u_e = x[conn] for the tile: 3 node slots per thread at most
+    const int* cs = reinterpret_cast<const int*>(stage + L.conn());
 #pragma unroll
-  for (int p = 0; p < kNPoint; ++p) {
-    // displacement gradient H[i][j] = Σ_n u[n][i] · ∂N_n/∂x_j
-    T H[3][3] = {{T(0), T(0), T(0)}, {T(0), T(0), T(0)}, {T(0), T(0), T(0)}};
+    for (int r = 0; r < (kNNode + 3) / 4; ++r) {
+      const int k = tid + r * blockDim.x;
+      if (k < n * kNNode) {
+        const T* xn = a.x + 3ll * cs[k];
+        const T v0 = xn[0], v1 = xn[1], v2 = xn[2];
+        us[3 * k] = v0;
+        us[3 * k + 1] = v1;
+        us[3 * k + 2] = v2;
+      }
+    }
+    __syncthreads();
+
+    // every thread computes, so the shuffles below see full warps; rows of
+    // a ragged tile past n hold stale values and are not stored
+    const T* ue = us + el * kDof;
+    const T* Js = reinterpret_cast<const T*>(stage + L.jinv()) + el * 9;
+    T J[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) J[k] = Js[k];
+    // Hr[i][k] = Σ_n u_ni ∂N_n/∂ξ_k
+    T Hr[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) Hr[k] = T(0);
 #pragma unroll
     for (int nd = 0; nd < kNNode; ++nd) {
-      const T* gr = gref + (p * kNNode + nd) * 3;
-      T g[3];
-#pragma unroll
-      for (int j = 0; j < 3; ++j) g[j] = gr[0] * ji[j] + gr[1] * ji[3 + j] + gr[2] * ji[6 + j];
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
         const T ui = ue[nd * 3 + i];
 #pragma unroll
-        for (int j = 0; j < 3; ++j) H[i][j] += ui * g[j];
+        for (int k = 0; k < 3; ++k) Hr[i * 3 + k] += ui * gr[nd * 3 + k];
       }
     }
-    const T eps[6] = {H[0][0], H[1][1], H[2][2], H[0][1] + H[1][0], H[1][2] + H[2][1],
-                      H[2][0] + H[0][2]};
-    // σ = D ε, scaled by the quadrature weight and the element coefficient
-    const T* Dp = D + e * (kNPoint * 36) + p * 36;
-    const T wp = wdet[e * kNPoint + p] * c;
+    // H[i][j] = Σ_k Hr[i][k] J⁻¹[k][j]  (∂u_i/∂x_j)
+    T H[9];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) H[i * 3 + j] = Hr[i * 3] * J[j] + Hr[i * 3 + 1] * J[3 + j] + Hr[i * 3 + 2] * J[6 + j];
+    }
+    const T eps[6] = {H[0], H[4], H[8], H[1] + H[3], H[5] + H[7], H[6] + H[2]};
+    T d[36];
+    load_d(reinterpret_cast<const T*>(stage + L.d()) + el * Smem<T>::kDStride + p * 36, d);
+    const T c = a.coef ? reinterpret_cast<const T*>(stage + L.coef())[el] : T(1);
+    const T wp = reinterpret_cast<const T*>(stage + L.wdet())[el * kNPoint + p] * c;
     T sw[6];
 #pragma unroll
-    for (int a = 0; a < 6; ++a) {
-      T s = T(0);
+    for (int i = 0; i < 6; ++i) {
+      T acc = T(0);
 #pragma unroll
-      for (int b = 0; b < 6; ++b) s += Dp[a * 6 + b] * eps[b];
-      sw[a] = s * wp;
+      for (int j = 0; j < 6; ++j) acc += d[i * 6 + j] * eps[j];
+      sw[i] = acc * wp;
     }
-    const T st[3][3] = {{sw[0], sw[3], sw[5]}, {sw[3], sw[1], sw[4]}, {sw[5], sw[4], sw[2]}};
-    // f[n][i] += Σ_j σ_ij · ∂N_n/∂x_j   (Bᵀσ)
+    const T st[9] = {sw[0], sw[3], sw[5], sw[3], sw[1], sw[4], sw[5], sw[4], sw[2]};
+    // Sg[i][k] = Σ_j σ_ij J⁻¹[k][j], then f_ni = Σ_k Sg[i][k] ∂N_n/∂ξ_k  (Bᵀσ)
+    T Sg[9];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        Sg[i * 3 + k] = st[i * 3] * J[k * 3] + st[i * 3 + 1] * J[k * 3 + 1] + st[i * 3 + 2] * J[k * 3 + 2];
+    }
+    T f[kDof];
 #pragma unroll
     for (int nd = 0; nd < kNNode; ++nd) {
-      const T* gr = gref + (p * kNNode + nd) * 3;
-      T g[3];
-#pragma unroll
-      for (int j = 0; j < 3; ++j) g[j] = gr[0] * ji[j] + gr[1] * ji[3 + j] + gr[2] * ji[6 + j];
 #pragma unroll
       for (int i = 0; i < 3; ++i)
-        f[nd * 3 + i] += st[i][0] * g[0] + st[i][1] * g[1] + st[i][2] * g[2];
+        f[nd * 3 + i] = Sg[i * 3] * gr[nd * 3] + Sg[i * 3 + 1] * gr[nd * 3 + 1] + Sg[i * 3 + 2] * gr[nd * 3 + 2];
     }
-  }
+
+    // sum over the four points: reduce-scatter over lanes p^2, then p^1;
+    // value k ends at one lane as (f_q + f_q^2) + (f_q^1 + f_q^3)
+    const bool hi2 = p & 2, hi1 = p & 1;
+    T r15[15];
 #pragma unroll
-  for (int k = 0; k < 30; ++k) out[e * 30 + k] = f[k];
+    for (int j = 0; j < 15; ++j) {
+      const T keep = hi2 ? f[15 + j] : f[j];
+      const T send = hi2 ? f[j] : f[15 + j];
+      r15[j] = keep + shfl_xor(send, 2);
+    }
+    T r8[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const T upper = j < 7 ? r15[8 + j] : T(0);
+      const T keep = hi1 ? upper : r15[j];
+      const T send = hi1 ? r15[j] : upper;
+      r8[j] = keep + shfl_xor(send, 1);
+    }
+    if (el < n) {
+      T* fe = fs + el * kDof + (hi2 ? 15 : 0) + (hi1 ? 8 : 0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (j < 7 || !hi1) fe[j] = r8[j];
+    }
+    __syncthreads();
+
+    // the tile's f_e is one contiguous range of out: 16-byte stores
+    T* dst = out + e0 * kDof;
+    const int total = n * kDof, per = 16 / sizeof(T), nvec = total / per;
+    if (sizeof(T) == 8) {
+      for (int k = tid; k < nvec; k += blockDim.x)
+        reinterpret_cast<double2*>(dst)[k] = reinterpret_cast<const double2*>(fs)[k];
+    } else {
+      for (int k = tid; k < nvec; k += blockDim.x)
+        reinterpret_cast<float4*>(dst)[k] = reinterpret_cast<const float4*>(fs)[k];
+    }
+    for (int k = nvec * per + tid; k < total; k += blockDim.x) dst[k] = fs[k];
+  }
 }
 
 template <typename T>
-int launch(const void* u, const void* D, const void* Jinv, const void* wdet, const void* coef,
-           const void* gradn, int E, int tile_e, void* out, void* stream) {
-  if (tile_e < 1 || tile_e > kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
-  if (E > 0) {
-    const dim3 grid((E + tile_e - 1) / tile_e);
-    ebe_kernel<T><<<grid, tile_e, 0, static_cast<cudaStream_t>(stream)>>>(
-        (const T*)u, (const T*)D, (const T*)Jinv, (const T*)wdet, (const T*)coef,
-        (const T*)gradn, E, (T*)out);
+int launch(const void* x, const void* conn, const void* D, const void* Jinv, const void* wdet,
+           const void* coef, const void* gradn, int E, int tile_e, void* out, void* stream) {
+  if (tile_e < 4 || tile_e > kMaxTile || tile_e % 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (E <= 0) return static_cast<int>(cudaGetLastError());
+  const size_t smem = Smem<T>{tile_e}.total();
+  // per instantiation: the shared-memory ceiling once, blocks per SM per tile size
+  static int sms = 0;
+  static int per_sm[kMaxTile / 4 + 1] = {};
+  if (sms == 0) {
+    cudaError_t e = cudaFuncSetAttribute(ebe_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(Smem<T>{kMaxTile}.total()));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    int dev = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return static_cast<int>(e);
   }
+  int& occ = per_sm[tile_e / 4];
+  if (occ == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, ebe_kernel<T>, 4 * tile_e, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (occ < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const int ntiles = (E + tile_e - 1) / tile_e;
+  const int grid = ntiles < occ * sms ? ntiles : occ * sms;
+  const Args<T> args{(const T*)x, (const int*)conn, (const T*)D, (const T*)Jinv, (const T*)wdet,
+                     (const T*)coef, E};
+  ebe_kernel<T><<<grid, 4 * tile_e, smem, static_cast<cudaStream_t>(stream)>>>(args, (const T*)gradn, tile_e,
+                                                                                (T*)out);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int ebe_element_matvec_f32(const void* u, const void* D, const void* Jinv,
-                                      const void* wdet, const void* coef, const void* gradn,
-                                      int E, int tile_e, void* out, void* stream) {
-  return launch<float>(u, D, Jinv, wdet, coef, gradn, E, tile_e, out, stream);
+extern "C" int ebe_matvec_f32(const void* x, const void* conn, const void* D, const void* Jinv,
+                              const void* wdet, const void* coef, const void* gradn, int E, int tile_e,
+                              void* out, void* stream) {
+  return launch<float>(x, conn, D, Jinv, wdet, coef, gradn, E, tile_e, out, stream);
 }
 
-extern "C" int ebe_element_matvec_f64(const void* u, const void* D, const void* Jinv,
-                                      const void* wdet, const void* coef, const void* gradn,
-                                      int E, int tile_e, void* out, void* stream) {
-  return launch<double>(u, D, Jinv, wdet, coef, gradn, E, tile_e, out, stream);
+extern "C" int ebe_matvec_f64(const void* x, const void* conn, const void* D, const void* Jinv,
+                              const void* wdet, const void* coef, const void* gradn, int E, int tile_e,
+                              void* out, void* stream) {
+  return launch<double>(x, conn, D, Jinv, wdet, coef, gradn, E, tile_e, out, stream);
 }

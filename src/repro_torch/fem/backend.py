@@ -10,8 +10,9 @@ what the caller expects, and is refused where it disagrees with the device:
 
 No spec puts the plain version on a CUDA tensor, and nothing falls back
 from a kernel to its plain version.  ``tile_e``/``tile_p`` are the CUDA
-launch knobs (elements per block of the EBE kernel, points per block of the
-multispring kernel).
+launch knobs (elements per tile of the EBE kernel's persistent grid, four
+threads each, a multiple of 4 in [4, 64]; points per block of the
+multispring kernel, one warp each, in [1, 8]).
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ from typing import Callable
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ebe_matvec.ebe_matvec import TILE_E, check_tile_e
+from repro_torch.kernels.multispring.multispring import TILE_P, check_tile_p
 
 BACKEND_SPECS = ("auto", "cuda", "torch")
 _RESOLVED = ("cuda", "torch")
@@ -49,16 +52,16 @@ class KernelBackend:
 
     ebe: str = "torch"
     multispring: str = "torch"
-    tile_e: int = 128
-    tile_p: int = 4
+    tile_e: int = TILE_E
+    tile_p: int = TILE_P
 
     def __post_init__(self):
         for field in ("ebe", "multispring"):
             v = getattr(self, field)
             if v not in _RESOLVED:
                 raise ValueError(f"KernelBackend.{field}={v!r} is not resolved; one of {_RESOLVED}")
-        if not 1 <= self.tile_e <= 256 or not 1 <= self.tile_p <= 32:
-            raise ValueError(f"tile_e={self.tile_e} must be in [1,256], tile_p={self.tile_p} in [1,32]")
+        check_tile_e(self.tile_e)
+        check_tile_p(self.tile_p)
 
     # The wrappers pick the kernel from the tensors' device; the resolved
     # names above record (and were checked against) that device.

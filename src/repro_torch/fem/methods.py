@@ -22,6 +22,8 @@ from repro_torch.core import hetmem
 from repro_torch.core.stream import StreamEngine, StreamPlan
 from repro_torch.device import resolve_device
 from repro_torch.fem import assembly, multispring as ms, newmark, quadrature as quad, solver, spmv
+from repro_torch.kernels.ebe_matvec.ebe_matvec import TILE_E
+from repro_torch.kernels.multispring.multispring import TILE_P
 
 DIAG_CHUNK = 32768  # elements per chunk of ebe_diag_inverse's B-matrix einsum
 
@@ -42,8 +44,8 @@ class SeismicConfig:
     backend: str = "auto"     # auto | cuda | torch (checked against the device)
     ebe_backend: str = ""     # per-kernel override ("" → backend)
     ms_backend: str = ""      # per-kernel override ("" → backend)
-    tile_e: int = 128         # CUDA EBE kernel: elements (threads) per block
-    tile_p: int = 4           # CUDA multispring kernel: points (warps) per block
+    tile_e: int = TILE_E      # CUDA EBE kernel: elements (4 threads each) per tile
+    tile_p: int = TILE_P      # CUDA multispring kernel: points (warps) per block
     # ---- solver amortization ----------------------------------------------
     warm_start: bool = False  # carry δu as x0 for the next step's CG solve
     precond_every: int = 1    # EBE: refresh the block-Jacobi diag every N steps

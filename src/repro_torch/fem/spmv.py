@@ -3,9 +3,9 @@ deterministic scatter.
 
 The paper's Proposed Method 2 replaces the stored-matrix SpMV with
 on-the-fly element products (EBE, [8]): more flops, far less memory traffic,
-no stored matrix.  The element product is the CUDA kernel of
-``repro_torch.kernels.ebe_matvec`` on the card and
-:func:`ebe_element_matvec` (plain PyTorch) on the CPU.
+no stored matrix.  The gather and the element product are one CUDA kernel
+(``repro_torch.kernels.ebe_matvec``) on the card, and :func:`gather_elem`
++ :func:`ebe_element_matvec` (plain PyTorch) on the CPU.
 
 The scatter-add is a gather through a precomputed slot table followed by a
 sum over a fixed axis, never ``index_add_``/``scatter_add_``: their CUDA
@@ -47,12 +47,14 @@ class MeshMaps:
     """Device-resident index maps and geometry of a mesh, in one dtype.
 
     Built once per (mesh, dtype, device) so no matvec uploads or recasts
-    anything: ``conn [E,10]`` for the gather, ``dof_slots [ndof,maxdeg]``
+    anything: ``conn [E,10]`` for the gather, the same as int32 in
+    ``conn32`` for the EBE kernel (which gathers itself), ``dof_slots [ndof,maxdeg]``
     into ``f_e.flatten()`` and ``node_slots [N,maxdeg]`` into
     ``conn.flatten()`` for the deterministic scatters, and ``Jinv``/``wdet``.
     """
 
     conn: torch.Tensor
+    conn32: torch.Tensor
     dof_slots: torch.Tensor
     node_slots: torch.Tensor
     Jinv: torch.Tensor
@@ -65,6 +67,7 @@ class MeshMaps:
 
         return MeshMaps(
             conn=idx(mesh.conn),
+            conn32=torch.as_tensor(mesh.conn, dtype=torch.int32, device=device),
             dof_slots=idx(slot_table(mesh.elem_dofs, mesh.ndof)),
             node_slots=idx(slot_table(mesh.conn, mesh.n_nodes)),
             Jinv=torch.as_tensor(mesh.Jinv, dtype=dtype, device=device),
@@ -143,11 +146,12 @@ def ebe_matvec(x: torch.Tensor, D: torch.Tensor, maps: MeshMaps, coef_e=None,
 
     ``maps`` must hold its geometry in ``x.dtype`` (see :meth:`MeshMaps.astype`).
     The element product defaults to the kernel wrapper, which picks the CUDA
-    kernel or the plain version by ``x``'s device.
+    kernel (the gather fused in) or ``gather_elem`` + the plain version by
+    ``x``'s device; it is called as ``element_kernel(x, conn32, D, Jinv, wdet, coef)``.
     """
     if element_kernel is None:
         from repro_torch.kernels.ebe_matvec.ops import element_kernel
-    f_e = element_kernel(gather_elem(x, maps.conn), D, maps.Jinv, maps.wdet, coef_e)
+    f_e = element_kernel(x, maps.conn32, D, maps.Jinv, maps.wdet, coef_e)
     return scatter_add(f_e, maps.dof_slots)
 
 

@@ -94,8 +94,8 @@ _ENTRY_POINTS = {
     # eps, grev, trev, gprev, gmax, dir, virg, G0, gr, beta, bulk, n, w,
     # g_min_frac, P, S, tile_p, sig, D, frac, ngrev, ntrev, ngprev, ngmax, ndir, nvirg, stream
     "ms_update": (("f32", "f64"), [_P] * 13 + [_D, _I, _I, _I] + [_P] * 9 + [_P]),
-    # u, D, Jinv, wdet, coef (nullable), gradn, E, tile_e, out, stream
-    "ebe_element_matvec": (("f32", "f64"), [_P] * 6 + [_I, _I, _P, _P]),
+    # x, conn (int32), D, Jinv, wdet, coef (nullable), gradn, E, tile_e, out, stream
+    "ebe_matvec": (("f32", "f64"), [_P] * 7 + [_I, _I, _P, _P]),
     # q, k, v, out, B, Hq, Hkv, Sq, Skv, dh, dv, q/k/v strides (batch, head, row),
     # scale, causal, window (0: none), softcap (0: none), stream
     "flash_attention": (("f32",), _FLASH_ARGS),  # CUDA cores

@@ -11,7 +11,14 @@ from repro_torch.fem.multispring import FLAG_KEYS, STATE_KEYS, SpringParams
 from repro_torch.kernels import LaunchCounter, check_arg
 
 TILE_P = 4  # evaluation points (one warp each) per CUDA block
+TILE_P_RANGE = (1, 8)  # the kernel's launch bound: 256 threads
 counter = LaunchCounter("multispring")
+
+
+def check_tile_p(tile_p: int) -> None:
+    lo, hi = TILE_P_RANGE
+    if not lo <= tile_p <= hi:
+        raise ValueError(f"multispring: tile_p={tile_p} must be in [{lo}, {hi}]")
 
 
 def _check(name, x, shape, dtype, device):
@@ -21,8 +28,6 @@ def _check(name, x, shape, dtype, device):
 def multispring_cuda(eps: torch.Tensor, state: dict[str, torch.Tensor], params: SpringParams,
                      n: torch.Tensor, w: torch.Tensor, *, tile_p: int = TILE_P):
     """(σ [P,6], D [P,6,6], new_state, frac [P]) from the CUDA kernel."""
-    if eps.device.type != "cuda":
-        raise ValueError(f"multispring: the CUDA kernel needs CUDA tensors, got {eps.device}")
     dt, dev = eps.dtype, eps.device
     if dt not in (torch.float32, torch.float64):
         raise ValueError(f"multispring: dtype {dt} not supported (float32, float64)")
@@ -34,8 +39,9 @@ def multispring_cuda(eps: torch.Tensor, state: dict[str, torch.Tensor], params: 
         _check(k, getattr(params, k), (P,), dt, dev)
     _check("n", n, (S, 6), dt, dev)
     _check("w", w, (S,), dt, dev)
-    if not 1 <= tile_p <= 32:
-        raise ValueError(f"multispring: tile_p={tile_p} must be in [1, 32]")
+    check_tile_p(tile_p)
+    if dev.type != "cuda":
+        raise ValueError(f"multispring: the CUDA kernel needs CUDA tensors, got {dev}")
 
     from repro_torch.kernels import _build
 

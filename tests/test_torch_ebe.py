@@ -1,7 +1,9 @@
 """Port parity of the EBE path: the element product against the reference
-oracle and the reference Pallas kernel (interpret mode), the full matrix-free
-``ebe_matvec`` against the port's dense assembly and the reference's, and the
-scatter's determinism.
+oracle and the reference Pallas kernel (interpret mode), the fused entry
+(gather through an int32 connectivity + element product) against the
+gather and the plain product and against the Pallas kernel on the gathered
+input, the full matrix-free ``ebe_matvec`` against the port's dense assembly
+and the reference's, and the scatter's determinism.
 
 Tolerances: element product 1e-13 (fp64) and 5e-6 (fp32) relative to the
 maximum (the tolerances of tests/test_kernels.py); full operator 1e-9
@@ -34,10 +36,50 @@ def test_element_product_matches_oracle_and_pallas(dtype, tol, with_coef):
         coef = rng.uniform(0.5, 1.5, size=(E,)).astype(dtype) if with_coef else None
         jargs = [jnp.asarray(a) for a in (u_e, D, Jinv, wdet)] + [None if coef is None else jnp.asarray(coef)]
         targs = [torch.tensor(a, dtype=tdt) for a in (u_e, D, Jinv, wdet)] + [None if coef is None else torch.tensor(coef)]
-        out = ebe_ops.element_kernel(*targs).numpy()
+        out = ebe_ops.ebe_element_matvec_ref(*targs).numpy()
         for ref in (ebe_element_matvec_ref(*jargs), ebe_element_matvec_pallas(*jargs, tile_e=16)):
             ref = np.asarray(ref)
             np.testing.assert_allclose(out, ref, rtol=tol, atol=tol * float(np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 5e-6), (np.float64, 1e-13)])
+def test_fused_entry_matches_gather_and_pallas(dtype, tol):
+    """The entry ``spmv.ebe_matvec`` calls, ``element_kernel(x, conn32, ...)``,
+    on CPU tensors: bit-equal to ``gather_elem`` + the plain product (with
+    and without coef), and within the kernel tolerance of the Pallas kernel
+    on the gathered input, padded elements (conn 0, wdet 0) included."""
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
+    m = meshgen.generate(2, 2, 1, pad_elems_to=7)
+    assert m.npad > 0 and not m.conn[-m.npad:].any()
+    maps = spmv.MeshMaps.from_mesh(m, tdt, "cpu")
+    rng = np.random.default_rng(5)
+    E = m.n_elem
+    x = rng.normal(size=(m.n_nodes, 3)).astype(dtype)
+    Q = rng.normal(size=(E, quad.NPOINT, 6, 6))
+    D = (Q @ Q.transpose(0, 1, 3, 2)).astype(dtype)
+    coef = rng.uniform(0.5, 1.5, size=(E,)).astype(dtype)
+    tD, tc = torch.tensor(D), torch.tensor(coef)
+    u_e = spmv.gather_elem(torch.tensor(x), maps.conn)
+    for c in (tc, None):
+        out = ebe_ops.element_kernel(torch.tensor(x), maps.conn32, tD, maps.Jinv, maps.wdet, c)
+        assert torch.equal(out, ebe_ops.ebe_element_matvec_ref(u_e, tD, maps.Jinv, maps.wdet, c))
+        assert out[:-m.npad].abs().max() > 0 and not out[-m.npad:].any()  # ghosts contribute nothing
+    with jax.enable_x64(dtype == np.float64):
+        jargs = [jnp.asarray(a) for a in (u_e.numpy(), D, maps.Jinv.numpy(), maps.wdet.numpy(), coef)]
+        ref = np.asarray(ebe_element_matvec_pallas(*jargs, tile_e=16))
+    out = ebe_ops.element_kernel(torch.tensor(x), maps.conn32, tD, maps.Jinv, maps.wdet, tc)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=tol, atol=tol * float(np.abs(ref).max()))
+
+
+def test_meshmaps_int32_conn_equals_int64():
+    m = meshgen.generate(2, 2, 2, pad_elems_to=5)
+    for dt in (torch.float64, torch.float32):
+        maps = spmv.MeshMaps.from_mesh(m, dt, "cpu")
+        assert maps.conn32.dtype == torch.int32 and maps.conn.dtype == torch.int64
+        assert maps.conn32.is_contiguous() and tuple(maps.conn32.shape) == (m.n_elem, quad.NNODE)
+        assert torch.equal(maps.conn32.long(), maps.conn)
+        np.testing.assert_array_equal(maps.conn32.numpy(), m.conn)
+        assert maps.astype(torch.float32).conn32 is maps.conn32  # index maps shared
 
 
 @pytest.fixture(scope="module")

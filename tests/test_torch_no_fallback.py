@@ -104,13 +104,88 @@ def test_cuda_bindings_refuse_cpu_tensors():
         ms_ops.multispring_cuda(torch.zeros(P, 6, dtype=torch.float64), st, prm, n, w)
     E = 2
     with pytest.raises(ValueError, match="CUDA"):
-        ebe_ops.ebe_element_matvec_cuda(torch.zeros(E, 10, 3), torch.zeros(E, 4, 6, 6),
-                                        torch.zeros(E, 3, 3), torch.zeros(E, 4))
+        ebe_ops.ebe_matvec_cuda(torch.zeros(5, 3), torch.zeros(E, 10, dtype=torch.int32),
+                                torch.zeros(E, 4, 6, 6), torch.zeros(E, 3, 3), torch.zeros(E, 4))
     q = torch.zeros(1, 2, 4, 8)
     with pytest.raises(ValueError, match="CUDA"):
         fa_ops.flash_attention_cuda(q, q[:, :1], q[:, :1])
     assert kernels.launch_counts()["multispring"] == 0
     assert kernels.launch_counts()["flash_attention"] == 0
+    assert kernels.launch_counts()["ebe_matvec_f32"] == 0
+
+
+def _ebe_args(E=3, N=5, dt=torch.float64):
+    return (torch.zeros(N, 3, dtype=dt), torch.zeros(E, 10, dtype=torch.int32), torch.zeros(E, 4, 6, 6, dtype=dt),
+            torch.zeros(E, 3, 3, dtype=dt), torch.zeros(E, 4, dtype=dt), torch.ones(E, dtype=dt))
+
+
+@pytest.mark.parametrize("case,match", [
+    ("x_float16", "dtype"), ("conn_int64", "int32"), ("D_float32", "D must be"), ("conn_shape", "conn must be"),
+    ("coef_shape", "coef must be"), ("x_noncontiguous", "x must be"), ("Jinv_misaligned", "16-byte"),
+    ("tile_e_30", "tile_e"), ("tile_e_68", "tile_e"),
+])
+def test_ebe_binding_refuses_bad_arguments(case, match):
+    """The fused EBE entry checks every argument before it needs a card, so
+    each refusal is a clear ValueError on the CPU too."""
+    x, conn, D, Jinv, wdet, coef = _ebe_args()
+    kw = {}
+    if case == "x_float16":
+        x = x.half()
+    elif case == "conn_int64":
+        conn = conn.long()
+    elif case == "D_float32":
+        D = D.float()
+    elif case == "conn_shape":
+        conn = conn[:, :9].contiguous()
+    elif case == "coef_shape":
+        coef = torch.ones(4, dtype=torch.float64)
+    elif case == "x_noncontiguous":
+        x = torch.zeros(3, 5, dtype=torch.float64).t()
+    elif case == "Jinv_misaligned":  # a contiguous view 72 B into its storage
+        Jinv = torch.zeros(4, 3, 3, dtype=torch.float64)[1:]
+    else:
+        kw["tile_e"] = int(case.rsplit("_", 1)[1])
+    with pytest.raises(ValueError, match=match):
+        ebe_ops.ebe_matvec_cuda(x, conn, D, Jinv, wdet, coef, **kw)
+    with pytest.raises(ValueError, match="CUDA"):  # the same arguments, all well formed, still need a card
+        ebe_ops.ebe_matvec_cuda(*_ebe_args())
+    assert kernels.launch_counts()["ebe_matvec_f64"] == 0
+
+
+def test_multispring_binding_refuses_bad_arguments():
+    P, S = 3, 6
+    st = ms.init_state(P, S, device="cpu")
+    prm = ms.SpringParams(*(torch.ones(P, dtype=torch.float64) for _ in range(4)))
+    n, w = (torch.tensor(a) for a in ms.spring_directions(S))
+    eps = torch.zeros(P, 6, dtype=torch.float64)
+    with pytest.raises(ValueError, match="dtype"):
+        ms_ops.multispring_cuda(eps.half(), st, prm, n, w)
+    with pytest.raises(ValueError, match="direction must be"):
+        ms_ops.multispring_cuda(eps, dict(st, direction=st["direction"].long()), prm, n, w)
+    with pytest.raises(ValueError, match="tile_p"):
+        ms_ops.multispring_cuda(eps, st, prm, n, w, tile_p=9)
+    assert kernels.launch_counts()["multispring"] == 0
+
+
+def test_tile_knobs_defaults_and_ranges():
+    """``tile_e`` counts elements per tile of the EBE kernel's persistent
+    grid (4 threads each; a multiple of 4 in [4, 64]), ``tile_p`` warps per
+    multispring block ([1, 8]); the config, the backend and the wrappers
+    share one default and one check."""
+    cfg = methods.SeismicConfig()
+    assert (cfg.tile_e, cfg.tile_p) == (ebe_ops.TILE_E, ms_ops.TILE_P) == (16, 4)
+    for te in (4, 8, 64):
+        assert backend.KernelBackend(tile_e=te).tile_e == te
+    for te in (0, 2, 30, 68, 128):
+        with pytest.raises(ValueError, match="tile_e"):
+            backend.KernelBackend(tile_e=te)
+    for tp in (1, 8):
+        assert backend.KernelBackend(tile_p=tp).tile_p == tp
+    for tp in (0, 9, 32):
+        with pytest.raises(ValueError, match="tile_p"):
+            backend.KernelBackend(tile_p=tp)
+    with pytest.raises(ValueError, match="tile_e"):
+        backend.resolve(methods.SeismicConfig(tile_e=128), device="cpu")
 
 
 def test_backend_spec_follows_the_device():
@@ -123,7 +198,7 @@ def test_backend_spec_follows_the_device():
     with pytest.raises(ValueError, match="unknown"):
         backend.resolve_spec("pallas", "cpu")
     kb = backend.resolve(methods.SeismicConfig(), device="cpu")
-    assert (kb.ebe, kb.multispring, kb.tile_e, kb.tile_p) == ("torch", "torch", 128, 4)
+    assert (kb.ebe, kb.multispring, kb.tile_e, kb.tile_p) == ("torch", "torch", 16, 4)
     with pytest.raises(ValueError):
         backend.resolve(methods.SeismicConfig(ebe_backend="cuda"), device="cpu")
 
