@@ -2,9 +2,9 @@
 
 :func:`mesh_from_arrays` rebuilds the port's ``Mesh`` from any object or
 dict with the reference ``Mesh``'s numpy fields; :func:`carry_from_numpy`
-turns a mid-run Proposed 2 carry (as numpy) into the port's carry on an
-operator set's device, so both packages can continue from the same
-nonlinear state.  :func:`params_from_numpy` and
+turns a mid-run carry of any of the four methods (as numpy) into the
+port's carry on an operator set's device, so both packages can continue
+from the same nonlinear state.  :func:`params_from_numpy` and
 :func:`decode_state_from_numpy` do the same for a language model's
 parameters and for a decode state (the KV caches after a prefill).
 """
@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.fem import meshgen, multispring as ms, newmark
-from repro_torch.fem.methods import partition_springs, springs_to_host
+from repro_torch.fem.methods import METHODS, partition_springs, springs_to_host
 from repro_torch.models import transformer
 
 _MATERIAL_FIELDS = tuple(f.name for f in dataclasses.fields(meshgen.Material))
@@ -43,17 +43,22 @@ def mesh_from_arrays(obj: Any) -> meshgen.Mesh:
     return meshgen.Mesh(**kwargs)
 
 
-def carry_from_numpy(carry: dict[str, Any], ops, *, streamed: bool):
+def carry_from_numpy(carry: dict[str, Any], ops, *, method: str):
     """The port's carry for ``ops`` from a carry given as numpy arrays.
 
     ``carry`` holds the ``NewmarkState`` fields ``u, v, a, q``, ``springs``
     (the six ``[P,S]`` spring-state arrays by name), ``D [E,P,6,6]``,
     ``alpha``, ``beta_e`` and, as ``ops.cfg`` requires, ``du_prev``
-    (``warm_start``) and ``Minv``/``step`` (``precond_every > 1``).  With
-    ``streamed=True`` the springs are partitioned into ``cfg.npart`` blocks
-    in pinned host memory (plain blocks when ``ops`` runs on the CPU).
+    (``warm_start``) and, for ``proposed2`` with ``precond_every > 1``,
+    ``Minv``/``step``.  The springs go where ``method`` keeps them: into
+    ``cfg.npart`` blocks in pinned host memory for Proposed 1 and 2 (plain
+    blocks when ``ops`` runs on the CPU), on ``ops.host`` for Baseline 2,
+    on the device for Baseline 1.
     """
+    if method not in METHODS:
+        raise KeyError(method)
     cfg, dev = ops.cfg, ops.device
+    streamed, host = method in ("proposed1", "proposed2"), method == "baseline2"
 
     def T(a, dtype=cfg.rdtype):
         return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
@@ -63,7 +68,7 @@ def carry_from_numpy(carry: dict[str, Any], ops, *, streamed: bool):
     for k in ms.STATE_KEYS:
         dtype = torch.int32 if k in ms.FLAG_KEYS else cfg.rdtype
         springs[k] = torch.tensor(np.asarray(carry["springs"][k]), dtype=dtype,
-                                  device="cpu" if streamed else dev)
+                                  device=ops.host if streamed or host else dev)
     if streamed:
         springs = partition_springs(ops, springs, cfg.npart)
         if dev.type != "cpu":
@@ -71,7 +76,7 @@ def carry_from_numpy(carry: dict[str, Any], ops, *, streamed: bool):
     tail = ()
     if cfg.warm_start:
         tail += (T(carry["du_prev"]),)
-    if cfg.precond_every > 1:
+    if method == "proposed2" and cfg.precond_every > 1:
         tail += (T(carry["Minv"]), int(carry["step"]))
     return (nm, springs, T(carry["D"]), T(carry["alpha"]), T(carry["beta_e"]), *tail)
 

@@ -1,5 +1,6 @@
-"""Matrix-free element-by-element (EBE) products: gather → element product →
-deterministic scatter.
+"""Sparse products: matrix-free element-by-element (EBE), gather → element
+product → deterministic scatter, and the stored BCSR 3×3 matrix of the CRS
+rungs.
 
 The paper's Proposed Method 2 replaces the stored-matrix SpMV with
 on-the-fly element products (EBE, [8]): more flops, far less memory traffic,
@@ -21,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.fem import quadrature as quad
-from repro_torch.fem.assembly import physical_gradients
+from repro_torch.fem.assembly import RUN_CHUNK, RunSlots, physical_gradients
 
 
 def slot_table(ids: np.ndarray, n: int) -> np.ndarray:
@@ -81,6 +82,54 @@ class MeshMaps:
     @property
     def n_elem(self) -> int:
         return self.conn.shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class BcsrMaps:
+    """Device-resident maps of a mesh's BCSR 3×3 matrix (the CRS rungs).
+
+    ``col_idx [nnzb]`` for the gather of x, ``row_lengths [N]`` (blocks per
+    row; the rows are contiguous runs of blocks) for the row sum,
+    ``diag_slots [N]``, and ``entry_slots`` (:class:`RunSlots`) from element
+    blocks to BCSR blocks.  Padded elements (``mesh.npad``, all mapped to
+    block 0 with zero stiffness) are left out of ``entry_slots``: they add
+    exact zeros in the reference.  Built once per mesh and device, and only
+    by the CRS rungs: Proposed 2 never holds them.
+    """
+
+    col_idx: torch.Tensor
+    row_lengths: torch.Tensor
+    diag_slots: torch.Tensor
+    entry_slots: RunSlots
+
+    @staticmethod
+    def from_mesh(mesh, device, chunk: int = RUN_CHUNK) -> "BcsrMaps":
+        def idx(a):
+            return torch.as_tensor(a, dtype=torch.long, device=device)
+
+        nnzb = mesh.col_idx.shape[0]
+        real = mesh.entry_map[:mesh.n_elem - mesh.npad]
+        return BcsrMaps(
+            col_idx=idx(mesh.col_idx),
+            row_lengths=idx(np.diff(mesh.row_ptr)),
+            diag_slots=idx(mesh.diag_slots),
+            entry_slots=RunSlots.build(real, nnzb, device, chunk),
+        )
+
+    @property
+    def nnzb(self) -> int:
+        return self.col_idx.shape[0]
+
+
+def bcsr_matvec(values: torch.Tensor, maps: BcsrMaps, x: torch.Tensor) -> torch.Tensor:
+    """``y [N,3]``, ``y_i = Σ_j A_ij x_j`` over the 3×3 blocks ``values
+    [nnzb,3,3]``: the gather ``x[col_idx]``, the block products (a product
+    and a sum over 3: ``einsum`` would go through a batched GEMM of 3×3
+    matrices, far slower on the card, ``PERF.md``), then each row's sum by
+    ``torch.segment_reduce`` over the row lengths, in a fixed order per row
+    (no atomics)."""
+    prod = (values * x[maps.col_idx][:, None, :]).sum(-1)
+    return torch.segment_reduce(prod, "sum", lengths=maps.row_lengths)
 
 
 def gather_elem(u: torch.Tensor, conn: torch.Tensor) -> torch.Tensor:

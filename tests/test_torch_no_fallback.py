@@ -203,14 +203,42 @@ def test_backend_spec_follows_the_device():
         backend.resolve(methods.SeismicConfig(ebe_backend="cuda"), device="cpu")
 
 
-def test_crs_rungs_not_ported_yet():
+@pytest.mark.parametrize("name", methods.METHODS)
+def test_make_step_covers_every_method(name):
     mesh = meshgen.generate(1, 1, 1, pad_elems_to=2)
     ops = backend.make_operators(mesh, methods.SeismicConfig(npart=2, nspring=6), device="cpu")
-    for name in ("baseline1", "baseline2", "proposed1"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            methods.make_step(name, ops)
+    step, streamed = methods.make_step(name, ops)
+    assert callable(step) and streamed == (name in ("proposed1", "proposed2"))
     with pytest.raises(KeyError):
         methods.make_step("proposed3", ops)
+
+
+def test_baseline2_runs_the_multispring_on_the_host_explicitly():
+    """Baseline 2's host multispring is the method (Algorithm 2), named in the
+    operators, not a fallback chosen by where a tensor happens to lie: it
+    never goes through the device's multispring, and refuses θ off the host."""
+    mesh = meshgen.generate(1, 1, 1, pad_elems_to=2)
+    cfg = methods.SeismicConfig(npart=2, nspring=6)
+    ops = backend.make_operators(mesh, cfg, device="cpu")
+    assert ops.host == methods.HOST == torch.device("cpu")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("went through the device's multispring")
+
+    ops.multispring_fn = refuse
+    with pytest.raises(AssertionError, match="device's multispring"):
+        methods.initial_carry(ops)  # Baseline 1's carry uses the device's multispring
+    step, streamed = methods.make_step("baseline2", ops)
+    carry = methods.initial_carry(ops, streamed=streamed, host=True)
+    assert all(v.device == methods.HOST for v in carry[1].values())
+    carry, aux = step(carry, torch.tensor([0.3, 0.0, 0.1], dtype=torch.float64))
+    assert aux.converged and all(v.device == methods.HOST for v in carry[1].values())
+    eps = torch.zeros((mesh.n_elem * 4, 6), dtype=torch.float64)
+    with pytest.raises(ValueError, match="keeps θ on cpu"):
+        ops.multispring_host(eps, {k: v.to("meta") for k, v in carry[1].items()})
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            methods.run(mesh, cfg, np.zeros((1, 3)), method="baseline2")
 
 
 def test_default_device_raises_without_a_card():

@@ -135,8 +135,8 @@ def test_carry_across_from_reference(meshes, extra):
         ref_u = np.asarray(carry[0].u)
     cfg = methods.SeismicConfig(**KW, **extra)
     ops = backend.make_operators(mesh, cfg, device="cpu")
-    step, streamed = methods.make_step("proposed2", ops)
-    pcarry = convert.carry_from_numpy(mid, ops, streamed=streamed)
+    step, _ = methods.make_step("proposed2", ops)
+    pcarry = convert.carry_from_numpy(mid, ops, method="proposed2")
     assert torch.equal(pcarry[0].u, torch.tensor(mid["u"]))
     v, it = [], []
     for k in range(3, NT):
