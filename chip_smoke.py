@@ -20,34 +20,51 @@ Phases, each followed by a JSON line with its seconds:
                kernel) over GQA, ragged, Sq < Skv, window, softcap,
                non-causal, Sq × Skv, dh ∈ {128, 256, 192 with dv 128}, dh and
                dv not multiples of 8 (the padding step) and Sq 1 against
-               4,096 keys;
+               4,096 keys; the k-set entries (k members in one launch):
+               EBE for k ∈ {1, 2, 3} in both dtypes (E 997 puts members off
+               the bulk copies' 16-byte alignment) and multispring for k 2,
+               each against its plain version and bitwise against k
+               one-member launches, flags bit-equal;
 4.  cpu        the FEM port on the card against the port on the CPU;
-5.  prefetch   ``schedule="prefetch"`` ≡ ``"serial"`` bitwise on the card;
+5.  prefetch   ``schedule="prefetch"`` and ``"donate"`` ≡ ``"serial"`` bitwise
+               on the card;
 6.  crs_check  all four methods on a small mesh on the card, solved to 1e-10:
                Baseline 2 and Proposed 1 against Baseline 1 (1e-12·max|v|),
                Proposed 2 against it (1e-5·max|v|), each CRS rung against
                itself on the CPU (1e-6·max|v|), Proposed 1 prefetch ≡ serial
                bitwise;
-7.  main       Proposed 2 at full size through ``methods.run``: 294,912 TET10
+7.  kset_check the k-set ensembles (``run_ensemble``, M 3) of all four
+               methods on crs_check's mesh and config: card ≡ CPU port
+               (1e-6·max|v|), each lane ≡ its own ``run`` on the card
+               (1e-9·max|v|); Proposed 1's k-set with θ offloaded ≡ θ on the
+               card bitwise; a guarded NaN in lane 1 (Proposed 2): health
+               words equal the CPU port's, the siblings bitwise unchanged;
+8.  main       Proposed 2 at full size through ``methods.run``: 294,912 TET10
                elements, 150 springs per point (θ = 7.08 GB in pinned host
                memory), ``npart=8``, prefetch, fp64, 8 steps;
-8.  crs_main   the CRS rungs at main's size and config through ``methods.run``:
+9.  crs_main   the CRS rungs at main's size and config through ``methods.run``:
                Baseline 1 (θ on the card) and Proposed 1 (θ streamed) 4
                steps each, Baseline 2 (θ and the multispring on the host) 2
                steps; per step the parts of the step, per rung the peak
                device memory against θ's bytes;
-9.  lm_cpu     qwen3-1.7b at full width, 2 layers, fp32: prefill + 4 decode
+10. lm_cpu     qwen3-1.7b at full width, 2 layers, fp32: prefill + 4 decode
                steps on the card against the CPU, and prefill→decode against
                ``forward`` on the card (the fp32 flash kernel's path);
-10. lm_main    qwen3-1.7b at full width and depth (28 layers), bf16 compute:
+11. lm_main    qwen3-1.7b at full width and depth (28 layers), bf16 compute:
                prefill of 4 × 4,096 tokens (28 launches of the wgmma flash
                kernel, none of the fp32 one), then 32 greedy decode steps
                (no flash launch);
-11. lm_offload ``generate`` with the KV cache in pinned host memory (4 blocks
+12. lm_offload ``generate`` with the KV cache in pinned host memory (4 blocks
                of 7 layers, prefetch) gives the resident tokens; the same
                tokens stepped through both decode steps give bitwise equal
                logits and caches;
-12. timing     each kernel at the shapes its main path gives it, against its
+13. kset_main  Proposed 2 as 2SET at main's mesh and 150 springs: two cases,
+               θ of both resident on the card (2 × 7.08 GB), 4 steps of
+               ``run_ensemble``, against each case alone in the same resident
+               form (s/step, iterations, parts, peak device memory); one
+               k-set multispring launch per step and one k-set EBE launch per
+               matvec; lanes ≡ the single runs within 1e-6·max|v|;
+14. timing     each kernel at the shapes its main path gives it, against its
                plain version, its bound and (flash) SDPA, with flash held in
                fp32 and bf16 there too and timed in both; a breakdown of one
                whole EBE matvec (kernel, slot-table scatter) in both dtypes,
@@ -55,7 +72,8 @@ Phases, each followed by a JSON line with its seconds:
                over the step's blocks beside the streamed pass and the θ
                copy alone), of one ``bcsr_matvec`` against its byte bound and
                one ``crs_update`` by part, of one prefill and of one decode
-               step.
+               step; last, the k-set kernels at kset_main's shapes against
+               two one-member launches and their plain versions.
 
 It prints one ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -120,15 +138,16 @@ def ptxas_report(log):
     out = {}
     for chunk in log.split("Compiling entry function '")[1:]:
         mangled = chunk.split("'", 1)[0]
-        m = re.search(r"(ms_update_kernel|ebe_kernel)I(d|f)E", mangled)
+        m = re.search(r"(ms_update_kernel|ebe_kernel)I(d|f)(Lb[01]E)?E", mangled)
         fa = re.search(r"(flash_kernel|flash_wgmma_kernel)ILi(\d+)E", mangled)
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
         if (m or fa) and regs:
             if fa:  # flash_kernel is the fp32 CUDA-core kernel, flash_wgmma_kernel the bf16 one
                 name = f"{fa.group(1)}<{'bf16' if 'wgmma' in fa.group(1) else 'float'}, {fa.group(2)}>"
-            else:
-                name = f"{m.group(1)}<{kinds[m.group(2)]}>"
+            else:  # the EBE kernel has a one-member and a k-set instance
+                kset = {"Lb0E": ", one member", "Lb1E": ", k-set"}.get(m.group(3), "")
+                name = f"{m.group(1)}<{kinds[m.group(2)]}{kset}>"
             out[name] = {"registers": int(regs.group(1)),
                          "spill_store_bytes": int(spill.group(1)) if spill else None,
                          "spill_load_bytes": int(spill.group(2)) if spill else None}
@@ -163,8 +182,8 @@ def sass_fp64_counts(lib, nvcc):
         text = subprocess.run([tool, "-sass", path], capture_output=True, text=True, check=True).stdout
         for chunk in re.split(r"\n\s+Function : ", text)[1:]:
             name = chunk.split("\n", 1)[0].strip()
-            key = next((k for k in ("ms_update_kernelIdE", "ebe_kernelIdE", "probe_power", "probe_division")
-                        if k in name), None)
+            key = next((k for k in ("ms_update_kernelIdE", "ebe_kernelIdLb0EE", "ebe_kernelIdLb1EE", "probe_power",
+                                    "probe_division") if k in name), None)
             if key is None:
                 continue
             ops = re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", chunk, re.M)
@@ -206,7 +225,7 @@ def main() -> int:
 
     from repro_torch import kernels
     from repro_torch.configs import ARCHS
-    from repro_torch.core import hetmem
+    from repro_torch.core import faults, hetmem
     from repro_torch.fem import assembly, meshgen, methods, multispring as ms, spmv
     from repro_torch.kernels import _build
     from repro_torch.kernels.ebe_matvec import ops as ebe_ops
@@ -288,6 +307,61 @@ def main() -> int:
                               "coef": c is not None, "max_rel_err": err, "tol": etol})
                         require(err <= etol, f"ebe_matvec disagrees: {err} > {etol} (E {E}, tile_e {te})")
 
+        # the k-set entries: k members in one launch, against the plain k-set
+        # version and bitwise against k one-member launches (fp32 E 997 puts
+        # members 1 and 2 off the 16-byte alignment of the bulk copies)
+        for dt, etol in ((torch.float64, 1e-13), (torch.float32, 5e-6)):
+            g = torch.Generator(device=dev).manual_seed(2)
+            N = 400
+            for E in (1001, 997, 5):
+                conn = torch.randint(0, N, (E, 10), device=dev, generator=g, dtype=torch.int32)
+                Jinv = torch.randn((E, 3, 3), dtype=dt, device=dev, generator=g)
+                wdet = torch.rand((E, 4), dtype=dt, device=dev, generator=g)
+                for k in (1, 2, 3):
+                    x = torch.randn((k, N, 3), dtype=dt, device=dev, generator=g)
+                    Q = torch.randn((k, E, 4, 6, 6), dtype=torch.float64, device=dev, generator=g)
+                    D = (Q @ Q.transpose(-1, -2)).to(dt).contiguous()
+                    coef = torch.rand((k, E), dtype=dt, device=dev, generator=g) + 0.5
+                    for c in (coef, None):
+                        fk = ebe_ops.ebe_matvec_kset_cuda(x, conn, D, Jinv, wdet, c)
+                        fp = ebe_ops.ebe_element_matvec_kset_ref(x, conn.long(), D, Jinv, wdet, c)
+                        ones = torch.stack([ebe_ops.ebe_matvec_cuda(x[i].contiguous(), conn, D[i].clone(), Jinv, wdet,
+                                                                    None if c is None else c[i].clone())
+                                            for i in range(k)])
+                        torch.cuda.synchronize()
+                        err, same = rel_err(fk, fp), torch.equal(fk, ones)
+                        emit({"check": "ebe_matvec_kset", "dtype": str(dt), "k": k, "E": E, "N": N,
+                              "coef": c is not None, "max_rel_err": err, "tol": etol, "bitwise_vs_one_member": same})
+                        require(err <= etol, f"ebe_matvec k-set disagrees: {err} > {etol} (k {k}, E {E})")
+                        require(same, f"ebe_matvec k-set ≠ {k} one-member launches (E {E}, {dt})")
+        for dt, tol in ((torch.float64, 1e-12), (torch.float32, 3e-5)):
+            rng = np.random.default_rng(8)
+            k, P, S = 2, 29, 150
+            prm = ms.SpringParams(*(torch.tensor(rng.uniform(lo, hi, P), dtype=dt, device=dev)
+                                    for lo, hi in ((5e7, 5e8), (5e-4, 5e-3), (0.7, 1.0), (1e8, 1e9))))
+            n, w = (torch.tensor(a, dtype=dt, device=dev) for a in ms.spring_directions(S))
+            st_k = {key: v.expand(k, P, S).clone() for key, v in ms.init_state(P, S, dt, device=dev).items()}
+            st_p = {key: v.clone() for key, v in st_k.items()}
+            eps = torch.zeros((k, P, 6), dtype=dt, device=dev)
+            worst, same = 0.0, True
+            for _ in range(6):
+                eps = eps + torch.tensor(rng.normal(scale=8e-4, size=(k, P, 6)), dtype=dt, device=dev)
+                out_k = ms_ops.multispring_kset_cuda(eps, st_k, prm, n, w)
+                out_p = ms_ops.multispring_kset_ref(eps, st_p, prm, n, w)
+                ones = [ms_ops.multispring_cuda(eps[i].contiguous(), {key: v[i].contiguous() for key, v in st_k.items()},
+                                                prm, n, w) for i in range(k)]
+                torch.cuda.synchronize()
+                for key in ms.FLAG_KEYS:
+                    require(torch.equal(out_k[2][key], out_p[2][key]), f"multispring k-set flags {key} differ ({dt})")
+                worst = max(worst, rel_err(out_k[0], out_p[0]), rel_err(out_k[1], out_p[1]))
+                same &= all(torch.equal(out_k[j][i], ones[i][j]) for i in range(k) for j in (0, 1, 3))
+                same &= all(torch.equal(out_k[2][key][i], ones[i][2][key]) for i in range(k) for key in ms.STATE_KEYS)
+                st_k, st_p = out_k[2], out_p[2]
+            emit({"check": "multispring_kset", "dtype": str(dt), "k": k, "P": P, "S": S, "max_rel_err": worst,
+                  "tol": tol, "flags_equal": True, "bitwise_vs_one_member": same})
+            require(worst <= tol, f"multispring k-set disagrees: {worst} > {tol}")
+            require(same, f"multispring k-set ≠ {k} one-member launches ({dt})")
+
         for case in FLASH_CASES:
             B, Hq, Hkv, Sq, Skv, dh, dv, causal, window, cap, strided = case
             for dt in (torch.float32, torch.bfloat16):
@@ -342,13 +416,14 @@ def main() -> int:
         cfg = methods.SeismicConfig(dt=0.01, npart=4, nspring=30, maxiter=600)
         wave = wave_for(3, cfg.dt)
         serial = methods.run(mesh, cfg, wave, device=dev)
-        pre = methods.run(mesh, dataclasses.replace(cfg, schedule="prefetch", prefetch=1), wave, device=dev)
-        same_u = torch.equal(serial["u"], pre["u"])
-        same_theta = all(torch.equal(x, y) for bs, bp in zip(serial["carry"][1].blocks, pre["carry"][1].blocks)
-                         for x, y in zip(bs, bp))
-        emit({"check": "prefetch_vs_serial", "mesh": [16, 16, 8], "u_bitwise": same_u,
-              "theta_bitwise": same_theta})
-        require(same_u and same_theta, "prefetch(1) is not bitwise serial on the card")
+        for sched in ("prefetch", "donate"):  # donate: two device buffers per leaf, reused
+            pre = methods.run(mesh, dataclasses.replace(cfg, schedule=sched, prefetch=1), wave, device=dev)
+            same_u = torch.equal(serial["u"], pre["u"])
+            same_theta = all(torch.equal(x, y) for bs, bp in zip(serial["carry"][1].blocks, pre["carry"][1].blocks)
+                             for x, y in zip(bs, bp))
+            emit({"check": f"{sched}_vs_serial", "mesh": [16, 16, 8], "u_bitwise": same_u,
+                  "theta_bitwise": same_theta})
+            require(same_u and same_theta, f"{sched} is not bitwise serial on the card")
 
     def rungs_disagree(runs, ref, rel):
         """Each run's velocity history against ``ref``'s over their common
@@ -404,6 +479,80 @@ def main() -> int:
             require(ran[m]["ebe_matvec_f64"] == ran[m]["ebe_matvec_f32"] == 0, f"{m} launched the EBE kernel")
         require(all(x.device.type == "cpu" for x in b2_theta.values()), "Baseline 2's θ left the host")
         del card, pre, r_cpu
+
+    def kset_waves(M, nt, dt):
+        t = np.arange(nt) * dt
+        waves = np.zeros((M, nt, 3))
+        for i in range(M):  # nonzero from step 0, a different case per lane
+            waves[i, :, 0] = (0.3 - 0.05 * i) * np.sin(2 * np.pi * (2.0 + 0.5 * i) * t + 0.5 + 0.3 * i)
+            waves[i, :, 2] = 0.1 * np.cos(2 * np.pi * 1.5 * t + 0.2 * i)
+        return waves
+
+    with Phase("kset_check"):
+        # the k-set ensembles (run_ensemble, M 3) of all four methods on crs_check's
+        # mesh and config: card ≡ CPU port, each lane ≡ its own run on the card
+        every_c = np.arange(mesh_c.n_nodes)
+        waves_c = kset_waves(3, 3, cfg_c.dt)
+        kset_rows = {}
+        for m in methods.METHODS:
+            kernels.reset_launch_counts()
+            card = methods.run_ensemble(mesh_c, cfg_c, waves_c, method=m, device=dev, observe=every_c)
+            ran_k = kernels.launch_counts()
+            cpu = methods.run_ensemble(mesh_c, cfg_c, waves_c, method=m, device="cpu", observe=every_c)
+            v_card = card["velocity_history"].cpu()
+            scale = float(cpu["velocity_history"].abs().max())
+            err_cpu = float((v_card - cpu["velocity_history"]).abs().max())
+            lanes = []
+            for i in range(3):
+                solo = methods.run(mesh_c, cfg_c, waves_c[i], method=m, device=dev, observe=every_c)
+                v_solo = solo["velocity_history"].cpu()
+                lanes.append({"rel_err_v": float((v_card[i] - v_solo).abs().max()) / float(v_solo.abs().max()),
+                              "iters": card["iters"][i].tolist(), "iters_solo": solo["iters"].tolist()})
+            kset_rows[m] = {"card_vs_cpu_rel": err_cpu / scale, "iters_card": card["iters"].tolist(),
+                            "iters_cpu": cpu["iters"].tolist(), "lanes_vs_solo": lanes, "launches": ran_k}
+            require(scale > 0 and bool(card["converged"].all()), f"{m} k-set: did not converge or moved nothing")
+            require(err_cpu <= 1e-6 * scale, f"{m} k-set on the card disagrees with the CPU port: {err_cpu / scale}")
+            require(all(x["rel_err_v"] <= 1e-9 for x in lanes), f"{m} k-set lane disagrees with its own run: {lanes}")
+            require(ran_k["ebe_matvec_f64"] == ran_k["ebe_matvec_f32"] == 0, f"{m} k-set made one-member EBE launches")
+            require((ran_k["ebe_matvec_kset_f64"] > 0) == (m == "proposed2"), f"{m} k-set EBE launches {ran_k}")
+            require((ran_k["multispring_kset"] > 0) == (m != "baseline2"), f"{m} k-set multispring launches {ran_k}")
+        # Proposed 1's k-set with θ in pinned host blocks updated in place ≡ θ on the card
+        ops_c = methods.FemOperators(mesh_c, cfg_c, device=dev)
+        outs = {}
+        for offload in (True, False):
+            step, carry = methods.make_ensemble_step(ops_c, "proposed1", kset=3, offload=offload)
+            for f_t in torch.as_tensor(waves_c, device=dev).unbind(1):
+                carry, _ = step(carry, f_t)
+            torch.cuda.synchronize()
+            outs[offload] = carry
+        theta_pinned = all(hetmem.is_pinned_host(x) for blk in outs[True][1].blocks for x in blk)
+        same_u = torch.equal(outs[True][0].u, outs[False][0].u)
+        same_theta = all(torch.equal(x.to(dev), y) for b1, b2 in zip(outs[True][1].blocks, outs[False][1].blocks)
+                         for x, y in zip(b1, b2))
+        del outs, ops_c
+        # a NaN in lane 1's forcing at step 1, guarded (Proposed 2, 2SET form)
+        cfg_h = dataclasses.replace(cfg_c, health=True)
+        poisoned = faults.nan_at_step(waves_c, 1, case=1)
+        clean = methods.run_ensemble(mesh_c, cfg_h, waves_c, device=dev, observe=every_c)
+        bad = methods.run_ensemble(mesh_c, cfg_h, poisoned, device=dev, observe=every_c)
+        bad_cpu = methods.run_ensemble(mesh_c, cfg_h, poisoned, device="cpu", observe=every_c)
+        siblings = all(torch.equal(bad["velocity_history"][i], clean["velocity_history"][i]) for i in (0, 2))
+        emit({"check": "kset", "mesh": [8, 8, 4], "nspring": cfg_c.nspring, "steps": 3, "M": 3, "methods": kset_rows,
+              "proposed1_offload_vs_resident": {"u_bitwise": same_u, "theta_bitwise": same_theta,
+                                                "theta_pinned_host": theta_pinned},
+              "health": {"words": bad["health"].tolist(), "words_cpu": bad_cpu["health"].tolist(),
+                         "words_clean": clean["health"].tolist(), "nonconverged": bad["nonconverged"].tolist(),
+                         "siblings_bitwise": siblings,
+                         "finite": bool(torch.isfinite(bad["velocity_history"]).all())}})
+        require(same_u and same_theta and theta_pinned, "Proposed 1 k-set: offload=True is not bitwise offload=False")
+        require(torch.equal(bad["health"], bad_cpu["health"]), "health words differ between card and CPU")
+        require(torch.equal(bad["nonconverged"], bad_cpu["nonconverged"]), "nonconverged counts differ")
+        require(bad["health"].tolist()[0] == bad["health"].tolist()[2] == 0 and bad["health"].tolist()[1] != 0,
+                f"the NaN did not trip lane 1 alone: {bad['health'].tolist()}")
+        require(clean["health"].tolist() == [0, 0, 0], "a clean guarded run tripped")
+        require(siblings, "the poisoned lane changed its siblings")
+        require(bool(torch.isfinite(bad["velocity_history"]).all()), "NaN entered the frozen lane's carry")
+        del card, cpu, solo, clean, bad, bad_cpu
 
     with Phase("main"):
         mesh = meshgen.generate(64, 64, 12, pad_elems_to=8)
@@ -636,6 +785,75 @@ def main() -> int:
         require(kv_equal, "offloaded KV cache differs from resident")
         require(pinned, "KV blocks are not pinned host tensors")
         del state, ostate, kv, lg, olg
+
+    with Phase("kset_main"):
+        # the paper's Proposed 2 as 2SET: two cases, θ of both resident on the
+        # card (2 × 7.08 GB), at main's mesh and 150 springs, against each case
+        # run alone in the same resident form; every node observed
+        K2, nt2 = 2, 4
+        waves2 = kset_waves(K2, nt2, cfg.dt)
+        every_node = np.arange(mesh.n_nodes)
+        kset_runs = {}
+        for name, w in (("2set", waves2), ("one_0", waves2[:1]), ("one_1", waves2[1:])):
+            steps_k = []
+            last_k = {}
+
+            def on_kset_step(k, info, name=name, steps_k=steps_k, last_k=last_k):
+                counts = kernels.launch_counts()
+                delta = {c: counts[c] - last_k[c] for c in counts}
+                last_k.update(counts)
+                row = dict(run=name, step=k, **info, launches=delta)
+                steps_k.append(row)
+                emit(row)
+
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            resident_before = torch.cuda.memory_allocated()  # the LM's weights, the 2SET carry kept for timing
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()  # counts of this run only
+            last_k.update(kernels.launch_counts())
+            t0 = time.perf_counter()
+            r = methods.run_ensemble(mesh, cfg, w, device=dev, on_step=on_kset_step, observe=every_node)
+            torch.cuda.synchronize()
+            kset_runs[name] = {"run_s": time.perf_counter() - t0, "steps": steps_k, "launches": kernels.launch_counts(),
+                               "peak": torch.cuda.max_memory_allocated() - resident_before,
+                               "resident_before": resident_before, "v": r["velocity_history"].cpu(),
+                               "iters": r["iters"].tolist(), "converged": bool(r["converged"].all())}
+            if name == "2set":
+                kset_carry = r["carry"]  # timed in phase timing
+                kset_launches = kset_runs[name]["launches"]
+            del r
+        v2 = kset_runs["2set"]["v"]
+        lanes = []
+        for i in range(K2):
+            v1 = kset_runs[f"one_{i}"]["v"][0]
+            lanes.append(float((v2[i] - v1).abs().max()) / float(v1.abs().max()))
+        s2 = [x["seconds"] for x in kset_runs["2set"]["steps"]]
+        s1 = [a["seconds"] + b["seconds"] for a, b in zip(kset_runs["one_0"]["steps"], kset_runs["one_1"]["steps"])]
+        emit({"kset_main": {"mesh": [64, 64, 12], "nspring": cfg.nspring, "k": K2, "steps": nt2,
+                            "theta_GB_resident": K2 * theta_bytes / 1e9, "s_per_step_2set": s2,
+                            "s_per_step_two_single_runs": s1, "iters": kset_runs["2set"]["iters"],
+                            "iters_single": [kset_runs["one_0"]["iters"][0], kset_runs["one_1"]["iters"][0]],
+                            "parts_ms": [x["ms"] for x in kset_runs["2set"]["steps"]],
+                            "peak_device_bytes_over_resident": kset_runs["2set"]["peak"],
+                            "peak_device_bytes_over_resident_single": [kset_runs["one_0"]["peak"],
+                                                                       kset_runs["one_1"]["peak"]],
+                            "resident_before_bytes": [x["resident_before"] for x in kset_runs.values()],
+                            "launches": kset_launches, "lanes_vs_single_rel": lanes}})
+        for name, run in kset_runs.items():
+            require(run["converged"], f"kset_main {name}: a step did not converge")
+            require(bool(torch.isfinite(run["v"]).all()) and float(run["v"].abs().max()) > 0,
+                    f"kset_main {name}: not finite or moved nothing")
+            for row in run["steps"]:  # one k-set launch per multispring pass and per matvec, for all members
+                it = max(row["iters"])
+                d = row["launches"]
+                require(d["multispring_kset"] == 1 and d["multispring"] == (row["step"] == 0),  # + the initial tangent
+                        f"{name} step {row['step']}: {d}")
+                require(d["ebe_matvec_kset_f64"] == 2 + it and d["ebe_matvec_kset_f32"] == 8 * (1 + it)
+                        and d["ebe_matvec_f64"] == d["ebe_matvec_f32"] == 0, f"{name} step {row['step']}: {d}")
+        require(all(x <= 1e-6 for x in lanes), f"2SET lanes disagree with the single runs: {lanes}")
+        require(tuple(v2.shape) == (K2, nt2, mesh.n_nodes, 3), "2SET velocity history shape")
+        del kset_runs, v2
 
     def cuda_ms(fn, reps):
         fn()
@@ -914,7 +1132,74 @@ def main() -> int:
             "device_ops_per_step": sum(e.count for e in events if getattr(e, "self_device_time_total", 0)) / n,
             "top_device_ops_ms_per_step": {e.key: getattr(e, "self_device_time_total", 0) / n / 1e3 for e in sorted(
                 events, key=lambda e: -getattr(e, "self_device_time_total", 0))[:6]}}})
-        del state
+        del state, params
+        # the k-set kernels at kset_main's shapes (2SET, k 2) against two
+        # one-member launches on the same members and their plain versions;
+        # last, with the LM's weights freed: the plain multispring over
+        # 2 × 1,179,648 points holds ~25 GB of temporaries per member
+        nm2, th2, D2, alpha2, beta2 = kset_carry[:5]
+        K2 = D2.shape[0]
+        for dt, name in ((torch.float64, "ebe_matvec_kset_f64"), (torch.float32, "ebe_matvec_kset_f32")):
+            maps = ops.maps[dt]
+            x2 = nm2.u.to(dt).contiguous()
+            Dk = D2.to(dt).contiguous()
+            ck = (1.0 + (2.0 / cfg.dt) * beta2).to(dt)
+            a = (x2, maps.conn32, Dk, maps.Jinv, maps.wdet, ck)
+            ones = [(x2[i].contiguous(), maps.conn32, Dk[i].clone(), maps.Jinv, maps.wdet, ck[i].clone())
+                    for i in range(K2)]
+            fk, fp = ebe_ops.ebe_matvec_kset_cuda(*a), ebe_ops.ebe_element_matvec_kset_ref(*a)
+            rel, etol = rel_err(fk, fp), (1e-13 if dt == torch.float64 else 2e-5)
+            require(rel <= etol, f"{name} disagrees at kset_main's shape: {rel}")
+            require(torch.equal(fk, torch.stack([ebe_ops.ebe_matvec_cuda(*o) for o in ones])),
+                    f"{name} ≠ {K2} one-member launches at kset_main's shape")
+            b_e, by = bound(nbytes(*a, fk), K2 * ops.n_elem * EBE_OPS_PER_ELEM, dt)
+            k_ms = cuda_ms(lambda: ebe_ops.ebe_matvec_kset_cuda(*a), 50)
+            one_ms = cuda_ms(lambda: [ebe_ops.ebe_matvec_cuda(*o) for o in ones], 50)
+            rows.append({"name": name, "route": "cuda", "source": "src/repro_torch/csrc/ebe_matvec.cu",
+                         "replaces": "src/repro/kernels/ebe_matvec/ebe_matvec.py:99",
+                         "launches": kset_launches[name], "max_abs_err": float((fk - fp).abs().max()),
+                         "ms": k_ms, "plain_ms": cuda_ms(lambda: ebe_ops.ebe_element_matvec_kset_ref(*a), 3),
+                         "bound_ms": b_e, "bound_by": by, "library_ms": None,
+                         "detail": {"k": K2, "E": ops.n_elem, "N": ops.n_nodes, "dtype": str(dt), "max_rel_err": rel,
+                                    "tol": etol, "bitwise_vs_one_member": True, "one_member_launches_ms": one_ms,
+                                    "kset_over_one_member": k_ms / one_ms, "bound_bytes": nbytes(*a, fk),
+                                    "launches_from": "kset_main (2SET, 4 steps)"}})
+            del a, ones, fk, fp, Dk, x2
+        # multispring over k × P = 2 × 1,179,648 points, from the 2SET run's final θ
+        P2 = ops.n_elem * 4
+        eps2 = spmv.strain_at_points(nm2.u, ops.maps[cfg.rdtype]).contiguous()
+        args = (eps2, th2, ops.params, ops.n_dirs, ops.w_dirs)
+        out_k = ms_ops.multispring_kset_cuda(*args)
+        err, rel = 0.0, 0.0
+        for i in range(K2):  # member by member, to bound the plain version's temporaries
+            out_p = ms_ops.multispring_ref(eps2[i], {key: v[i] for key, v in th2.items()}, ops.params, ops.n_dirs,
+                                           ops.w_dirs)
+            require(all(torch.equal(out_k[2][key][i], out_p[2][key]) for key in ms.FLAG_KEYS),
+                    "multispring k-set flags differ at kset_main's shape")
+            err = max([err] + [float((out_k[j][i] - out_p[j]).abs().max()) for j in (0, 1, 3)])
+            rel = max(rel, rel_err(out_k[0][i], out_p[0]), rel_err(out_k[1][i], out_p[1]))
+            del out_p
+        require(rel <= 1e-12, f"multispring k-set disagrees at kset_main's shape: {rel}")
+        b_ms, by = bound(nbytes(eps2, *th2.values(), ops.params.G0, ops.params.gamma_r, ops.params.beta,
+                                ops.params.bulk, ops.n_dirs, ops.w_dirs, out_k[0], out_k[1], out_k[3],
+                                *out_k[2].values()), K2 * P2 * cfg.nspring * MS_OPS_PER_SPRING, cfg.rdtype)
+        del out_k
+        k_ms = cuda_ms(lambda: ms_ops.multispring_kset_cuda(*args), 5)
+        ones = [(eps2[i], {key: v[i] for key, v in th2.items()}, ops.params, ops.n_dirs, ops.w_dirs)
+                for i in range(K2)]
+        one_ms = cuda_ms(lambda: [ms_ops.multispring_cuda(*o) for o in ones], 5)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        plain_ms = cuda_ms(lambda: ms_ops.multispring_kset_ref(*args), 1)
+        rows.append({"name": "multispring_kset", "route": "cuda", "source": "src/repro_torch/csrc/multispring.cu",
+                     "replaces": "src/repro/kernels/multispring/multispring.py:118",
+                     "launches": kset_launches["multispring_kset"], "max_abs_err": err, "ms": k_ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+                     "detail": {"k": K2, "P": P2, "S": cfg.nspring, "dtype": str(cfg.rdtype), "max_rel_err": rel,
+                                "tol": 1e-12, "one_member_launches_ms": one_ms, "kset_over_one_member": k_ms / one_ms,
+                                "plain_peak_device_bytes": torch.cuda.max_memory_allocated(),
+                                "launches_from": "kset_main (2SET, 4 steps)"}})
+        del args, ones, eps2, kset_carry, nm2, th2, D2, alpha2, beta2
         print(smi, flush=True)
         emit({"kernel_detail": {r["name"]: r["detail"] for r in rows}})
         emit({"kernels": [{k: v for k, v in r.items() if k != "detail"} for r in rows]})

@@ -1,0 +1,145 @@
+"""Per-case numerical health of a k-set: detect, freeze, and quarantine
+diverged cases.
+
+A k-set advances many independent cases at once.  When one case's
+constitutive update or CG solve goes non-finite, nothing in plain
+arithmetic stops the NaN from marching forward in *time*: every later step
+of that case computes on garbage.  (The lanes of a k-set are arithmetically
+independent, so siblings are untouched, but an unflagged diverged lane
+looks like a healthy one downstream.)
+
+* a per-case **health word** — an int32 bitmask of everything that has
+  gone wrong for that case so far (sticky: bits set, never cleared), one
+  per lane, ``[k]`` on the host;
+* :func:`guard_step` — wraps a k-set FEM step so that after each step the
+  words update from (carry finiteness, spring-state finiteness, CG
+  convergence) and, once a *fatal* bit trips, the case's lane of the carry
+  is **frozen**: its old value is written back into the new carry, so
+  non-finite values never enter the carry and the case's observables stay
+  finite while its siblings go on;
+* helpers to report and exclude (:func:`diverged`, :func:`describe`).
+
+The port's counterpart of the JAX package's ``core/health.py``, over a
+native k-set instead of a ``vmap``: every tensor leaf of a carry has the
+member axis first.  Freezing writes only the tripped lanes, in place (a
+whole-carry select would copy θ, 14.2 GB at the full-size mesh with k = 2,
+every step), so the old carry must still exist when the step returns:
+θ must be resident on the device (or Baseline 2's on the host), not in
+pinned host blocks the stream engine updates in place.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.stream import tree_leaves
+
+# -- health word bits --------------------------------------------------------
+BIT_CARRY_NONFINITE = 1    # non-finite value somewhere in the step carry
+BIT_SPRINGS_NONFINITE = 2  # non-finite constitutive (multispring) state
+BIT_SOLVER_NONFINITE = 4   # CG produced a non-finite residual/solution
+BIT_NONCONVERGED = 8       # CG hit maxiter with relres > tol (informational)
+
+#: bits that freeze a case
+FATAL = BIT_CARRY_NONFINITE | BIT_SPRINGS_NONFINITE | BIT_SOLVER_NONFINITE
+
+_BIT_NAMES = {
+    BIT_CARRY_NONFINITE: "carry_nonfinite",
+    BIT_SPRINGS_NONFINITE: "springs_nonfinite",
+    BIT_SOLVER_NONFINITE: "solver_nonfinite",
+    BIT_NONCONVERGED: "nonconverged",
+}
+
+
+def init_word(k: int) -> torch.Tensor:
+    """Healthy (all-clear) health words for ``k`` cases."""
+    return torch.zeros((k,), dtype=torch.int32)
+
+
+def is_live(word: torch.Tensor) -> torch.Tensor:
+    """True while no fatal bit has tripped (the case still advances)."""
+    return (word & FATAL) == 0
+
+
+def diverged(word) -> torch.Tensor:
+    """Elementwise: has this case tripped a fatal bit?"""
+    return (torch.as_tensor(word) & FATAL) != 0
+
+
+def describe(word: int) -> str:
+    """Human-readable bit list for manifests/logs (``"healthy"`` if 0)."""
+    bits = [name for bit, name in _BIT_NAMES.items() if int(word) & bit]
+    return "+".join(bits) if bits else "healthy"
+
+
+def _tensors(tree) -> list[torch.Tensor]:
+    return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+def finite_all(tree) -> torch.Tensor:
+    """Per lane (host bool ``[k]``): every floating leaf of the k-set ``tree``
+    is finite on that lane.  Integer leaves (spring direction flags, counters)
+    are finite by construction and skipped; ``tree`` holds at least one
+    floating leaf (a carry, or θ)."""
+    ok = None
+    for leaf in _tensors(tree):
+        if leaf.is_floating_point():
+            lane = torch.isfinite(leaf.reshape(leaf.shape[0], -1)).all(dim=1).cpu()
+            ok = lane if ok is None else ok & lane
+    return ok
+
+
+def freeze(live: torch.Tensor, new_tree, old_tree):
+    """``new_tree`` with each lane where ``live`` is False set back to
+    ``old_tree``'s, in place, leaf by leaf; returns ``new_tree``."""
+    dead = (~live).nonzero().flatten()
+    if dead.numel():
+        for n, o in zip(_tensors(new_tree), _tensors(old_tree)):
+            if n is not o:
+                idx = dead.to(n.device)
+                n[idx] = o[idx]
+    return new_tree
+
+
+def update_word(word, new_carry, springs, aux) -> torch.Tensor:
+    """Fold one step's outcome into the health words (sticky bits)."""
+    trip = torch.where(finite_all(new_carry), 0, BIT_CARRY_NONFINITE)
+    trip |= torch.where(finite_all(springs), 0, BIT_SPRINGS_NONFINITE)
+    trip |= torch.where(torch.isfinite(aux.relres), 0, BIT_SOLVER_NONFINITE)
+    trip |= torch.where(aux.converged, 0, BIT_NONCONVERGED)
+    return word | trip.to(torch.int32)
+
+
+def initial_guard_carry(carry):
+    """Wrap a bare k-set step carry for :func:`guard_step`:
+    ``(carry, word [k], nonconverged_steps [k])``."""
+    k = carry[0][0].shape[0]  # the Newmark state's u: [k,N,3]
+    return (carry, init_word(k), torch.zeros((k,), dtype=torch.int32))
+
+
+def guard_step(step, *, springs_index: int = 1):
+    """Wrap a k-set ``step(carry, f_t) -> (carry', aux)`` with health tracking.
+
+    The wrapped step operates on ``(carry, word, ncg)`` — see
+    :func:`initial_guard_carry`.  ``springs_index`` locates the constitutive
+    state inside the carry tuple (the FEM step factories keep it at 1).
+    ``aux`` exposes ``relres`` and ``converged`` per lane
+    (:class:`repro_torch.fem.methods.StepAux`).  A step that updates θ in
+    place in host memory (``step.theta_in_place``: a streamed step with
+    ``offload=True``) is refused: a tripped lane's old θ would be gone.
+    """
+    if getattr(step, "theta_in_place", False):
+        raise ValueError("guard_step needs the old θ when a lane trips, but this step updates θ in place "
+                         "in pinned host blocks (offload=True); build it with offload=False")
+
+    def wrapped(hcarry, f_t):
+        inner, word, ncg = hcarry
+        new_inner, aux = step(inner, f_t)
+        live_before = is_live(word)
+        word_new = torch.where(live_before, update_word(word, new_inner, new_inner[springs_index], aux), word)
+        frozen = freeze(is_live(word_new), new_inner, inner)
+        # count genuine maxiter exhaustion only while the case is live
+        # (a non-finite residual trips BIT_SOLVER_NONFINITE instead)
+        ncg_new = ncg + (live_before & ~aux.converged & torch.isfinite(aux.relres)).to(ncg.dtype)
+        return (frozen, word_new, ncg_new), aux
+
+    return wrapped

@@ -35,7 +35,20 @@
 // fixed order, then staged in shared memory and stored as 16-byte vectors.
 // The ragged last tile (E not a multiple of TE) is loaded by plain loads.
 // There are no atomics: the assembly (scatter) stays outside, deterministic.
+//
+// k-set launch (the paper's 2SET, Proposed 2's ensemble): k members share
+// the mesh (conn, J⁻¹, wdet) and each has its own x, D, coef and f.  The
+// persistent grid walks k × ntiles tiles, member-major; a tile reads its
+// member's x, D, coef and writes its f at the member's offset, and reads
+// the shared geometry at the same addresses for every member (so the
+// second member's tiles find it in L2).  A member whose D or coef range is
+// not 16-byte aligned (fp32 coef with E not a multiple of 4) is loaded by
+// plain loads, as a ragged tile is, and a misaligned f by plain stores;
+// the arithmetic is the same either way.  A launch of one member (k = 1)
+// takes the instance without the member bookkeeping (KSET false): the
+// one-member kernel as it was.
 #include <cuda_runtime.h>
+#include <climits>
 #include <cstdint>
 
 namespace {
@@ -119,12 +132,26 @@ struct Args {
   const T* wdet;
   const T* coef;  // nullable: coef 1
   int E;
+  int N;  // nodes of one member's x
+  int k;  // members
+  // one member's x, D and coef
+  __device__ __forceinline__ const T* xm(int m) const { return x + 3ll * N * m; }
+  __device__ __forceinline__ const T* Dm(int m) const { return D + (long long)E * kDElem * m; }
+  __device__ __forceinline__ const T* cm(int m) const { return coef ? coef + (long long)E * m : nullptr; }
+  // can member m's full tiles take the bulk copies (16-byte aligned ranges)?
+  // The bases are 16-byte aligned (the wrapper checks) and a member's D is
+  // E·144 values, a multiple of 16 bytes: only coef's member offset can break it.
+  __device__ __forceinline__ bool bulk_ok(int m) const {
+    return !coef || (((long long)E * m * sizeof(T)) & 15) == 0;
+  }
 };
 
-// Warp 0 starts the bulk copies of a full tile into `stage`.
+// Warp 0 starts the bulk copies of member m's full tile at e0 into `stage`.
 template <typename T>
 __device__ __forceinline__ void issue_tile(const Args<T>& a, const Smem<T>& L, unsigned char* stage,
-                                           uint32_t bar, long long e0, int lane) {
+                                           uint32_t bar, int m, long long e0, int lane) {
+  const T* Dm = a.Dm(m);
+  const T* cm = a.cm(m);
   const int te = L.te;
   if (lane == 0) {
     // earlier generic-proxy reads of this stage come before the async writes
@@ -134,31 +161,34 @@ __device__ __forceinline__ void issue_tile(const Args<T>& a, const Smem<T>& L, u
   }
   __syncwarp();
   if (Smem<T>::kDStride == kDElem) {
-    if (lane == 0) bulk_load(smem_u32(stage + L.d()), a.D + e0 * kDElem, sizeof(T) * te * kDElem, bar);
+    if (lane == 0) bulk_load(smem_u32(stage + L.d()), Dm + e0 * kDElem, sizeof(T) * te * kDElem, bar);
   } else {
     for (int e = lane; e < te; e += 32)
-      bulk_load(smem_u32(stage + L.d() + sizeof(T) * e * Smem<T>::kDStride), a.D + (e0 + e) * kDElem,
+      bulk_load(smem_u32(stage + L.d() + sizeof(T) * e * Smem<T>::kDStride), Dm + (e0 + e) * kDElem,
                 sizeof(T) * kDElem, bar);
   }
   if (lane == 1) bulk_load(smem_u32(stage + L.jinv()), a.Jinv + e0 * 9, sizeof(T) * te * 9, bar);
   if (lane == 2) bulk_load(smem_u32(stage + L.wdet()), a.wdet + e0 * kNPoint, sizeof(T) * te * kNPoint, bar);
-  if (lane == 3 && a.coef) bulk_load(smem_u32(stage + L.coef()), a.coef + e0, sizeof(T) * te, bar);
+  if (lane == 3 && cm) bulk_load(smem_u32(stage + L.coef()), cm + e0, sizeof(T) * te, bar);
   if (lane == 4) bulk_load(smem_u32(stage + L.conn()), a.conn + e0 * kNNode, sizeof(int) * te * kNNode, bar);
 }
 
-// The block loads a ragged tile of `n` < te elements with plain loads.
+// The block loads member m's tile of `n` ≤ te elements at e0 with plain
+// loads (a ragged tile, or a member whose ranges are not 16-byte aligned).
 template <typename T>
-__device__ __forceinline__ void load_ragged(const Args<T>& a, const Smem<T>& L, unsigned char* stage,
-                                            long long e0, int n) {
+__device__ __forceinline__ void load_plain(const Args<T>& a, const Smem<T>& L, unsigned char* stage,
+                                           int m, long long e0, int n) {
+  const T* Dm = a.Dm(m);
+  const T* cm = a.cm(m);
   T* Ds = reinterpret_cast<T*>(stage + L.d());
   for (int k = threadIdx.x; k < n * kDElem; k += blockDim.x)
-    Ds[(k / kDElem) * Smem<T>::kDStride + k % kDElem] = a.D[e0 * kDElem + k];
+    Ds[(k / kDElem) * Smem<T>::kDStride + k % kDElem] = Dm[e0 * kDElem + k];
   for (int k = threadIdx.x; k < n * 9; k += blockDim.x)
     reinterpret_cast<T*>(stage + L.jinv())[k] = a.Jinv[e0 * 9 + k];
   for (int k = threadIdx.x; k < n * kNPoint; k += blockDim.x)
     reinterpret_cast<T*>(stage + L.wdet())[k] = a.wdet[e0 * kNPoint + k];
-  if (a.coef)
-    for (int k = threadIdx.x; k < n; k += blockDim.x) reinterpret_cast<T*>(stage + L.coef())[k] = a.coef[e0 + k];
+  if (cm)
+    for (int k = threadIdx.x; k < n; k += blockDim.x) reinterpret_cast<T*>(stage + L.coef())[k] = cm[e0 + k];
   for (int k = threadIdx.x; k < n * kNNode; k += blockDim.x)
     reinterpret_cast<int*>(stage + L.conn())[k] = a.conn[e0 * kNNode + k];
 }
@@ -183,7 +213,7 @@ __device__ __forceinline__ void load_d(const float* src, float* d) {
   }
 }
 
-template <typename T>
+template <typename T, bool KSET>
 __global__ void __launch_bounds__(4 * kMaxTile)
 ebe_kernel(Args<T> a, const T* __restrict__ gradn, int te, T* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -194,7 +224,7 @@ ebe_kernel(Args<T> a, const T* __restrict__ gradn, int te, T* __restrict__ out) 
   T* fs = reinterpret_cast<T*>(smem + L.f());
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int el = tid >> 2, p = tid & 3;  // element of the tile, Gauss point
-  const int ntiles = (a.E + te - 1) / te;
+  const int ntiles = (a.E + te - 1) / te;  // per member; tiles are member-major
 
   // the reference gradients go through shared memory: where the compiler
   // re-reads gr[] in the tile loop rather than hold it, the re-reads stay
@@ -211,32 +241,49 @@ ebe_kernel(Args<T> a, const T* __restrict__ gradn, int te, T* __restrict__ out) 
 #pragma unroll
   for (int k = 0; k < kDof; ++k) gr[k] = gref[p * kDof + k];
 
-  auto full = [&](int tile) { return (long long)(tile + 1) * te <= a.E; };
-  if (warp == 0 && blockIdx.x < ntiles && full(blockIdx.x))
-    issue_tile(a, L, smem + L.stages(), bar0, (long long)blockIdx.x * te, lane);
+  const int k = KSET ? a.k : 1;
+  // a full tile of a member whose ranges are aligned takes the bulk copies
+  auto bulk = [&](int m, int t) {
+    return m < k && (long long)(t + 1) * te <= a.E && (!KSET || a.bulk_ok(m));
+  };
+  // this block's tiles are blockIdx.x, + gridDim.x, …: member m, tile t of it
+  int m = KSET ? blockIdx.x / ntiles : 0, t = blockIdx.x - m * ntiles;
+  bool by_bulk = bulk(m, t);
+  if (warp == 0 && by_bulk) issue_tile(a, L, smem + L.stages(), bar0, KSET ? m : 0, (long long)t * te, lane);
 
   int it = 0;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+  uint32_t phase = 0;  // bit s: the parity of stage s's next completion
+  for (; m < k; ++it) {
     const int s = it & 1;
     unsigned char* stage = smem + L.stages() + s * L.stage();
-    const int next = tile + gridDim.x;
-    if (warp == 0 && next < ntiles && full(next))
-      issue_tile(a, L, smem + L.stages() + (s ^ 1) * L.stage(), bar0 + 8 * (s ^ 1),
-                 (long long)next * te, lane);
+    int next_m = m, next_t = t + gridDim.x;
+    while (next_t >= ntiles && next_m < k) {
+      next_t -= ntiles;
+      ++next_m;
+    }
+    const bool next_bulk = bulk(next_m, next_t);
+    if (warp == 0 && next_bulk)
+      issue_tile(a, L, smem + L.stages() + (s ^ 1) * L.stage(), bar0 + 8 * (s ^ 1), KSET ? next_m : 0,
+                 (long long)next_t * te, lane);
 
-    const long long e0 = (long long)tile * te;
-    const int n = full(tile) ? te : a.E - (int)e0;
-    if (n == te) mbar_wait(bar0 + 8 * s, (it >> 1) & 1);
-    else load_ragged(a, L, stage, e0, n);
-    if (n != te) __syncthreads();
+    const long long e0 = (long long)t * te;
+    const int n = e0 + te <= a.E ? te : a.E - (int)e0;
+    if (by_bulk) {
+      mbar_wait(bar0 + 8 * s, (phase >> s) & 1);
+      phase ^= 1u << s;
+    } else {
+      load_plain(a, L, stage, KSET ? m : 0, e0, n);
+      __syncthreads();
+    }
 
     // gather u_e = x[conn] for the tile: 3 node slots per thread at most
     const int* cs = reinterpret_cast<const int*>(stage + L.conn());
+    const T* xm = KSET ? a.xm(m) : a.x;
 #pragma unroll
     for (int r = 0; r < (kNNode + 3) / 4; ++r) {
       const int k = tid + r * blockDim.x;
       if (k < n * kNNode) {
-        const T* xn = a.x + 3ll * cs[k];
+        const T* xn = xm + 3ll * cs[k];
         const T v0 = xn[0], v1 = xn[1], v2 = xn[2];
         us[3 * k] = v0;
         us[3 * k + 1] = v1;
@@ -275,7 +322,7 @@ ebe_kernel(Args<T> a, const T* __restrict__ gradn, int te, T* __restrict__ out) 
     const T eps[6] = {H[0], H[4], H[8], H[1] + H[3], H[5] + H[7], H[6] + H[2]};
     T d[36];
     load_d(reinterpret_cast<const T*>(stage + L.d()) + el * Smem<T>::kDStride + p * 36, d);
-    const T c = a.coef ? reinterpret_cast<const T*>(stage + L.coef())[el] : T(1);
+    const T c = a.coef ? reinterpret_cast<const T*>(stage + L.coef())[el] : T(1);  // member m's
     const T wp = reinterpret_cast<const T*>(stage + L.wdet())[el * kNPoint + p] * c;
     T sw[6];
 #pragma unroll
@@ -328,9 +375,11 @@ ebe_kernel(Args<T> a, const T* __restrict__ gradn, int te, T* __restrict__ out) 
     }
     __syncthreads();
 
-    // the tile's f_e is one contiguous range of out: 16-byte stores
-    T* dst = out + e0 * kDof;
-    const int total = n * kDof, per = 16 / sizeof(T), nvec = total / per;
+    // the tile's f_e is one contiguous range of member m's out: 16-byte
+    // stores where that range is 16-byte aligned
+    T* dst = out + ((KSET ? (long long)a.E * m : 0ll) + e0) * kDof;
+    const int nval = n * kDof, per = 16 / sizeof(T);
+    const int nvec = KSET && (reinterpret_cast<uintptr_t>(dst) & 15) ? 0 : nval / per;
     if (sizeof(T) == 8) {
       for (int k = tid; k < nvec; k += blockDim.x)
         reinterpret_cast<double2*>(dst)[k] = reinterpret_cast<const double2*>(fs)[k];
@@ -338,21 +387,21 @@ ebe_kernel(Args<T> a, const T* __restrict__ gradn, int te, T* __restrict__ out) 
       for (int k = tid; k < nvec; k += blockDim.x)
         reinterpret_cast<float4*>(dst)[k] = reinterpret_cast<const float4*>(fs)[k];
     }
-    for (int k = nvec * per + tid; k < total; k += blockDim.x) dst[k] = fs[k];
+    for (int k = nvec * per + tid; k < nval; k += blockDim.x) dst[k] = fs[k];
+    m = next_m;
+    t = next_t;
+    by_bulk = next_bulk;
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* conn, const void* D, const void* Jinv, const void* wdet,
-           const void* coef, const void* gradn, int E, int tile_e, void* out, void* stream) {
-  if (tile_e < 4 || tile_e > kMaxTile || tile_e % 4) return static_cast<int>(cudaErrorInvalidValue);
-  if (E <= 0) return static_cast<int>(cudaGetLastError());
+template <typename T, bool KSET>
+int launch_instance(const Args<T>& args, const T* gradn, int tile_e, long long tiles, T* out, void* stream) {
   const size_t smem = Smem<T>{tile_e}.total();
-  // per instantiation: the shared-memory ceiling once, blocks per SM per tile size
+  // per instance: the shared-memory ceiling once, blocks per SM per tile size
   static int sms = 0;
   static int per_sm[kMaxTile / 4 + 1] = {};
   if (sms == 0) {
-    cudaError_t e = cudaFuncSetAttribute(ebe_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t e = cudaFuncSetAttribute(ebe_kernel<T, KSET>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(Smem<T>{kMaxTile}.total()));
     if (e != cudaSuccess) return static_cast<int>(e);
     int dev = 0;
@@ -362,29 +411,41 @@ int launch(const void* x, const void* conn, const void* D, const void* Jinv, con
   }
   int& occ = per_sm[tile_e / 4];
   if (occ == 0) {
-    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, ebe_kernel<T>, 4 * tile_e, smem);
+    const cudaError_t e =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, ebe_kernel<T, KSET>, 4 * tile_e, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (occ < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  const int ntiles = (E + tile_e - 1) / tile_e;
-  const int grid = ntiles < occ * sms ? ntiles : occ * sms;
-  const Args<T> args{(const T*)x, (const int*)conn, (const T*)D, (const T*)Jinv, (const T*)wdet,
-                     (const T*)coef, E};
-  ebe_kernel<T><<<grid, 4 * tile_e, smem, static_cast<cudaStream_t>(stream)>>>(args, (const T*)gradn, tile_e,
-                                                                                (T*)out);
+  const int grid = tiles < occ * sms ? static_cast<int>(tiles) : occ * sms;
+  ebe_kernel<T, KSET><<<grid, 4 * tile_e, smem, static_cast<cudaStream_t>(stream)>>>(args, gradn, tile_e, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const void* x, const void* conn, const void* D, const void* Jinv, const void* wdet,
+           const void* coef, const void* gradn, int E, int N, int k, int tile_e, void* out, void* stream) {
+  if (tile_e < 4 || tile_e > kMaxTile || tile_e % 4 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (E <= 0) return static_cast<int>(cudaGetLastError());
+  const long long tiles = (long long)k * ((E + tile_e - 1) / tile_e);
+  if (tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const Args<T> args{(const T*)x, (const int*)conn, (const T*)D, (const T*)Jinv, (const T*)wdet,
+                     (const T*)coef, E, N, k};
+  return k == 1 ? launch_instance<T, false>(args, (const T*)gradn, tile_e, tiles, (T*)out, stream)
+                : launch_instance<T, true>(args, (const T*)gradn, tile_e, tiles, (T*)out, stream);
 }
 
 }  // namespace
 
+// k members: x [k,N,3], D [k,E,4,6,6], coef [k,E] (nullable), out [k,E,10,3];
+// conn [E,10], Jinv [E,3,3] and wdet [E,4] shared
 extern "C" int ebe_matvec_f32(const void* x, const void* conn, const void* D, const void* Jinv,
-                              const void* wdet, const void* coef, const void* gradn, int E, int tile_e,
-                              void* out, void* stream) {
-  return launch<float>(x, conn, D, Jinv, wdet, coef, gradn, E, tile_e, out, stream);
+                              const void* wdet, const void* coef, const void* gradn, int E, int N, int k,
+                              int tile_e, void* out, void* stream) {
+  return launch<float>(x, conn, D, Jinv, wdet, coef, gradn, E, N, k, tile_e, out, stream);
 }
 
 extern "C" int ebe_matvec_f64(const void* x, const void* conn, const void* D, const void* Jinv,
-                              const void* wdet, const void* coef, const void* gradn, int E, int tile_e,
-                              void* out, void* stream) {
-  return launch<double>(x, conn, D, Jinv, wdet, coef, gradn, E, tile_e, out, stream);
+                              const void* wdet, const void* coef, const void* gradn, int E, int N, int k,
+                              int tile_e, void* out, void* stream) {
+  return launch<double>(x, conn, D, Jinv, wdet, coef, gradn, E, N, k, tile_e, out, stream);
 }

@@ -33,7 +33,17 @@
 //    so the result is the same from run to run; no atomics.
 // The tangent floor is g_min_frac·G0, read from the parameters (the TPU
 // kernel hard-coded 1e-3·G0).
+//
+// k-set launch (the paper's 2SET): k members' points in one launch over
+// k × P points.  ε, the state and every output are member-major [k·P, …]
+// (the [k, P, …] tensors as they lie); the per-point material parameters
+// [P] are shared, and point p reads parameter p mod P.  That costs one
+// integer remainder per point, where repeating the parameters k times in
+// the wrapper would write and then read 37.7 MB per member at the
+// full-size mesh (4 × 1,179,648 fp64) on every launch.  k = 1 is the
+// one-member kernel.
 #include <cuda_runtime.h>
+#include <climits>
 #include <cstdint>
 
 namespace {
@@ -94,20 +104,22 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) ms_update_kernel(
     const T* __restrict__ gprev, const T* __restrict__ gmax, const int* __restrict__ dir,
     const int* __restrict__ virg, const T* __restrict__ G0, const T* __restrict__ gr,
     const T* __restrict__ be, const T* __restrict__ bulk, const T* __restrict__ n,
-    const T* __restrict__ w, T g_min_frac, int P, int S,
+    const T* __restrict__ w, T g_min_frac, int P, int S, int k,
     T* __restrict__ sig, T* __restrict__ D, T* __restrict__ frac,
     T* __restrict__ ngrev, T* __restrict__ ntrev, T* __restrict__ ngprev,
     T* __restrict__ ngmax, int* __restrict__ ndir, int* __restrict__ nvirg) {
   extern __shared__ __align__(16) unsigned char smem[];
   Staged<T>& st = reinterpret_cast<Staged<T>*>(smem)[threadIdx.y];
   const int lane = threadIdx.x;  // blockDim.x == 32: one warp per point
-  const long long p = (long long)blockIdx.x * blockDim.y + threadIdx.y;
-  if (p >= P) return;  // uniform over the warp
+  // k·P ≤ INT_MAX (checked at launch): 32-bit point indices
+  const int p = blockIdx.x * blockDim.y + threadIdx.y;
+  if (p >= k * P) return;  // uniform over the warp
+  const int pm = p % P;    // the point's material parameters
 
   T e[6];
 #pragma unroll
-  for (int k = 0; k < 6; ++k) e[k] = eps[p * 6 + k];
-  const Backbone<T> bb{G0[p], T(1) / gr[p], be[p]};
+  for (int k = 0; k < 6; ++k) e[k] = eps[6ll * p + k];
+  const Backbone<T> bb{G0[pm], T(1) / gr[pm], be[pm]};
   const T g_floor = g_min_frac * bb.G0;
 
   T acc[32];
@@ -118,7 +130,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) ms_update_kernel(
     // stage this lane's springs s0 + lane + 32k, every copy issued first;
     // a lane reads back only what it copied itself
     for (int j = lane; j < kChunk && s0 + j < S; j += 32) {
-      const long long i = p * S + s0 + j;
+      const long long i = (long long)p * S + s0 + j;
       cp_async<sizeof(T)>(&st.grev[j], grev + i);
       cp_async<sizeof(T)>(&st.trev[j], trev + i);
       cp_async<sizeof(T)>(&st.gprev[j], gprev + i);
@@ -130,7 +142,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) ms_update_kernel(
 
     for (int j = lane; j < kChunk && s0 + j < S; j += 32) {
       const int s = s0 + j;
-      const long long i = p * S + s;
+      const long long i = (long long)p * S + s;
       T ns[6];
 #pragma unroll
       for (int a = 0; a < 6; ++a) ns[a] = n[s * 6 + a];
@@ -205,7 +217,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) ms_update_kernel(
   const T v = acc[0];
   const int r = lane;
   if (r < 6) {
-    sig[p * 6 + r] = r < 3 ? v + bulk[p] * (e[0] + e[1] + e[2]) : v;
+    sig[6ll * p + r] = r < 3 ? v + bulk[pm] * (e[0] + e[1] + e[2]) : v;
   } else if (r < kNRed - 1) {
     int a = 0, b = r - 6;  // (a, b) of the r-6'th entry of the upper triangle, row by row
     while (b >= 6 - a) {
@@ -213,9 +225,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) ms_update_kernel(
       ++a;
     }
     b += a;
-    const T x = (a < 3 && b < 3) ? v + bulk[p] : v;
-    D[p * 36 + a * 6 + b] = x;
-    D[p * 36 + b * 6 + a] = x;
+    const T x = (a < 3 && b < 3) ? v + bulk[pm] : v;
+    D[36ll * p + a * 6 + b] = x;
+    D[36ll * p + b * 6 + a] = x;
   } else if (r == kNRed - 1) {
     frac[p] = v / T(S);
   }
@@ -225,10 +237,10 @@ template <typename T>
 int launch(const void* eps, const void* grev, const void* trev, const void* gprev,
            const void* gmax, const void* dir, const void* virg, const void* G0,
            const void* gr, const void* be, const void* bulk, const void* n, const void* w,
-           double g_min_frac, int P, int S, int tile_p, void* sig, void* D, void* frac,
+           double g_min_frac, int P, int S, int k, int tile_p, void* sig, void* D, void* frac,
            void* ngrev, void* ntrev, void* ngprev, void* ngmax, void* ndir, void* nvirg,
            void* stream) {
-  if (tile_p < 1 || tile_p > kMaxWarps) return static_cast<int>(cudaErrorInvalidValue);
+  if (tile_p < 1 || tile_p > kMaxWarps || k < 1) return static_cast<int>(cudaErrorInvalidValue);
   static bool configured = false;  // per instantiation: the shared-memory ceiling, once
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(ms_update_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -236,13 +248,15 @@ int launch(const void* eps, const void* grev, const void* trev, const void* gpre
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
-  if (P > 0) {
+  const long long points = (long long)k * P;
+  if (points > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (points > 0) {
     const dim3 block(32, tile_p);
-    const dim3 grid((P + tile_p - 1) / tile_p);
+    const dim3 grid(static_cast<unsigned>((points + tile_p - 1) / tile_p));
     ms_update_kernel<T><<<grid, block, tile_p * sizeof(Staged<T>), static_cast<cudaStream_t>(stream)>>>(
         (const T*)eps, (const T*)grev, (const T*)trev, (const T*)gprev, (const T*)gmax,
         (const int*)dir, (const int*)virg, (const T*)G0, (const T*)gr, (const T*)be,
-        (const T*)bulk, (const T*)n, (const T*)w, T(g_min_frac), P, S, (T*)sig, (T*)D,
+        (const T*)bulk, (const T*)n, (const T*)w, T(g_min_frac), P, S, k, (T*)sig, (T*)D,
         (T*)frac, (T*)ngrev, (T*)ntrev, (T*)ngprev, (T*)ngmax, (int*)ndir, (int*)nvirg);
   }
   return static_cast<int>(cudaGetLastError());
@@ -254,10 +268,10 @@ int launch(const void* eps, const void* grev, const void* trev, const void* gpre
   const void *eps, const void *grev, const void *trev, const void *gprev,                \
       const void *gmax, const void *dir, const void *virg, const void *G0, const void *gr, \
       const void *be, const void *bulk, const void *n, const void *w, double g_min_frac,  \
-      int P, int S, int tile_p, void *sig, void *D, void *frac, void *ngrev, void *ntrev, \
+      int P, int S, int k, int tile_p, void *sig, void *D, void *frac, void *ngrev, void *ntrev, \
       void *ngprev, void *ngmax, void *ndir, void *nvirg, void *stream
 #define MS_PASS                                                                          \
-  eps, grev, trev, gprev, gmax, dir, virg, G0, gr, be, bulk, n, w, g_min_frac, P, S,     \
+  eps, grev, trev, gprev, gmax, dir, virg, G0, gr, be, bulk, n, w, g_min_frac, P, S, k,  \
       tile_p, sig, D, frac, ngrev, ntrev, ngprev, ngmax, ndir, nvirg, stream
 
 extern "C" int ms_update_f32(MS_ARGS) { return launch<float>(MS_PASS); }

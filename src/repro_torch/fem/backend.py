@@ -75,6 +75,16 @@ class KernelBackend:
 
         return functools.partial(ms_ops.update, tile_p=self.tile_p)
 
+    def element_kernel_kset(self) -> Callable:
+        from repro_torch.kernels.ebe_matvec import ops as ebe_ops
+
+        return functools.partial(ebe_ops.element_kernel_kset, tile_e=self.tile_e)
+
+    def multispring_kset_fn(self) -> Callable:
+        from repro_torch.kernels.multispring import ops as ms_ops
+
+        return functools.partial(ms_ops.update_kset, tile_p=self.tile_p)
+
 
 def resolve(cfg, *, device=None) -> KernelBackend:
     """Resolve a :class:`~repro_torch.fem.methods.SeismicConfig`'s backend knobs
@@ -99,6 +109,7 @@ def make_operators(mesh, cfg, *, device=None):
     device = resolve_device(device)
     kb = resolve(cfg, device=device)
     ops = methods.FemOperators(mesh, cfg, device=device, element_kernel=kb.element_kernel(),
-                               multispring_fn=kb.multispring_fn())
+                               multispring_fn=kb.multispring_fn(), element_kernel_kset=kb.element_kernel_kset(),
+                               multispring_kset_fn=kb.multispring_kset_fn())
     ops.kernel_backend = kb
     return ops

@@ -18,6 +18,13 @@ Every entry point runs on the card unless the caller passes
 ``device="cpu"``; there is no silent fallback to the CPU.  Baseline 2's
 host computation is the method itself, not a fallback: it runs on
 :data:`HOST` whatever the device.
+
+k-set ensembles (the paper's 2SET, Algorithm 4): the same step functions
+advance ``k`` independent cases at once when every leaf of the carry has a
+leading member axis (:func:`make_ensemble_step`, :func:`run_ensemble`).
+The operators see the axis in their inputs' shapes: each matvec is one
+k-set launch of the EBE kernel, each multispring pass one k-set launch over
+k × P points, and each solve stops lane by lane (``fem/solver``).
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import hetmem
-from repro_torch.core.stream import StreamEngine, StreamPlan
+from repro_torch.core.stream import StreamEngine, StreamPlan, broadcast_kset
 from repro_torch.device import resolve_device
 from repro_torch.fem import assembly, multispring as ms, newmark, quadrature as quad, solver, spmv
 from repro_torch.kernels.ebe_matvec.ebe_matvec import TILE_E
@@ -49,7 +56,7 @@ class SeismicConfig:
     maxiter: int = 2000
     nspring: int = ms.NSPRING_DEFAULT
     npart: int = 4            # streaming blocks (Alg. 3)
-    schedule: str = "serial"  # StreamEngine schedule: serial | prefetch
+    schedule: str = "serial"  # StreamEngine schedule: serial | prefetch | donate
     prefetch: int = 1         # copy-ahead depth for schedule="prefetch"
     inner_iters: int = 8      # fp32 inner PCG sweeps (EBE-IPCG preconditioner)
     omega0: float = 2.0 * np.pi * 1.0  # Rayleigh target frequency [rad/s]
@@ -63,6 +70,8 @@ class SeismicConfig:
     # ---- solver amortization ----------------------------------------------
     warm_start: bool = False  # carry δu as x0 for the next step's CG solve
     precond_every: int = 1    # EBE: refresh the block-Jacobi diag every N steps
+    # ---- numerical health (core/health.py) --------------------------------
+    health: bool = False      # run_ensemble: per-case health word + freeze of diverged cases
 
     def __post_init__(self):
         if self.precond_every < 1:
@@ -74,9 +83,12 @@ class SeismicConfig:
 
 
 class StepAux(NamedTuple):
-    iters: int
-    relres: float
-    converged: bool = True
+    """The step's outer solve: python scalars for one case, CPU tensors
+    ``[k]`` for a k-set (:class:`repro_torch.fem.solver.CGResult`)."""
+
+    iters: int | torch.Tensor
+    relres: float | torch.Tensor
+    converged: bool | torch.Tensor = True
 
 
 class StepParts:
@@ -115,17 +127,26 @@ def _part(ops, name, **kw):
     return ops.parts.part(name, **kw) if ops.parts is not None else contextlib.nullcontext()
 
 
+def _lane(a: torch.Tensor) -> torch.Tensor:
+    """A per-case scalar (``[]``, or ``[k]`` for a k-set) shaped to broadcast
+    against ``[...,N,3]`` nodal fields."""
+    return a.reshape(*a.shape, 1, 1)
+
+
 class FemOperators:
     """Mesh-bound operators of the four methods, with everything the matvecs
     read held on the device in each dtype they use (fp64, and fp32 for
     Proposed 2's inner solve).  The BCSR maps (:attr:`bcsr`) and Baseline 2's
-    host constants (:attr:`host_constants`) are made on first use."""
+    host constants (:attr:`host_constants`) are made on first use.
+
+    Every operator also takes a k-set (leading member axis on the fields,
+    the mesh shared) and then calls the kernels' k-set entries."""
 
     _state_keys = ms.STATE_KEYS
     host = HOST
 
     def __init__(self, mesh, cfg: SeismicConfig, *, device=None, element_kernel=None,
-                 multispring_fn=None):
+                 multispring_fn=None, element_kernel_kset=None, multispring_kset_fn=None):
         from repro_torch.kernels.ebe_matvec import ops as ebe_ops
         from repro_torch.kernels.multispring import ops as ms_ops
 
@@ -150,6 +171,8 @@ class FemOperators:
         # the wrappers pick the CUDA kernel or the plain version by device
         self.element_kernel = element_kernel or ebe_ops.element_kernel
         self.multispring_fn = multispring_fn or ms_ops.update
+        self.element_kernel_kset = element_kernel_kset or ebe_ops.element_kernel_kset
+        self.multispring_kset_fn = multispring_kset_fn or ms_ops.update_kset
         # set by fem.backend.make_operators
         self.kernel_backend = None
         # set by run when it reports each step's parts
@@ -168,9 +191,13 @@ class FemOperators:
                 torch.as_tensor(n, dtype=dt, device=HOST), torch.as_tensor(w, dtype=dt, device=HOST))
 
     # ---- constitutive -----------------------------------------------------
+    def _multispring(self, eps, state, params):
+        fn = self.multispring_fn if eps.dim() == 2 else self.multispring_kset_fn
+        return fn(eps, state, params, self.n_dirs, self.w_dirs)
+
     def multispring_all(self, eps_pts, springs):
         """(σ, D, new_state, frac) over every evaluation point."""
-        return self.multispring_fn(eps_pts, springs, self.params, self.n_dirs, self.w_dirs)
+        return self._multispring(eps_pts, springs, self.params)
 
     def multispring_block(self, blk, eps_blk, params_blk):
         """Per-streamed-block kernel: ``blk`` is the spring-state tensor list.
@@ -178,8 +205,7 @@ class FemOperators:
         σ, D and the damping fraction are computed on the device before θ_j
         returns to the host: Algorithm 3 keeps only θ round-tripping."""
         state = dict(zip(self._state_keys, blk))
-        sigma, D, new_state, frac = self.multispring_fn(
-            eps_blk, state, params_blk, self.n_dirs, self.w_dirs)
+        sigma, D, new_state, frac = self._multispring(eps_blk, state, params_blk)
         return [new_state[k] for k in self._state_keys], (sigma, D, frac)
 
     def multispring_host(self, eps_pts, springs):
@@ -187,7 +213,9 @@ class FemOperators:
         to the host, the multispring runs on the host CPU through its plain
         version, and σ, D and the damping fraction go back up to the card.  θ
         (``springs``, on :data:`HOST`) never leaves the host.  Returns
-        ``(σ, D, new θ, frac)``; the host part is timed as ``host_compute``."""
+        ``(σ, D, new θ, frac)``; the host part is timed as ``host_compute``.
+        A k-set (``eps [k,P,6]``, θ ``[k,P,S]``) goes through the same blocks
+        of the ``[k·P]`` points, member by member."""
         bad = [k for k, v in springs.items() if v.device != HOST]
         if bad:
             raise ValueError(f"Baseline 2 keeps θ on {HOST}; {bad} are elsewhere")
@@ -195,18 +223,19 @@ class FemOperators:
 
         params, n, w = self.host_constants
         eps = eps_pts.to(HOST)
-        P = eps.shape[0]
+        lead, P = eps.shape[:-2], eps.shape[-2]
         with _part(self, "host_compute", host=True):
             new = {k: torch.empty_like(v) for k, v in springs.items()}
-            sigma = eps.new_empty((P, 6))
-            D = eps.new_empty((P, 6, 6))
-            frac = eps.new_empty((P,))
-            for s in range(0, P, HOST_BLOCK):
-                sl = slice(s, min(s + HOST_BLOCK, P))
-                sigma[sl], D[sl], blk, frac[sl] = multispring_ref(
-                    eps[sl], {k: v[sl] for k, v in springs.items()}, params.slice(sl), n, w)
-                for k, v in blk.items():
-                    new[k][sl] = v
+            sigma = eps.new_empty((*lead, P, 6))
+            D = eps.new_empty((*lead, P, 6, 6))
+            frac = eps.new_empty((*lead, P))
+            for m in np.ndindex(*lead):  # each member, or () for one case
+                for s in range(0, P, HOST_BLOCK):
+                    sl = (*m, slice(s, min(s + HOST_BLOCK, P)))
+                    sigma[sl], D[sl], blk, frac[sl] = multispring_ref(
+                        eps[sl], {k: v[sl] for k, v in springs.items()}, params.slice(sl[-1]), n, w)
+                    for k, v in blk.items():
+                        new[k][sl] = v
         dev = self.device
         return sigma.to(dev), D.to(dev), new, frac.to(dev)
 
@@ -218,10 +247,10 @@ class FemOperators:
 
     # ---- damping ----------------------------------------------------------
     def damping_from_frac(self, frac):
-        """(α, β_e): Rayleigh from per-point damping fractions [E*P]."""
-        h_pt = frac.reshape(self.n_elem, quad.NPOINT).mean(dim=1) * self.h_max
+        """(α, β_e): Rayleigh from per-point damping fractions [...,E*P]."""
+        h_pt = frac.unflatten(-1, (self.n_elem, quad.NPOINT)).mean(dim=-1) * self.h_max
         beta_e = 2.0 * h_pt / self.cfg.omega0
-        alpha = 2.0 * torch.mean(h_pt) * self.cfg.omega0
+        alpha = 2.0 * torch.mean(h_pt, dim=-1) * self.cfg.omega0
         return alpha, beta_e
 
     def damping_coeffs(self, springs):
@@ -233,7 +262,10 @@ class FemOperators:
         """UpdateCRS: A's BCSR values (K_e weighted by 1 + 2β_e/dt, plus the
         mass and dashpot diagonal), the β_e-weighted K values of C·v, and A's
         inverted diagonal blocks (Minv).  K_e is built in chunks of
-        ``DIAG_CHUNK`` elements."""
+        ``DIAG_CHUNK`` elements; a k-set member by member."""
+        if D.dim() == 5:
+            parts = [self.crs_update(D[i], beta_e[i], alpha[i]) for i in range(D.shape[0])]
+            return tuple(torch.stack(x) for x in zip(*parts))
         maps, bcsr = self.maps[D.dtype], self.bcsr
         K_e = assembly.element_stiffness(D, maps.Jinv, maps.wdet, chunk=DIAG_CHUNK)
         coef = 1.0 + (2.0 / self.cfg.dt) * beta_e
@@ -245,20 +277,20 @@ class FemOperators:
 
     def crs_matvec(self, valA):
         def mv(xflat):
-            return spmv.bcsr_matvec(valA, self.bcsr, xflat.reshape(-1, 3)).reshape(-1)
+            return spmv.bcsr_matvec(valA, self.bcsr, xflat.unflatten(-1, (-1, 3))).flatten(-2)
 
         return mv
 
     def cv_matvec_crs(self, valCk, alpha):
         def mv(v):
             kv = spmv.bcsr_matvec(valCk, self.bcsr, v)
-            return alpha * self.mass[:, None] * v + kv + self.dash * v
+            return _lane(alpha) * self.mass[:, None] * v + kv + self.dash * v
 
         return mv
 
     def _diag_add(self, alpha):
         dt = self.cfg.dt
-        return (4.0 / dt**2 + 2.0 * alpha / dt) * self.mass[:, None] + (2.0 / dt) * self.dash
+        return (4.0 / dt**2 + 2.0 * _lane(alpha) / dt) * self.mass[:, None] + (2.0 / dt) * self.dash
 
     def ebe_matvec_A(self, D, beta_e, alpha):
         """x ↦ A x in x's dtype: the fp64 outer solve and the fp32 inner one.
@@ -275,18 +307,21 @@ class FemOperators:
                 D0, c0, d0 = operands[D.dtype]
                 operands[dt] = (D0.to(dt), c0.to(dt), d0.to(dt))
             Dx, cx, dx = operands[dt]
-            x = xflat.reshape(-1, 3)
-            y = spmv.ebe_matvec(x, Dx, self.maps[dt], cx, element_kernel=self.element_kernel)
-            return (y + dx * x).reshape(-1)
+            x = xflat.unflatten(-1, (-1, 3))
+            y = spmv.ebe_matvec(x, Dx, self.maps[dt], cx, element_kernel=self._element_kernel(x))
+            return (y + dx * x).flatten(-2)
 
         return mv
+
+    def _element_kernel(self, x):
+        return self.element_kernel if x.dim() == 2 else self.element_kernel_kset
 
     def cv_matvec_ebe(self, D, beta_e, alpha):
         maps = self.maps[D.dtype]
 
         def mv(v):
-            kv = spmv.ebe_matvec(v, D, maps, beta_e, element_kernel=self.element_kernel)
-            return alpha * self.mass[:, None] * v + kv + self.dash * v
+            kv = spmv.ebe_matvec(v, D, maps, beta_e, element_kernel=self._element_kernel(v))
+            return _lane(alpha) * self.mass[:, None] * v + kv + self.dash * v
 
         return mv
 
@@ -295,7 +330,9 @@ class FemOperators:
 
         The B-matrix contraction runs over chunks of ``DIAG_CHUNK`` elements,
         so device memory stays bounded (the whole ``[E,P,6,30]`` B is 1.7 GB
-        in fp64 at the full-size cell)."""
+        in fp64 at the full-size cell).  A k-set member by member."""
+        if D.dim() == 5:
+            return torch.stack([self.ebe_diag_inverse(D[i], beta_e[i], alpha[i]) for i in range(D.shape[0])])
         maps = self.maps[D.dtype]
         coef = 1.0 + (2.0 / self.cfg.dt) * beta_e
         w = maps.wdet * coef[:, None]
@@ -320,25 +357,32 @@ class FemOperators:
 # ---------------------------------------------------------------------------
 
 
+def _elem_D(ops, D):
+    """Point tangents ``[...,E*P,6,6]`` as ``[...,E,P,6,6]``."""
+    return D.unflatten(-3, (ops.n_elem, quad.NPOINT))
+
+
 def _resident_multispring(ops, eps_pts, springs):
     sigma, D, springs, frac = ops.multispring_all(eps_pts, springs)
-    return sigma, D.reshape(ops.n_elem, quad.NPOINT, 6, 6), springs, frac
+    return sigma, _elem_D(ops, D), springs, frac
 
 
-def _streamed_multispring(ops, eps_pts, springs_ps, block_params):
-    """Algorithm 3 via the StreamEngine: θ blocks host↔device, σ/D on device."""
+def _streamed_multispring(ops, eps_pts, springs_ps, block_params, offload=True):
+    """Algorithm 3 via the StreamEngine: θ blocks host↔device, σ/D on device.
+    A k-set (``eps_pts [k,E*P,6]``, blocks ``[k,chunk,S]``) streams every
+    member's block j together, one k-set multispring launch per block."""
     cfg = ops.cfg
     npart = springs_ps.npart
-    chunk = hetmem.check_divisible(eps_pts.shape[0], npart, "quadrature point count")
-    eps_blocks = [eps_pts[j * chunk:(j + 1) * chunk] for j in range(npart)]
-    plan = StreamPlan(npart=npart, schedule=cfg.schedule, prefetch=cfg.prefetch,
-                      collect=True, device=ops.device)
+    chunk = hetmem.check_divisible(eps_pts.shape[-2], npart, "quadrature point count")
+    eps_blocks = [eps_pts[..., j * chunk:(j + 1) * chunk, :].contiguous() for j in range(npart)]
+    plan = StreamPlan(npart=npart, schedule=cfg.schedule, prefetch=cfg.prefetch, offload=offload,
+                      collect=True, kset=eps_pts.shape[0] if eps_pts.dim() == 3 else 1, device=ops.device)
     res = StreamEngine(plan).run(ops.multispring_block, springs_ps,
                                  per_block=(eps_blocks, block_params))
-    sigma = torch.cat([e[0] for e in res.extras])
-    D = torch.cat([e[1] for e in res.extras])
-    frac = torch.cat([e[2] for e in res.extras])
-    return sigma, D.reshape(ops.n_elem, quad.NPOINT, 6, 6), frac, res.state
+    sigma = torch.cat([e[0] for e in res.extras], dim=-2)
+    D = torch.cat([e[1] for e in res.extras], dim=-3)
+    frac = torch.cat([e[2] for e in res.extras], dim=-1)
+    return sigma, _elem_D(ops, D), frac, res.state
 
 
 def partition_springs(ops, springs, npart) -> hetmem.PartitionedState:
@@ -352,7 +396,8 @@ def springs_to_host(ps: hetmem.PartitionedState, device) -> hetmem.PartitionedSt
     return hetmem.PartitionedState(blocks=[hetmem.put_host(b, device) for b in ps.blocks])
 
 
-def make_step_crs(ops: FemOperators, *, transfer_boundaries: bool = False, streamed: bool = False):
+def make_step_crs(ops: FemOperators, *, transfer_boundaries: bool = False, streamed: bool = False,
+                  offload: bool = True):
     """Baseline 1 (plain), Baseline 2 (``transfer_boundaries``), Proposed 1
     (``streamed``): UpdateCRS, then block-Jacobi PCG on the stored matrix.
 
@@ -361,7 +406,8 @@ def make_step_crs(ops: FemOperators, *, transfer_boundaries: bool = False, strea
     * Baseline 2: θ on :data:`HOST`; :meth:`FemOperators.multispring_host`
       computes the multispring there (Algorithm 2).
     * Proposed 1: θ in pinned host blocks through the StreamEngine, as
-      Proposed 2 streams it (Algorithm 3).
+      Proposed 2 streams it (Algorithm 3); with ``offload=False`` the
+      blocks stay on the device (the resident limit of the plan).
 
     With ``cfg.warm_start`` the carry grows a trailing ``du_prev`` leaf and
     each step's PCG starts from the previous step's solution.  The matrices
@@ -378,23 +424,23 @@ def make_step_crs(ops: FemOperators, *, transfer_boundaries: bool = False, strea
         with _part(ops, "crs_update"):
             valA, valCk, Minv = ops.crs_update(D, beta_e, alpha)
         with _part(ops, "solve"):
-            f_ext = ops.force_map * f_t[None, :]
+            f_ext = ops.force_map * f_t[..., None, :]
             b = newmark.rhs(nm, f_ext, ops.mass, cfg.dt, ops.cv_matvec_crs(valCk, alpha))
-            return solver.pcg(ops.crs_matvec(valA), b.reshape(-1), solver.block_jacobi_apply(Minv),
+            return solver.pcg(ops.crs_matvec(valA), b.flatten(-2), solver.block_jacobi_apply(Minv),
                               tol=cfg.tol, maxiter=cfg.maxiter, x0=x0)
 
     def step(carry, f_t):
         nm, springs, D, alpha, beta_e, *extra = carry
         x0 = extra[0] if cfg.warm_start else None
         res = solve(nm, D, alpha, beta_e, f_t, x0)
-        du = res.x.reshape(-1, 3)
+        du = res.x.unflatten(-1, (-1, 3))
         eps_pts = spmv.strain_at_points(nm.u + du, ops.maps[cfg.rdtype])
         with _part(ops, "multispring"):
             if streamed:
-                sigma, D_new, frac, springs = _streamed_multispring(ops, eps_pts, springs, block_params)
+                sigma, D_new, frac, springs = _streamed_multispring(ops, eps_pts, springs, block_params, offload)
             elif transfer_boundaries:
                 sigma, D_new, springs, frac = ops.multispring_host(eps_pts, springs)
-                D_new = D_new.reshape(ops.n_elem, quad.NPOINT, 6, 6)
+                D_new = _elem_D(ops, D_new)
             else:
                 sigma, D_new, springs, _ = _resident_multispring(ops, eps_pts, springs)
         if streamed or transfer_boundaries:
@@ -406,10 +452,11 @@ def make_step_crs(ops: FemOperators, *, transfer_boundaries: bool = False, strea
         tail = (res.x,) if cfg.warm_start else ()
         return (nm, springs, D_new, alpha, beta_e, *tail), StepAux(res.iters, res.relres, res.converged)
 
+    step.theta_in_place = streamed and offload
     return step
 
 
-def make_step_ebe(ops: FemOperators, *, streamed: bool = True):
+def make_step_ebe(ops: FemOperators, *, streamed: bool = True, offload: bool = True):
     """Proposed 2: EBE matrix-free solver + streamed multispring, no CRS.
 
     * ``cfg.warm_start`` — the carry grows a ``du_prev`` leaf used as the
@@ -442,14 +489,14 @@ def make_step_ebe(ops: FemOperators, *, streamed: bool = True):
             inner_iters=cfg.inner_iters,
         )
         with _part(ops, "solve"):
-            f_ext = ops.force_map * f_t[None, :]
+            f_ext = ops.force_map * f_t[..., None, :]
             b = newmark.rhs(nm, f_ext, ops.mass, cfg.dt, ops.cv_matvec_ebe(D, beta_e, alpha))
-            res = solver.fcg(mvA, b.reshape(-1), inner, tol=cfg.tol, maxiter=cfg.maxiter, x0=x0)
-        du = res.x.reshape(-1, 3)
+            res = solver.fcg(mvA, b.flatten(-2), inner, tol=cfg.tol, maxiter=cfg.maxiter, x0=x0)
+        du = res.x.unflatten(-1, (-1, 3))
         eps_pts = spmv.strain_at_points(nm.u + du, ops.maps[cfg.rdtype])
         with _part(ops, "multispring"):
             if streamed:
-                sigma, D_new, frac, springs = _streamed_multispring(ops, eps_pts, springs, block_params)
+                sigma, D_new, frac, springs = _streamed_multispring(ops, eps_pts, springs, block_params, offload)
             else:
                 sigma, D_new, springs, frac = _resident_multispring(ops, eps_pts, springs)
         alpha, beta_e = ops.damping_from_frac(frac)
@@ -460,6 +507,7 @@ def make_step_ebe(ops: FemOperators, *, streamed: bool = True):
             tail += (Minv, tstep + 1)
         return (nm, springs, D_new, alpha, beta_e, *tail), StepAux(res.iters, res.relres, res.converged)
 
+    step.theta_in_place = streamed and offload
     return step
 
 
@@ -504,7 +552,7 @@ def initial_carry(ops: FemOperators, *, streamed: bool = False, host: bool = Fal
         springs = ms.init_state(npts, cfg.nspring, dt, device=dev)
         _, D0, _, _ = ops.multispring_all(torch.zeros((npts, 6), dtype=dt, device=dev), springs)
         alpha, beta_e = ops.damping_coeffs(springs)
-    D0 = D0.reshape(ops.n_elem, quad.NPOINT, 6, 6)
+    D0 = _elem_D(ops, D0)
     nm = newmark.init_state(ops.n_nodes, dt, dev)
     tail = ()
     if cfg.warm_start:
@@ -517,16 +565,16 @@ def initial_carry(ops: FemOperators, *, streamed: bool = False, host: bool = Fal
 METHODS = ("baseline1", "baseline2", "proposed1", "proposed2")
 
 
-def make_step(name: str, ops: FemOperators):
+def make_step(name: str, ops: FemOperators, offload: bool = True):
     """``(step, streamed)`` for one of :data:`METHODS`."""
     if name == "baseline1":
         return make_step_crs(ops), False
     if name == "baseline2":
         return make_step_crs(ops, transfer_boundaries=True), False
     if name == "proposed1":
-        return make_step_crs(ops, streamed=True), True
+        return make_step_crs(ops, streamed=True, offload=offload), True
     if name == "proposed2":
-        return make_step_ebe(ops, streamed=True), True
+        return make_step_ebe(ops, streamed=True, offload=offload), True
     raise KeyError(name)
 
 
@@ -587,3 +635,96 @@ def run(
         "converged": torch.tensor(converged),
         "carry": carry,
     }
+
+
+def make_ensemble_step(ops: FemOperators, method: str, *, kset: int, offload: bool = False):
+    """``(step, carry0)`` for ``kset`` cases advanced together (Algorithm 4):
+    every leaf of ``carry0`` has a leading member axis ``kset`` (the lagged
+    preconditioner's step counter, a python int, is shared), and the step
+    is :func:`make_step`'s, which sees the axis in the carry's shapes.
+
+    ``proposed2`` takes its device-resident 2SET form: θ resident on the
+    card, EBE solve, no streaming (the regime the paper batches two problem
+    sets through).  ``proposed1`` streams a :class:`PartitionedState` whose
+    blocks are ``[kset, chunk, S]`` through ``StreamPlan(kset=kset,
+    offload=offload)``: on the device with ``offload=False``, in pinned host
+    memory, updated in place, with ``offload=True``.  The baselines are as in
+    :func:`make_step`.  Raises ``KeyError`` for names outside :data:`METHODS`."""
+    if method == "proposed2":
+        step, streamed = make_step_ebe(ops, streamed=False), False
+    else:
+        step, streamed = make_step(method, ops, offload=offload)
+    nm, springs, *rest = initial_carry(ops, streamed=streamed, host=method == "baseline2",
+                                       ebe=method == "proposed2")
+    if streamed:
+        pin = offload and hetmem.transfers_real(ops.device)
+        blocks = [broadcast_kset(blk, kset) for blk in springs.blocks]
+        springs = hetmem.PartitionedState(blocks=[
+            hetmem.put_host(blk, ops.device) if pin else [x.to(ops.device) for x in blk] for blk in blocks])
+    else:
+        springs = broadcast_kset(springs, kset)  # on the card, or on HOST for Baseline 2
+    rest = [x if isinstance(x, int) else broadcast_kset(x, kset) for x in rest]
+    return step, (broadcast_kset(nm, kset), springs, *rest)
+
+
+def run_ensemble(
+    mesh,
+    cfg: SeismicConfig,
+    waves,                     # [M,nt,3] bedrock input velocities, one case each
+    observe: np.ndarray | None = None,  # node ids to record
+    method: str = "proposed2",
+    device=None,               # None → the card; "cpu" only when asked
+    on_step: Callable[[int, dict], None] | None = None,
+) -> dict[str, Any]:
+    """2SET (Algorithm 4): the M cases of ``waves`` batched through one
+    device residency, as one k-set of ``M`` members (:func:`make_ensemble_step`).
+
+    Returns ``velocity_history [M,nt,n_obs,3]`` and ``iters [M,nt]`` (each
+    case's outer iterations), with ``relres``/``converged [M,nt]`` and the
+    final ``carry``.  With ``cfg.health`` every step goes through
+    :func:`repro_torch.core.health.guard_step`: a case whose step goes
+    non-finite is frozen at its last healthy carry, and ``health [M]`` (the
+    sticky health words) and ``nonconverged [M]`` come back too.
+    ``on_step(k, info)`` is called after each step as in :func:`run`.
+    """
+    from repro_torch.core import health
+    from repro_torch.fem import backend as _backend
+
+    dev = resolve_device(device)
+    ops = _backend.make_operators(mesh, cfg, device=dev)
+    waves = torch.as_tensor(np.asarray(waves), dtype=cfg.rdtype, device=dev)
+    step, carry = make_ensemble_step(ops, method, kset=waves.shape[0])
+    if cfg.health:
+        step, carry = health.guard_step(step), health.initial_guard_carry(carry)
+    if on_step is not None:
+        ops.parts = StepParts(dev)
+    obs = torch.as_tensor(np.asarray(observe if observe is not None else mesh.surface[:1]),
+                          dtype=torch.long, device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    vel, auxes = [], []
+    for k in range(waves.shape[1]):
+        t0 = time.perf_counter()
+        carry, aux = step(carry, waves[:, k])
+        nm = carry[0][0] if cfg.health else carry[0]
+        vel.append(nm.v[:, obs])
+        auxes.append(aux)
+        if on_step is not None:
+            sync()
+            on_step(k, {"iters": aux.iters.tolist(), "relres": aux.relres.tolist(),
+                        "converged": aux.converged.tolist(), "seconds": time.perf_counter() - t0,
+                        "ms": ops.parts.read()})
+    sync()
+    out = {
+        "velocity_history": torch.stack(vel, dim=1),  # [M, nt, n_obs, 3]
+        "iters": torch.stack([a.iters for a in auxes], dim=1),
+        "relres": torch.stack([a.relres for a in auxes], dim=1),
+        "converged": torch.stack([a.converged for a in auxes], dim=1),
+        "carry": carry,
+    }
+    if cfg.health:
+        out["health"], out["nonconverged"] = carry[1], carry[2]
+    return out

@@ -182,7 +182,7 @@ def hysteretic_damping(state: dict[str, torch.Tensor], params: SpringParams) -> 
     be = params.beta[:, None]
     x = (state["gamma_max"] / gr) ** be
     gsec_ratio = 1.0 / (1.0 + x)  # G_sec/G0 on the backbone
-    return (1.0 - gsec_ratio).mean(dim=1)  # [P] in [0,1); caller scales by h_max
+    return (1.0 - gsec_ratio).mean(dim=-1)  # [...,P] in [0,1); caller scales by h_max
 
 
 def material_params_for_mesh(mesh, dtype=torch.float64, device=None) -> SpringParams:

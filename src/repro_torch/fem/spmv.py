@@ -12,6 +12,10 @@ The scatter-add is a gather through a precomputed slot table followed by a
 sum over a fixed axis, never ``index_add_``/``scatter_add_``: their CUDA
 atomics change the last bits from run to run, which would break the bitwise
 contracts (serial ≡ prefetch, streamed ≡ resident).
+
+Every function here also takes a k-set: fields with a leading member axis
+(``x [k,N,3]``, ``D [k,E,4,6,6]``, BCSR ``values [k,nnzb,3,3]``) over the one
+mesh, each member summed as it would be alone, in the same fixed order.
 """
 from __future__ import annotations
 
@@ -127,14 +131,19 @@ def bcsr_matvec(values: torch.Tensor, maps: BcsrMaps, x: torch.Tensor) -> torch.
     and a sum over 3: ``einsum`` would go through a batched GEMM of 3×3
     matrices, far slower on the card, ``PERF.md``), then each row's sum by
     ``torch.segment_reduce`` over the row lengths, in a fixed order per row
-    (no atomics)."""
-    prod = (values * x[maps.col_idx][:, None, :]).sum(-1)
-    return torch.segment_reduce(prod, "sum", lengths=maps.row_lengths)
+    (no atomics).  A k-set (``values [k,nnzb,3,3]``, ``x [k,N,3]``) sums
+    each member's rows in the same order."""
+    if values.dim() == 3:
+        prod = (values * x[maps.col_idx][:, None, :]).sum(-1)
+        return torch.segment_reduce(prod, "sum", lengths=maps.row_lengths)
+    prod = (values * x[:, maps.col_idx, None, :]).sum(-1)  # [k,nnzb,3]
+    y = torch.segment_reduce(prod.movedim(0, 1).contiguous(), "sum", lengths=maps.row_lengths)
+    return y.movedim(1, 0)
 
 
 def gather_elem(u: torch.Tensor, conn: torch.Tensor) -> torch.Tensor:
-    """Nodal values per element ``[E,10,3]`` from ``u [N,3]``."""
-    return u[conn]
+    """Nodal values per element ``[...,E,10,3]`` from ``u [...,N,3]``."""
+    return u[..., conn, :]
 
 
 def segment_sum(values: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
@@ -147,17 +156,22 @@ def segment_sum(values: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
 
 
 def scatter_add(f_e: torch.Tensor, dof_slots: torch.Tensor) -> torch.Tensor:
-    """Σ per dof of element vectors ``f_e [E,10,3]`` → ``[N,3]``."""
-    return segment_sum(f_e.reshape(-1), dof_slots).reshape(-1, 3)
+    """Σ per dof of element vectors ``f_e [E,10,3]`` → ``[N,3]``; a k-set
+    ``[k,E,10,3]`` → ``[k,N,3]`` takes each member's slots along its last axis."""
+    if f_e.dim() == 3:
+        return segment_sum(f_e.reshape(-1), dof_slots).reshape(-1, 3)
+    lead = f_e.shape[:-3]
+    flat = F.pad(f_e.reshape(*lead, -1), (0, 1))  # padding slots read the appended zero
+    return flat[..., dof_slots].sum(-1).reshape(*lead, -1, 3)
 
 
 def elem_strain(u_e: torch.Tensor, Jinv: torch.Tensor) -> torch.Tensor:
-    """Voigt strain at Gauss points ``[E,P,6]`` from ``u_e [E,10,3]``.
+    """Voigt strain at Gauss points ``[...,E,P,6]`` from ``u_e [...,E,10,3]``.
 
     ε = sym(∇u); engineering shear (γ = 2ε_offdiag) to match B-matrices.
     """
     g = physical_gradients(Jinv)                      # [E,P,10,3]
-    H = torch.einsum("epnj,eni->epij", g, u_e)        # ∂u_i/∂x_j
+    H = torch.einsum("epnj,...eni->...epij", g, u_e)  # ∂u_i/∂x_j
     return torch.stack(
         [H[..., 0, 0], H[..., 1, 1], H[..., 2, 2],
          H[..., 0, 1] + H[..., 1, 0], H[..., 1, 2] + H[..., 2, 1], H[..., 2, 0] + H[..., 0, 2]],
@@ -166,14 +180,14 @@ def elem_strain(u_e: torch.Tensor, Jinv: torch.Tensor) -> torch.Tensor:
 
 
 def elem_internal_force(sigma: torch.Tensor, Jinv: torch.Tensor, wdet: torch.Tensor) -> torch.Tensor:
-    """f_e ``[E,10,3]`` = Σ_p wdet_p B_pᵀ σ_p, via the ∇N contraction."""
+    """f_e ``[...,E,10,3]`` = Σ_p wdet_p B_pᵀ σ_p, via the ∇N contraction."""
     g = physical_gradients(Jinv)        # [E,P,10,3]
     s = sigma * wdet[..., None]         # fold weights
     sxx, syy, szz, sxy, syz, szx = (s[..., k] for k in range(6))
     gx, gy, gz = g[..., 0], g[..., 1], g[..., 2]
 
     def c(ga, sa):
-        return torch.einsum("epn,ep->en", ga, sa)
+        return torch.einsum("epn,...ep->...en", ga, sa)
 
     fx = c(gx, sxx) + c(gy, sxy) + c(gz, szx)
     fy = c(gx, sxy) + c(gy, syy) + c(gz, syz)
@@ -194,24 +208,26 @@ def ebe_matvec(x: torch.Tensor, D: torch.Tensor, maps: MeshMaps, coef_e=None,
     """Full matrix-free K·x ``[N,3]`` (gather → element product → scatter).
 
     ``maps`` must hold its geometry in ``x.dtype`` (see :meth:`MeshMaps.astype`).
-    The element product defaults to the kernel wrapper, which picks the CUDA
-    kernel (the gather fused in) or ``gather_elem`` + the plain version by
-    ``x``'s device; it is called as ``element_kernel(x, conn32, D, Jinv, wdet, coef)``.
+    The element product defaults to the kernel wrapper (its k-set entry for
+    ``x [k,N,3]``), which picks the CUDA kernel (the gather fused in) or
+    ``gather_elem`` + the plain version by ``x``'s device; it is called as
+    ``element_kernel(x, conn32, D, Jinv, wdet, coef)``.
     """
     if element_kernel is None:
-        from repro_torch.kernels.ebe_matvec.ops import element_kernel
+        from repro_torch.kernels.ebe_matvec import ops
+
+        element_kernel = ops.element_kernel if x.dim() == 2 else ops.element_kernel_kset
     f_e = element_kernel(x, maps.conn32, D, maps.Jinv, maps.wdet, coef_e)
     return scatter_add(f_e, maps.dof_slots)
 
 
 def strain_at_points(u: torch.Tensor, maps: MeshMaps) -> torch.Tensor:
-    """Total strain at all evaluation points ``[E*P, 6]`` (multispring input)."""
+    """Total strain at all evaluation points ``[...,E*P, 6]`` (multispring input)."""
     eps = elem_strain(gather_elem(u, maps.conn), maps.Jinv)
-    E, P = eps.shape[:2]
-    return eps.reshape(E * P, 6)
+    return eps.flatten(-3, -2)
 
 
 def internal_force(sigma_pts: torch.Tensor, maps: MeshMaps) -> torch.Tensor:
-    """Assembled internal force q ``[N,3]`` from point stresses ``[E*P,6]``."""
-    sig = sigma_pts.reshape(maps.n_elem, quad.NPOINT, 6)
+    """Assembled internal force q ``[...,N,3]`` from point stresses ``[...,E*P,6]``."""
+    sig = sigma_pts.unflatten(-2, (maps.n_elem, quad.NPOINT))
     return scatter_add(elem_internal_force(sig, maps.Jinv, maps.wdet), maps.dof_slots)

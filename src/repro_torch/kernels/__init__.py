@@ -47,7 +47,8 @@ def counters() -> dict[str, LaunchCounter]:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.multispring import ops as ms_ops
 
-    return {c.name: c for c in (ms_ops.counter, ebe_ops.counter_f64, ebe_ops.counter_f32, fa_ops.counter)}
+    return {c.name: c for c in (ms_ops.counter, ebe_ops.counter_f64, ebe_ops.counter_f32, ms_ops.counter_kset,
+                                ebe_ops.counter_kset_f64, ebe_ops.counter_kset_f32, fa_ops.counter)}
 
 
 def launch_counts() -> dict[str, int]:

@@ -82,6 +82,13 @@ def _tiny_lm():
     return cfg, params, toks
 
 
+def _tiny_ensemble():
+    mesh = meshgen.generate(1, 1, 1, pad_elems_to=2)
+    waves = np.zeros((2, 2, 3))
+    waves[:, :, 0] = [[0.3, -0.1], [0.2, 0.05]]
+    return mesh, methods.SeismicConfig(npart=2, nspring=6), waves
+
+
 def test_cpu_run_launches_no_kernel():
     kernels.reset_launch_counts()
     out = _tiny_run()
@@ -91,7 +98,10 @@ def test_cpu_run_launches_no_kernel():
     logits, state = T.decode_step(params, cfg, toks[:, :1], state)
     D.generate(params, cfg, toks[:, :3], 2, D.ServeConfig(kv_offload=True, kv_npart=2))
     assert bool(torch.isfinite(logits).all())
+    ms_ = methods.run_ensemble(*_tiny_ensemble(), device="cpu")
+    assert bool(torch.isfinite(ms_["velocity_history"]).all())
     assert kernels.launch_counts() == {"multispring": 0, "ebe_matvec_f64": 0, "ebe_matvec_f32": 0,
+                                       "multispring_kset": 0, "ebe_matvec_kset_f64": 0, "ebe_matvec_kset_f32": 0,
                                        "flash_attention": 0}
 
 
@@ -273,3 +283,80 @@ def test_lm_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         D.make_kv_blocks(cfg, 1, 8, 2)
     assert T.init_decode_state(cfg, 1, 8, device="cpu")["layers"]["k"].device.type == "cpu"
+
+
+def _kset_ebe_args(k=2, E=3, N=5, dt=torch.float64):
+    return (torch.zeros(k, N, 3, dtype=dt), torch.zeros(E, 10, dtype=torch.int32),
+            torch.zeros(k, E, 4, 6, 6, dtype=dt), torch.zeros(E, 3, 3, dtype=dt), torch.zeros(E, 4, dtype=dt),
+            torch.ones(k, E, dtype=dt))
+
+
+@pytest.mark.parametrize("case", ["x_no_k", "D_no_k", "D_other_k", "coef_no_k", "coef_other_k"])
+def test_kset_ebe_entries_refuse_a_missing_or_mismatched_k(case):
+    """The k-set EBE entries check the leading member axis before anything
+    else (before the device, so a CPU test sees it), in the CUDA binding and
+    in the public entry alike."""
+    x, conn, D, Jinv, wdet, coef = _kset_ebe_args()
+    if case == "x_no_k":
+        x = x[0]
+    elif case == "D_no_k":
+        D = D[0]
+    elif case == "D_other_k":
+        D = torch.zeros(3, *D.shape[1:], dtype=D.dtype)
+    elif case == "coef_no_k":
+        coef = coef[0]
+    else:
+        coef = torch.ones(3, coef.shape[1], dtype=coef.dtype)
+    for fn in (ebe_ops.ebe_matvec_kset_cuda, ebe_ops.element_kernel_kset):
+        with pytest.raises(ValueError, match="k-set"):
+            fn(x, conn, D, Jinv, wdet, coef)
+    with pytest.raises(ValueError, match="CUDA"):  # well formed, it still needs a card
+        ebe_ops.ebe_matvec_kset_cuda(*_kset_ebe_args())
+    with pytest.raises(ValueError, match="16-byte"):  # the shared geometry's alignment, before the device
+        ebe_ops.ebe_matvec_kset_cuda(*_kset_ebe_args()[:3], torch.zeros(4, 3, 3, dtype=torch.float64)[1:],
+                                     *_kset_ebe_args()[4:])
+    assert kernels.launch_counts()["ebe_matvec_kset_f64"] == 0
+
+
+def test_kset_multispring_entries_refuse_a_missing_or_mismatched_k():
+    k, P, S = 2, 3, 6
+    st = {key: v.expand(k, P, S).clone() for key, v in ms.init_state(P, S, device="cpu").items()}
+    prm = ms.SpringParams(*(torch.ones(P, dtype=torch.float64) for _ in range(4)))
+    n, w = (torch.tensor(a) for a in ms.spring_directions(S))
+    eps = torch.zeros(k, P, 6, dtype=torch.float64)
+    for fn in (ms_ops.multispring_kset_cuda, ms_ops.update_kset):
+        with pytest.raises(ValueError, match="k-set"):
+            fn(eps[0], st, prm, n, w)  # ε without the member axis
+        with pytest.raises(ValueError, match="k-set"):
+            fn(eps, dict(st, virgin=st["virgin"][0]), prm, n, w)  # one leaf without it
+        with pytest.raises(ValueError, match="k-set"):
+            fn(torch.zeros(3, P, 6, dtype=torch.float64), st, prm, n, w)  # another k
+    with pytest.raises(ValueError, match="G0 must be"):  # the parameters are one member's [P]
+        ms_ops.multispring_kset_cuda(eps, st, ms.SpringParams(*(torch.ones(k, P, dtype=torch.float64)
+                                                                for _ in range(4))), n, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        ms_ops.multispring_kset_cuda(eps, st, prm, n, w)
+    assert kernels.launch_counts()["multispring_kset"] == 0
+
+
+def test_guard_step_refuses_an_offloaded_theta():
+    """A tripped lane is frozen by writing its old carry back; with θ in
+    pinned host blocks updated in place (offload=True) the old θ is gone."""
+    from repro_torch.core import health
+
+    mesh = meshgen.generate(1, 1, 1, pad_elems_to=2)
+    ops = backend.make_operators(mesh, methods.SeismicConfig(npart=2, nspring=6), device="cpu")
+    step, _ = methods.make_ensemble_step(ops, "proposed1", kset=2, offload=True)
+    with pytest.raises(ValueError, match="in place"):
+        health.guard_step(step)
+    with pytest.raises(ValueError, match="in place"):
+        health.guard_step(methods.make_step("proposed2", ops)[0])  # methods.run's streamed step
+    step, _ = methods.make_ensemble_step(ops, "proposed1", kset=2, offload=False)
+    assert callable(health.guard_step(step))
+
+
+def test_run_ensemble_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        methods.run_ensemble(*_tiny_ensemble())

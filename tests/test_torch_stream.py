@@ -1,14 +1,15 @@
 """StreamEngine invariants of the port (CPU placements are the identity):
 ``serial`` with ``offload=False`` is bit-identical to the resident
 computation, ``prefetch(k)`` is bit-identical to ``serial``, bad block
-counts raise, and what is not ported yet raises NotImplementedError."""
+counts raise, and ``donate`` and k-set plans build and validate (their
+runs are held in tests/test_torch_kset.py)."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import hetmem
 from repro_torch.core.hetmem import PartitionedState
-from repro_torch.core.stream import StreamEngine, StreamPlan
+from repro_torch.core.stream import SCHEDULES, StreamEngine, StreamPlan
 
 
 def _state(npart=4, chunk=8, width=5, seed=0):
@@ -81,13 +82,15 @@ def test_bad_npart_raises():
         StreamPlan(npart=2, schedule="eager")
 
 
-def test_donate_and_kset_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StreamPlan(npart=2, schedule="donate")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StreamPlan(npart=2, kset=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StreamEngine(StreamPlan(npart=1)).kmap(lambda x: x, torch.zeros(2))
+def test_donate_and_kset_plans_build_and_validate():
+    donate = StreamPlan(npart=2, schedule="donate")
+    assert donate.schedule in SCHEDULES and donate.device_buffers == 2
+    kset = StreamPlan(npart=2, kset=2)
+    assert kset.kset == 2 and kset.device_buffers == 2
+    with pytest.raises(ValueError, match="kset must be"):
+        StreamPlan(npart=2, kset=0)
+    assert torch.equal(StreamEngine(StreamPlan(npart=1, kset=2)).kmap(lambda x: x * 2, torch.ones(2)),
+                       torch.full((2,), 2.0))
 
 
 def test_partition_and_host_placement_on_cpu():
