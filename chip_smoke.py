@@ -39,32 +39,52 @@ Phases, each followed by a JSON line with its seconds:
                (1e-9·max|v|); Proposed 1's k-set with θ offloaded ≡ θ on the
                card bitwise; a guarded NaN in lane 1 (Proposed 2): health
                words equal the CPU port's, the siblings bitwise unchanged;
-8.  main       Proposed 2 at full size through ``methods.run``: 294,912 TET10
+8.  campaign_check  the campaign CLI (``launch.campaign.main``) at (8, 8, 4),
+               3 waves in rounds of 2, 6 steps, a checkpoint every 2,
+               guarded, for Proposed 2, Proposed 1 and Baseline 1: killed
+               after step 7 and relaunched, and relaunched once more (a pure
+               restore), bitwise the uncheckpointed run; Proposed 2 card ≡
+               CPU port (1e-6·max|v|); a NaN injected into case 1 (Proposed 2) gives
+               the CPU's health words, leaves the siblings bitwise unchanged
+               and is quarantined out of the shards, which load back with
+               their CRCs checked; another seed and the CPU's kernel backend
+               are refused as a different campaign;
+9.  main       Proposed 2 at full size through ``methods.run``: 294,912 TET10
                elements, 150 springs per point (θ = 7.08 GB in pinned host
                memory), ``npart=8``, prefetch, fp64, 8 steps;
-9.  crs_main   the CRS rungs at main's size and config through ``methods.run``:
+10. crs_main   the CRS rungs at main's size and config through ``methods.run``:
                Baseline 1 (θ on the card) and Proposed 1 (θ streamed) 4
                steps each, Baseline 2 (θ and the multispring on the host) 2
                steps; per step the parts of the step, per rung the peak
                device memory against θ's bytes;
-10. lm_cpu     qwen3-1.7b at full width, 2 layers, fp32: prefill + 4 decode
+11. lm_cpu     qwen3-1.7b at full width, 2 layers, fp32: prefill + 4 decode
                steps on the card against the CPU, and prefill→decode against
                ``forward`` on the card (the fp32 flash kernel's path);
-11. lm_main    qwen3-1.7b at full width and depth (28 layers), bf16 compute:
+12. lm_main    qwen3-1.7b at full width and depth (28 layers), bf16 compute:
                prefill of 4 × 4,096 tokens (28 launches of the wgmma flash
                kernel, none of the fp32 one), then 32 greedy decode steps
                (no flash launch);
-12. lm_offload ``generate`` with the KV cache in pinned host memory (4 blocks
+13. lm_offload ``generate`` with the KV cache in pinned host memory (4 blocks
                of 7 layers, prefetch) gives the resident tokens; the same
                tokens stepped through both decode steps give bitwise equal
                logits and caches;
-13. kset_main  Proposed 2 as 2SET at main's mesh and 150 springs: two cases,
+14. kset_main  Proposed 2 as 2SET at main's mesh and 150 springs: two cases,
                θ of both resident on the card (2 × 7.08 GB), 4 steps of
                ``run_ensemble``, against each case alone in the same resident
                form (s/step, iterations, parts, peak device memory); one
                k-set multispring launch per step and one k-set EBE launch per
                matvec; lanes ≡ the single runs within 1e-6·max|v|;
-14. timing     each kernel at the shapes its main path gives it, against its
+15. campaign_main  the campaign at full width through ``run_campaign(...,
+               device=None)`` (kset_main's 2SET carry parked on the host):
+               (a) Proposed 2, kset 2, M 3 (two rounds, the tail padded), 4
+               steps, unguarded and guarded — per chunk s/step per case, peak
+               device bytes, the k-set kernels' launches (each > 0); round 0
+               against kset_main's 2SET on the same waves (1e-12·max|v|);
+               (b) M 2, a checkpoint every 2 steps (14.9 GB: θ of two cases
+               is 14.16 GB), stopped after step 2 and resumed, bitwise (a)'s
+               guarded round 0, with each checkpoint's bytes and seconds to
+               copy, write, CRC and restore, and the free disk before;
+16. timing     each kernel at the shapes its main path gives it, against its
                plain version, its bound and (flash) SDPA, with flash held in
                fp32 and bf16 there too and timed in both; a breakdown of one
                whole EBE matvec (kernel, slot-table scatter) in both dtypes,
@@ -215,6 +235,224 @@ def require(cond, what):
         raise AssertionError(what)
 
 
+KSET_KERNELS = ("multispring_kset", "ebe_matvec_kset_f64", "ebe_matvec_kset_f32")
+# the campaign CLI at (8, 8, 4): 3 waves in rounds of 2, 6 steps, chunks of 2, guarded
+CAMPAIGN_FLAGS = ["--waves", "3", "--nt", "6", "--mesh-n", "8x8x4", "--kset", "2", "--ckpt-every", "2", "--health"]
+
+
+def campaign_check(root):
+    """The port's campaign CLI in-process (``launch.campaign.main``) on the
+    card at (8, 8, 4): for Proposed 2, Proposed 1 and Baseline 1 an
+    uncheckpointed run, a run killed after step 7 and its relaunch, and a
+    third launch (a pure restore), bitwise equal.  For Proposed 2 also the
+    same campaign on the CPU within 1e-6·max|v|, an injected NaN in case 1
+    (the same health words on the card as on the CPU, siblings bitwise
+    unchanged, case 1 quarantined out of the shards, which load back with
+    their CRCs checked) and two foreign relaunches (another seed; the CPU's
+    kernel backend) refused as a different campaign."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.launch import campaign as cli
+    from repro_torch.surrogate import dataset
+
+    shutil.rmtree(root, ignore_errors=True)
+    printed, seconds = [], {}
+
+    def launch(*flags):
+        out, buf = {}, io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([*CAMPAIGN_FLAGS, *flags], result=out)
+        where = "cpu" if "cpu" in flags else "card"
+        seconds[where] = seconds.get(where, 0.0) + time.perf_counter() - t0
+        printed.append(buf.getvalue())
+        require(rc == 0, f"campaign {flags} exited {rc}")
+        return out
+
+    rows = {}
+    for m in ("proposed2", "proposed1", "baseline1"):
+        d = os.path.join(root, m, "ckpt")
+        kernels.reset_launch_counts()
+        straight = launch("--method", m)["campaign"]
+        ran = kernels.launch_counts()
+        part = launch("--method", m, "--ckpt-dir", d, "--stop-after-steps", "7")["campaign"]
+        resumed = launch("--method", m, "--ckpt-dir", d)["campaign"]
+        again = launch("--method", m, "--ckpt-dir", d)["campaign"]
+        v = straight.velocity_history
+        same = [bool(np.array_equal(r.velocity_history, v) and np.array_equal(r.iters, straight.iters))
+                for r in (resumed, again)]
+        rows[m] = {"steps_at_stop": part.steps_done, "resumed_from": [resumed.resumed_from, again.resumed_from],
+                   "resume_bitwise": same[0], "restore_bitwise": same[1], "iters": straight.iters.tolist(),
+                   "launches": ran}
+        require(straight.completed and not part.completed and part.steps_done == 8, f"{m}: kill point")
+        require(all(same), f"{m}: the resumed campaign is not bitwise the uncheckpointed one: {same}")
+        if m == "proposed2":  # the CRS rungs' card ≡ CPU on this mesh: crs_check and kset_check
+            cpu = launch("--method", m, "--device", "cpu")["campaign"]
+            scale = float(np.abs(cpu.velocity_history).max())
+            err = float(np.abs(v - cpu.velocity_history).max())
+            rows[m].update(card_vs_cpu_rel=err / scale, iters_cpu=cpu.iters.tolist())
+            require(scale > 0 and err <= 1e-6 * scale, f"{m}: card ≠ CPU: {err / scale}")
+        require(ran["multispring_kset"] > 0 and ran["multispring"] > 0, f"{m}: multispring launches {ran}")
+        require((ran["ebe_matvec_kset_f64"] > 0 and ran["ebe_matvec_kset_f32"] > 0) == (m == "proposed2"),
+                f"{m}: k-set EBE launches {ran}")
+        if m == "proposed2":
+            clean, d_p2 = straight, d
+    # an injected NaN: the same words on the card as on the CPU, siblings untouched, case 1 quarantined
+    inject = ["--inject", "nan_at_step=2,case=1"]
+    shards = os.path.join(root, "shards")
+    bad = launch(*inject, "--out", shards)
+    bad_cpu = launch(*inject, "--device", "cpu", "--out", os.path.join(root, "shards_cpu"))["campaign"]
+    res = bad["campaign"]
+    x, y = dataset.load_shards(shards)  # CRCs checked
+    meta = dataset.shard_meta(shards)
+    siblings = all(np.array_equal(res.velocity_history[i], clean.velocity_history[i]) for i in (0, 2))
+    rows["inject"] = {"words": res.health.tolist(), "words_cpu": bad_cpu.health.tolist(),
+                      "nonconverged": res.nonconverged.tolist(), "siblings_bitwise": siblings,
+                      "shard_rows": len(x), "quarantine": meta.get("quarantine"),
+                      "printed": [ln for ln in printed[-2].splitlines() if "[health]" in ln or "[quarantine]" in ln]}
+    require(np.array_equal(res.health, bad_cpu.health), "health words differ between card and CPU")
+    require(res.diverged_cases().tolist() == [1] and siblings, "the NaN did not stay in case 1")
+    require(meta.get("quarantine") == [1] and len(x) == len(y) == 2, f"case 1 not quarantined: {meta}")
+    require(np.array_equal(x, bad["waves"]) and np.array_equal(y, bad["responses"]), "shards read back differ")
+    # foreign relaunches into the finished Proposed 2 checkpoint directory
+    refused = {}
+    for name, flags in (("seed", ["--seed", "1"]), ("kernel_backend", ["--device", "cpu", "--kernel-backend", "torch"])):
+        try:
+            launch(*flags, "--ckpt-dir", d_p2)
+            refused[name] = "accepted"
+        except ValueError as e:
+            refused[name] = "different campaign" in str(e)
+    rows["foreign_refused"] = refused
+    emit({"check": "campaign", "mesh": [8, 8, 4], "waves": 3, "kset": 2, "nt": 6, "ckpt_every": 2, **rows,
+          "launch_seconds": seconds})
+    require(all(v is True for v in refused.values()), f"a foreign checkpoint was not refused: {refused}")
+
+
+def campaign_main(mesh, cfg, waves, kset_v, root):
+    """The campaign at full width on the card (``run_campaign(...,
+    device=None)``): (a) Proposed 2, kset 2, M 3 (two rounds, the tail
+    padded), 4 steps, unguarded and guarded: per chunk s/step per case, peak
+    device bytes and the k-set kernels' launches; round 0 against
+    kset_main's 2SET ``kset_v`` on the same waves.  (b) the checkpointed
+    kill-and-resume, M 2, a checkpoint every 2 steps, keep 1, stopped after
+    step 2 and resumed: bitwise (a)'s guarded round 0; each checkpoint's
+    bytes and seconds to copy, write, CRC and restore; the free disk first;
+    the peak device bytes of the stopped run and of the resume, which
+    restores into the one carry it builds (no second k-set carry)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.campaign import CampaignConfig, run_campaign
+
+    every_node = np.arange(mesh.n_nodes)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    runs = {}
+    for guarded in (False, True):
+        cfg_a = dataclasses.replace(cfg, health=guarded)
+        chunks = []
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()  # counts of this run only
+        last = dict(kernels.launch_counts())
+
+        def on_chunk(info, chunks=chunks, last=last, resident_before=resident_before):
+            counts = kernels.launch_counts()
+            row = dict(info, s_per_step_per_case=info["seconds"] / ((info["t1"] - info["t0"]) * 2),
+                       peak_device_bytes=torch.cuda.max_memory_allocated() - resident_before,
+                       launches={k: counts[k] - last[k] for k in counts})
+            last.update(counts)
+            torch.cuda.reset_peak_memory_stats()
+            chunks.append(row)
+            emit({"campaign_main_chunk": row, "health": guarded})
+
+        t0 = time.perf_counter()
+        res = run_campaign(mesh, cfg_a, waves, observe=every_node, on_chunk=on_chunk,
+                           campaign=CampaignConfig(kset=2, method="proposed2"))
+        runs[guarded] = {"res": res, "run_s": time.perf_counter() - t0, "chunks": chunks,
+                         "launches": kernels.launch_counts(), "resident_before": resident_before}
+        require(res.completed and res.rounds_done == 2 and res.velocity_history.shape[0] == 3, "campaign (a) shape")
+        require(bool(np.isfinite(res.velocity_history).all()) and np.abs(res.velocity_history).max() > 0,
+                "campaign (a): not finite or moved nothing")
+        for row in chunks:
+            require(all(row["launches"][k] > 0 for k in KSET_KERNELS), f"a k-set kernel never launched: {row}")
+    plain, guard = runs[False], runs[True]
+    v0 = plain["res"].velocity_history[:2]
+    vs_kset = float(np.abs(v0 - kset_v).max() / np.abs(kset_v).max())
+    s_plain = [c["s_per_step_per_case"] for c in plain["chunks"]]
+    s_guard = [c["s_per_step_per_case"] for c in guard["chunks"]]
+    emit({"campaign_main": {
+        "mesh": [64, 64, 12], "nspring": cfg.nspring, "M": 3, "kset": 2, "steps": waves.shape[1],
+        "s_per_step_per_case": s_plain, "s_per_step_per_case_guarded": s_guard,
+        "guard_cost_s_per_step_per_case": [g - p for g, p in zip(s_guard, s_plain)],
+        "run_s": plain["run_s"], "run_s_guarded": guard["run_s"],
+        "peak_device_bytes": [c["peak_device_bytes"] for c in plain["chunks"]],
+        "peak_device_bytes_guarded": [c["peak_device_bytes"] for c in guard["chunks"]],
+        "resident_before_bytes": plain["resident_before"], "launches": plain["launches"],
+        "launches_guarded": guard["launches"], "iters": plain["res"].iters.tolist(),
+        "round0_vs_kset_main_rel": vs_kset, "round0_bitwise_kset_main": bool(np.array_equal(v0, kset_v)),
+        "guarded_bitwise_unguarded": bool(np.array_equal(guard["res"].velocity_history,
+                                                         plain["res"].velocity_history)),
+        "health": guard["res"].health.tolist()}})
+    require(vs_kset <= 1e-12, f"campaign round 0 disagrees with kset_main's 2SET: {vs_kset}")
+    require(guard["res"].health.tolist() == [0, 0, 0], "a healthy full-size case tripped its guard")
+    # (b) the checkpointed kill-and-resume at full size, guarded
+    d = os.path.join(root, "ckpt")
+    free_before = shutil.disk_usage(root).free
+    cc = CampaignConfig(kset=2, method="proposed2", checkpoint_dir=d, checkpoint_every=2, keep=1)
+    cfg_b = dataclasses.replace(cfg, health=True)
+
+    def peak_from(fn):
+        """``fn()`` and its peak device bytes above what was allocated before it."""
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - before
+
+    t0 = time.perf_counter()
+    part, peak_stopped = peak_from(lambda: run_campaign(mesh, cfg_b, waves[:2], observe=every_node, campaign=cc,
+                                                        stop_after_steps=2))
+    t1 = time.perf_counter()
+    full, peak_resumed = peak_from(lambda: run_campaign(mesh, cfg_b, waves[:2], observe=every_node, campaign=cc))
+    t2 = time.perf_counter()
+    ref = guard["res"]
+    same = all(np.array_equal(a, b[:2]) for a, b in ((full.velocity_history, ref.velocity_history),
+                                                      (full.iters, ref.iters), (full.health, ref.health)))
+    records = [dict(r, call="stopped") for r in part.checkpoints] + [dict(r, call="resumed")
+                                                                     for r in full.checkpoints]
+    for r in records:
+        for part_s in ("write_s", "crc_s", "read_s", "host_copy_s"):
+            if r.get(part_s):
+                r[part_s.replace("_s", "_GB_per_s")] = r["bytes"] / r[part_s] / 1e9
+    peak_guarded = max(c["peak_device_bytes"] for c in guard["chunks"])
+    ckpt_bytes = max(r["bytes"] for r in records)
+    emit({"campaign_checkpoint": {
+        "free_disk_bytes_before": free_before, "stopped_at": part.steps_done, "resumed_from": full.resumed_from,
+        "stopped_run_s": t1 - t0, "resumed_run_s": t2 - t1, "bitwise_vs_uncheckpointed_round0": same,
+        "peak_device_bytes_stopped": peak_stopped, "peak_device_bytes_resumed": peak_resumed,
+        "peak_device_bytes_guarded_chunk": peak_guarded, "records": records}})
+    require(not part.completed and part.steps_done == 2 and full.completed and full.resumed_from == 2,
+            "campaign (b) did not stop and resume at step 2")
+    require(same, "the full-size kill-and-resume is not bitwise the uninterrupted round")
+    # a second k-set carry on the card would add the checkpoint's bytes again
+    require(peak_resumed < peak_guarded + ckpt_bytes / 2,
+            f"the resume held more than one k-set carry: peak {peak_resumed} B vs {peak_guarded} B uninterrupted")
+    shutil.rmtree(root, ignore_errors=True)
+    return plain["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -226,6 +464,7 @@ def main() -> int:
     from repro_torch import kernels
     from repro_torch.configs import ARCHS
     from repro_torch.core import faults, hetmem
+    from repro_torch.core.stream import tree_map
     from repro_torch.fem import assembly, meshgen, methods, multispring as ms, spmv
     from repro_torch.kernels import _build
     from repro_torch.kernels.ebe_matvec import ops as ebe_ops
@@ -554,6 +793,9 @@ def main() -> int:
         require(bool(torch.isfinite(bad["velocity_history"]).all()), "NaN entered the frozen lane's carry")
         del card, cpu, solo, clean, bad, bad_cpu
 
+    with Phase("campaign_check"):
+        campaign_check(os.path.join(ROOT, "build", "campaign_check"))
+
     with Phase("main"):
         mesh = meshgen.generate(64, 64, 12, pad_elems_to=8)
         cfg = methods.SeismicConfig(npart=8, schedule="prefetch", prefetch=1, nspring=150)
@@ -853,7 +1095,18 @@ def main() -> int:
                         and d["ebe_matvec_f64"] == d["ebe_matvec_f32"] == 0, f"{name} step {row['step']}: {d}")
         require(all(x <= 1e-6 for x in lanes), f"2SET lanes disagree with the single runs: {lanes}")
         require(tuple(v2.shape) == (K2, nt2, mesh.n_nodes, 3), "2SET velocity history shape")
+        kset_v = v2.numpy()  # campaign_main's round 0 runs the same waves
         del kset_runs, v2
+
+    with Phase("campaign_main"):
+        # kset_main's 2SET carry waits on the host (phase timing takes it back)
+        # so the campaign's rounds have the card as kset_main had it
+        kset_carry = tree_map(lambda x: x.cpu(), kset_carry)
+        torch.cuda.empty_cache()
+        campaign_launches = campaign_main(mesh, cfg, kset_waves(3, 4, cfg.dt), kset_v,
+                                          os.path.join(ROOT, "build", "campaign_main"))
+        kset_carry = tree_map(lambda x: x.to(dev), kset_carry)
+        del kset_v
 
     def cuda_ms(fn, reps):
         fn()
@@ -1163,7 +1416,8 @@ def main() -> int:
                          "detail": {"k": K2, "E": ops.n_elem, "N": ops.n_nodes, "dtype": str(dt), "max_rel_err": rel,
                                     "tol": etol, "bitwise_vs_one_member": True, "one_member_launches_ms": one_ms,
                                     "kset_over_one_member": k_ms / one_ms, "bound_bytes": nbytes(*a, fk),
-                                    "launches_from": "kset_main (2SET, 4 steps)"}})
+                                    "launches_from": "kset_main (2SET, 4 steps)",
+                                    "campaign_main_launches": campaign_launches[name]}})
             del a, ones, fk, fp, Dk, x2
         # multispring over k × P = 2 × 1,179,648 points, from the 2SET run's final θ
         P2 = ops.n_elem * 4
@@ -1198,7 +1452,8 @@ def main() -> int:
                      "detail": {"k": K2, "P": P2, "S": cfg.nspring, "dtype": str(cfg.rdtype), "max_rel_err": rel,
                                 "tol": 1e-12, "one_member_launches_ms": one_ms, "kset_over_one_member": k_ms / one_ms,
                                 "plain_peak_device_bytes": torch.cuda.max_memory_allocated(),
-                                "launches_from": "kset_main (2SET, 4 steps)"}})
+                                "launches_from": "kset_main (2SET, 4 steps)",
+                                "campaign_main_launches": campaign_launches["multispring_kset"]}})
         del args, ones, eps2, kset_carry, nm2, th2, D2, alpha2, beta2
         print(smi, flush=True)
         emit({"kernel_detail": {r["name"]: r["detail"] for r in rows}})

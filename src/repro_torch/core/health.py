@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.hetmem import PartitionedState
 from repro_torch.core.stream import tree_leaves
 
 # -- health word bits --------------------------------------------------------
@@ -72,7 +73,31 @@ def describe(word: int) -> str:
 
 
 def _tensors(tree) -> list[torch.Tensor]:
-    return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+    """The tensor leaves of ``tree``, a :class:`PartitionedState`'s blocks
+    included (Proposed 1's θ with ``offload=False``: ``[k, chunk, S]`` blocks)."""
+    out = []
+    for x in tree_leaves(tree):
+        if isinstance(x, PartitionedState):
+            out.extend(t for blk in x.blocks for t in blk)
+        elif isinstance(x, torch.Tensor):
+            out.append(x)
+    return out
+
+
+def _finite_lanes(leaves) -> torch.Tensor | None:
+    """Per lane (host bool ``[k]``): every floating leaf of ``leaves`` is
+    finite on that lane (``None`` when no leaf is floating).  The lanes are
+    combined on each device, so the host waits once a device."""
+    on_device: dict[torch.device, torch.Tensor] = {}
+    for leaf in leaves:
+        if leaf.is_floating_point():
+            lane = torch.isfinite(leaf.reshape(leaf.shape[0], -1)).all(dim=1)
+            prev = on_device.get(lane.device)
+            on_device[lane.device] = lane if prev is None else prev & lane
+    ok = None
+    for lane in on_device.values():
+        ok = lane.cpu() if ok is None else ok & lane.cpu()
+    return ok
 
 
 def finite_all(tree) -> torch.Tensor:
@@ -80,12 +105,7 @@ def finite_all(tree) -> torch.Tensor:
     is finite on that lane.  Integer leaves (spring direction flags, counters)
     are finite by construction and skipped; ``tree`` holds at least one
     floating leaf (a carry, or θ)."""
-    ok = None
-    for leaf in _tensors(tree):
-        if leaf.is_floating_point():
-            lane = torch.isfinite(leaf.reshape(leaf.shape[0], -1)).all(dim=1).cpu()
-            ok = lane if ok is None else ok & lane
-    return ok
+    return _finite_lanes(_tensors(tree))
 
 
 def freeze(live: torch.Tensor, new_tree, old_tree):
@@ -101,9 +121,16 @@ def freeze(live: torch.Tensor, new_tree, old_tree):
 
 
 def update_word(word, new_carry, springs, aux) -> torch.Tensor:
-    """Fold one step's outcome into the health words (sticky bits)."""
-    trip = torch.where(finite_all(new_carry), 0, BIT_CARRY_NONFINITE)
-    trip |= torch.where(finite_all(springs), 0, BIT_SPRINGS_NONFINITE)
+    """Fold one step's outcome into the health words (sticky bits).
+    ``springs`` is the carry's constitutive state: it is read once, for both
+    its own bit and the carry's."""
+    spring_leaves = _tensors(springs)
+    theirs = {id(t) for t in spring_leaves}
+    springs_ok = _finite_lanes(spring_leaves)
+    rest_ok = _finite_lanes([t for t in _tensors(new_carry) if id(t) not in theirs])
+    carry_ok = springs_ok if rest_ok is None else springs_ok & rest_ok
+    trip = torch.where(carry_ok, 0, BIT_CARRY_NONFINITE)
+    trip |= torch.where(springs_ok, 0, BIT_SPRINGS_NONFINITE)
     trip |= torch.where(torch.isfinite(aux.relres), 0, BIT_SOLVER_NONFINITE)
     trip |= torch.where(aux.converged, 0, BIT_NONCONVERGED)
     return word | trip.to(torch.int32)

@@ -63,6 +63,15 @@ class KernelBackend:
         check_tile_e(self.tile_e)
         check_tile_p(self.tile_p)
 
+    @property
+    def name(self) -> str:
+        """Collapsed label for logs: the common name, or ``mixed``."""
+        return self.ebe if self.ebe == self.multispring else "mixed"
+
+    def describe(self) -> str:
+        """Stable identity string, folded into the campaign signature."""
+        return f"ebe={self.ebe},ms={self.multispring},tile_e={self.tile_e},tile_p={self.tile_p}"
+
     # The wrappers pick the kernel from the tensors' device; the resolved
     # names above record (and were checked against) that device.
     def element_kernel(self) -> Callable:

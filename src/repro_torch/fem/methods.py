@@ -650,10 +650,23 @@ def make_ensemble_step(ops: FemOperators, method: str, *, kset: int, offload: bo
     offload=offload)``: on the device with ``offload=False``, in pinned host
     memory, updated in place, with ``offload=True``.  The baselines are as in
     :func:`make_step`.  Raises ``KeyError`` for names outside :data:`METHODS`."""
+    return ensemble_step(ops, method, offload=offload), initial_ensemble_carry(ops, method, kset=kset,
+                                                                                offload=offload)
+
+
+def ensemble_step(ops: FemOperators, method: str, *, offload: bool = False):
+    """The step of :func:`make_ensemble_step`, without building a carry."""
     if method == "proposed2":
-        step, streamed = make_step_ebe(ops, streamed=False), False
-    else:
-        step, streamed = make_step(method, ops, offload=offload)
+        return make_step_ebe(ops, streamed=False)
+    return make_step(method, ops, offload=offload)[0]
+
+
+def initial_ensemble_carry(ops: FemOperators, method: str, *, kset: int, offload: bool = False):
+    """The fresh ``kset``-member carry of :func:`make_ensemble_step`, without
+    building a step."""
+    if method not in METHODS:
+        raise KeyError(method)
+    streamed = method == "proposed1"
     nm, springs, *rest = initial_carry(ops, streamed=streamed, host=method == "baseline2",
                                        ebe=method == "proposed2")
     if streamed:
@@ -664,7 +677,7 @@ def make_ensemble_step(ops: FemOperators, method: str, *, kset: int, offload: bo
     else:
         springs = broadcast_kset(springs, kset)  # on the card, or on HOST for Baseline 2
     rest = [x if isinstance(x, int) else broadcast_kset(x, kset) for x in rest]
-    return step, (broadcast_kset(nm, kset), springs, *rest)
+    return (broadcast_kset(nm, kset), springs, *rest)
 
 
 def run_ensemble(

@@ -36,6 +36,8 @@ def _port_files():
 def test_port_imports_neither_jax_nor_reference():
     files = _port_files()
     assert len(files) > 20
+    scanned = {os.path.relpath(os.path.dirname(p), os.path.join(REPO, "src", "repro_torch")) for p in files}
+    assert {"campaign", "training", "parallel", "launch", "scenario", "surrogate"} <= scanned
     for path in files:
         with open(path) as f:
             src = f.read()
@@ -209,6 +211,9 @@ def test_backend_spec_follows_the_device():
         backend.resolve_spec("pallas", "cpu")
     kb = backend.resolve(methods.SeismicConfig(), device="cpu")
     assert (kb.ebe, kb.multispring, kb.tile_e, kb.tile_p) == ("torch", "torch", 16, 4)
+    assert (kb.name, kb.describe()) == ("torch", "ebe=torch,ms=torch,tile_e=16,tile_p=4")
+    mixed = backend.KernelBackend(ebe="cuda", multispring="torch", tile_e=8, tile_p=2)
+    assert (mixed.name, mixed.describe()) == ("mixed", "ebe=cuda,ms=torch,tile_e=8,tile_p=2")
     with pytest.raises(ValueError):
         backend.resolve(methods.SeismicConfig(ebe_backend="cuda"), device="cpu")
 
@@ -360,3 +365,64 @@ def test_run_ensemble_raises_without_a_card():
         pytest.skip("a CUDA device is present: the default device is valid here")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         methods.run_ensemble(*_tiny_ensemble())
+
+
+def test_campaign_and_its_cli_raise_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from repro_torch.campaign import run_campaign
+    from repro_torch.launch import campaign as cli
+    from repro_torch.surrogate import dataset
+
+    mesh, cfg, waves = _tiny_ensemble()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_campaign(mesh, cfg, waves)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--waves", "2", "--nt", "4", "--mesh-n", "1x1x1", "--out", str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dataset.generate(dataset.EnsembleConfig(n_waves=2, nt=4, mesh_n=(1, 1, 1)))
+    assert not os.path.exists(tmp_path / "out")
+    assert run_campaign(mesh, cfg, waves, device="cpu").completed
+
+
+@pytest.mark.parametrize("flags", [
+    ["--sweep", "{}"], ["--scenario", "ricker-soft-basin"], ["--scenarios", "feedback.jsonl"], ["--schedule"],
+    ["--workers", "2"], ["--worker-id", "w0"], ["--autotune"], ["--probe"], ["--calibration", "BENCH_kernels.json"],
+    ["--train-while-generating"], ["--cpu-backend"], ["--devices", "2"], ["--host-devices", "2"],
+    ["--num-processes", "2", "--coordinator", "localhost:1234"],
+])
+def test_unported_campaign_modes_exit_nonzero(flags, capsys):
+    """The reference launcher's other modes are refused by name, before
+    anything runs (no device is needed to see it)."""
+    from repro_torch.launch import campaign as cli
+
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--device", "cpu", *flags])
+    assert e.value.code not in (0, None)
+    assert f"{flags[0]}" in str(e.value.code) and "not ported yet" in str(e.value.code)
+
+
+def test_one_process_topology_and_its_limits(monkeypatch):
+    import sys
+
+    from repro_torch.launch import bootstrap
+    from repro_torch.parallel import distributed as dist
+
+    assert (dist.process_index(), dist.process_count(), dist.is_distributed()) == (0, 1, False)
+    dist.barrier("noop")
+    dist.make_barrier("ckpt")()
+    assert 0 < dist.free_port() < 65536
+    one = bootstrap.parse_distributed(["--waves", "3"])
+    assert one == bootstrap.DistributedArgs() and not one.distributed
+    assert bootstrap.distributed_init(one) is one
+    two = bootstrap.parse_distributed(["--num-processes", "2", "--coordinator", "localhost:1", "--process-id", "1"])
+    assert two.distributed and two.process_id == 1
+    with pytest.raises(NotImplementedError, match="one process"):
+        bootstrap.distributed_init(two)
+    with pytest.raises(ValueError, match="coordinator"):
+        bootstrap.DistributedArgs(num_processes=2)
+    monkeypatch.setattr(sys, "argv", ["campaign", "--host-devices", "1"])
+    assert bootstrap.force_host_devices() == 1
+    monkeypatch.setattr(sys, "argv", ["campaign", "--host-devices", "2"])
+    with pytest.raises(NotImplementedError, match="one device"):
+        bootstrap.force_host_devices()
