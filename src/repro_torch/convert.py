@@ -6,7 +6,9 @@ turns a mid-run carry of any of the four methods (as numpy) into the
 port's carry on an operator set's device, so both packages can continue
 from the same nonlinear state.  :func:`params_from_numpy` and
 :func:`decode_state_from_numpy` do the same for a language model's
-parameters and for a decode state (the KV caches after a prefill).
+parameters and for a decode state (the KV caches after a prefill), and
+:func:`surrogate_params_from_numpy` for a surrogate's params (the CNN+LSTM
+or the SSM trajectory model).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.stream import tree_leaves
 from repro_torch.fem import meshgen, multispring as ms, newmark
 from repro_torch.fem.methods import METHODS, partition_springs, springs_to_host
 from repro_torch.models import transformer
@@ -91,6 +94,8 @@ def _tensor(a, device) -> torch.Tensor:
 def _tree(tree: Any, device) -> Any:
     if isinstance(tree, dict):
         return {k: _tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree(v, device) for v in tree]
     return _tensor(tree, device)
 
 
@@ -112,3 +117,23 @@ def decode_state_from_numpy(state: dict[str, Any], cfg, device) -> dict[str, Any
     "v"}}``, numpy leaves), e.g. the state a JAX ``prefill`` returned."""
     transformer.check_supported(cfg)
     return {"pos": int(np.asarray(state["pos"])), "layers": _tree(state["layers"], device)}
+
+
+_SURROGATE_KEYS = ({"enc", "lstm", "dec", "heads"}, {"enc", "layers", "out"})  # CNN+LSTM, trajectory
+
+
+def surrogate_params_from_numpy(tree: dict[str, Any], device) -> dict[str, Any]:
+    """The port's surrogate params on ``device`` from a JAX ``init_params``
+    (or trained) tree of either family — the CNN+LSTM (``enc``/``lstm``/
+    ``dec``/``heads``) or the SSM trajectory model (``enc``/``layers``/
+    ``out``) — with numpy leaves: the same nested dicts and lists, the
+    same leaf names, fp32 tensors."""
+    if set(tree) not in _SURROGATE_KEYS:
+        raise ValueError(f"surrogate tree has keys {sorted(tree)}, expected one of "
+                         f"{[sorted(k) for k in _SURROGATE_KEYS]}")
+    params = _tree(tree, device)
+    bad = [t.dtype for t in tree_leaves(params) if t.dtype != torch.float32]
+    if bad:
+        raise ValueError(f"surrogate params are fp32; got {sorted(set(map(str, bad)))}")
+    return params
+

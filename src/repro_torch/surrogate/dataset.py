@@ -8,10 +8,11 @@ members per round as one k-set (2SET), rounds checkpointed for exact
 resume — and lands in ``.npz`` dataset shards the surrogate trainer
 streams back in.
 
-The campaign half of the JAX package's ``surrogate/dataset.py``, with its
-on-disk format (npz shards and a committed ``index.json`` with CRCs and
-``meta``), so each package reads the other's shards.  ``ShardStream`` and
-``generate_sweep`` are not ported yet.
+The JAX package's ``surrogate/dataset.py`` with its on-disk format (npz
+shards and a committed ``index.json`` with CRCs and ``meta``), so each
+package reads the other's shards, and its :class:`ShardStream`, which the
+trainer (:mod:`repro_torch.surrogate.train`) consumes.  ``generate_sweep``
+waits for the scenario planner.
 """
 from __future__ import annotations
 
@@ -20,8 +21,9 @@ import glob
 import json
 import os
 import re
+import time
 import zlib
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -230,6 +232,24 @@ def committed(directory: str) -> bool:
     return os.path.exists(os.path.join(directory, "index.json"))
 
 
+def plan_scenario_order(manifest_path: str) -> Optional[list[str]]:
+    """Scenario names in **plan order** from a sweep manifest
+    (``plan.json``, written by the reference's scenario planner and
+    elastic scheduler), or None when the manifest is absent or
+    unreadable.  This is the order a live
+    :meth:`ShardStream.from_cache` consumer saw, so a post-hoc reader
+    that follows it reproduces the live batch sequence even when
+    scenario names do not sort lexically in plan order."""
+    try:
+        with open(manifest_path) as f:
+            m = json.load(f)
+    except (OSError, json.JSONDecodeError):
+        return None
+    names = [s.get("name") for g in m.get("groups", [])
+             for s in g.get("scenarios", [])]
+    return [n for n in names if n] or None
+
+
 _PROC_DIR = re.compile(r"^p\d{2,}$")
 
 
@@ -346,7 +366,8 @@ def load_shards(directory: str) -> tuple[np.ndarray, np.ndarray]:
     ``pNN/`` trees, committed scenario caches) in its deterministic order,
     validated against each index manifest.  This materializes the whole
     dataset in host memory — training-sized runs should prefer
-    :func:`iter_shards`."""
+    :func:`iter_shards` / :class:`ShardStream` (what
+    :func:`repro_torch.surrogate.train.fit_shards` streams through)."""
     paths = shard_paths(directory)
     xs, ys = zip(*(_load_shard(p) for p in paths))
     x, y = np.concatenate(xs), np.concatenate(ys)
@@ -361,3 +382,96 @@ def load_shards(directory: str) -> tuple[np.ndarray, np.ndarray]:
                 f"regenerate with save_shards"
             )
     return x, y
+
+
+# ---------------------------------------------------------------------------
+# streaming shard cache: train while the campaign is still producing
+# ---------------------------------------------------------------------------
+
+
+class ShardStream:
+    """Deterministic, lazily-materialized stream of dataset shards.
+
+    Iterating yields ``(x, y)`` per shard, loading one shard at a time.
+    The *order* is fixed up front — by directory layout
+    (:meth:`from_dir`) or by the caller's scenario order
+    (:meth:`from_cache`) — so the sequence a trainer sees is identical for
+    any (worker count, shard arrival) interleaving; a cache stream merely
+    *blocks* until the next scenario in order has committed.  After a shard
+    has been yielded its path is recorded, so ``stream[i]`` re-loads it
+    from disk later (the trainer's full-dataset phase) without the stream
+    ever holding more than one shard in memory itself.
+
+    ``wait_s`` accumulates the time spent blocked on uncommitted scenarios
+    — the overlap telemetry of train-while-generating.
+    """
+
+    def __init__(self, groups, *, poll_s: float = 0.2, timeout_s: float = 600.0):
+        # groups: [(label, dir_or_paths)] — a dir is resolved (and possibly
+        # waited on) at iteration time; a path list is used as-is
+        self._groups = list(groups)
+        self.poll_s = poll_s
+        self.timeout_s = timeout_s
+        self.paths: list[str] = []   # filled (in order) as iteration advances
+        self.wait_s = 0.0
+        self._exhausted = False
+
+    @classmethod
+    def from_dir(cls, directory: str) -> "ShardStream":
+        """Stream over an already-complete shard directory (any
+        :func:`shard_paths` layout); never blocks."""
+        return cls([(directory, shard_paths(directory))])
+
+    @classmethod
+    def from_cache(
+        cls,
+        directory: str,
+        order: Sequence[str],
+        *,
+        poll_s: float = 0.2,
+        timeout_s: float = 600.0,
+    ) -> "ShardStream":
+        """Stream over a cache that campaign workers are still filling.
+
+        ``order`` names the scenario subdirectories (``directory/<name>/``)
+        in the order the trainer must consume them — the plan's scenario
+        order, so every consumer sees the same sequence regardless of which
+        worker commits which scenario when.  Iteration blocks (polling
+        every ``poll_s``) until the next scenario in order is committed;
+        ``timeout_s`` without progress raises rather than hanging on a dead
+        sweep."""
+        return cls([(n, os.path.join(directory, n)) for n in order],
+                   poll_s=poll_s, timeout_s=timeout_s)
+
+    def _resolve(self, label, target) -> list[str]:
+        if isinstance(target, list):
+            return target
+        deadline = time.monotonic() + self.timeout_s
+        t0 = time.monotonic()
+        while not committed(target):
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"scenario {label!r} not committed under {target} after "
+                    f"{self.timeout_s:.0f}s — generation died or the order "
+                    f"names a scenario this sweep never produces"
+                )
+            time.sleep(self.poll_s)
+        self.wait_s += time.monotonic() - t0
+        return shard_paths(target)
+
+    def __iter__(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        if self._exhausted:  # re-iteration replays the recorded order
+            for p in self.paths:
+                yield _load_shard(p)
+            return
+        for label, target in self._groups:
+            for p in self._resolve(label, target):
+                self.paths.append(p)
+                yield _load_shard(p)
+        self._exhausted = True
+
+    def __getitem__(self, i: int) -> tuple[np.ndarray, np.ndarray]:
+        # valid for already-yielded shards only: the stream records paths
+        # as it advances, so the trainer's full-dataset phase can re-load
+        # any consumed shard from disk without the stream holding it
+        return _load_shard(self.paths[i])

@@ -25,6 +25,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
 # a library's attention, or a compiler, in place of the hand-written kernel
 LIBRARY_ATTENTION = re.compile(r"scaled_dot_product_attention|flash_attn|cudnn|torch\.compile|sdp_kernel")
+LIBRARY_LSTM = re.compile(r"nn\.LSTM\b|_VF\.lstm|torch\.lstm\b")
+CUDNN_CONV_FLAGS = "torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False)"
 
 
 def _port_files():
@@ -63,18 +65,27 @@ def _tiny_run():
 
 
 def test_no_port_file_calls_a_library_attention():
-    """SDPA, cuDNN and torch.compile are no port of the flash kernel; the
-    only place that may time SDPA (as ``library_ms``) is chip_smoke.py."""
+    """SDPA, cuDNN and torch.compile are no port of the flash kernel, and
+    cuDNN's LSTM is none of the surrogate's loop; the only place that may
+    time SDPA or ``nn.LSTM`` (as yardsticks) is chip_smoke.py.  The one
+    use of cuDNN in the port is the surrogate's convolutions (the
+    reference's XLA convolutions, no TPU kernel) held to full fp32 and
+    deterministic algorithms, by exactly this call."""
     for path in _port_files():
         if path.endswith("chip_smoke.py"):
             continue
         with open(path) as f:
             src = f.read()
+        if path.endswith(os.path.join("surrogate", "model.py")):
+            assert src.count(CUDNN_CONV_FLAGS) == 1, f"{path} no longer holds its convolutions to fp32"
+            src = src.replace(CUDNN_CONV_FLAGS, "")
         assert not LIBRARY_ATTENTION.search(src), f"{path} calls a library attention or compiler"
+        assert not LIBRARY_LSTM.search(src), f"{path} calls a library LSTM"
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         smoke = f.read()
     assert "torch.compile" not in smoke and "cudnn.allow_tf32" in smoke
     assert smoke.count("scaled_dot_product_attention") == 1  # the yardstick in phase timing
+    assert smoke.count("nn.LSTM(") == 1  # the yardstick of the LSTM loop in phase timing
 
 
 def _tiny_lm():
@@ -426,3 +437,42 @@ def test_one_process_topology_and_its_limits(monkeypatch):
     monkeypatch.setattr(sys, "argv", ["campaign", "--host-devices", "2"])
     with pytest.raises(NotImplementedError, match="one device"):
         bootstrap.force_host_devices()
+
+
+def test_surrogate_entry_points_raise_without_a_card(tmp_path):
+    """Training, prediction, loading and init default to the card and
+    raise without one, before reading any data; the CPU runs only when
+    asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from repro_torch.surrogate import dataset, model, seqmodel, train, trajectory
+
+    cfg, tcfg = model.SurrogateConfig(latent=8, n_lstm=1), seqmodel.TrajectoryConfig(latent=8, state=2)
+    x = np.zeros((4, 8, 3), np.float32)
+    d = str(tmp_path / "shards")
+    dataset.save_shards(d, x, x, shard_size=2)
+    params = model.init_params(cfg, torch.Generator(), device="cpu")
+    tparams = seqmodel.init_params(tcfg, torch.Generator(), device="cpu")
+    train.save_surrogate(str(tmp_path / "cnn"), cfg, params)
+    trajectory.save_trajectory(str(tmp_path / "traj"), tcfg, tparams)
+    calls = [
+        lambda: train.fit(cfg, x, x, steps=1),
+        lambda: train.fit_stream(cfg, dataset.ShardStream.from_dir(d), steps=1),
+        lambda: train.fit_shards(cfg, d, steps=1),
+        lambda: train.search(x, x, trials=1, steps=1),
+        lambda: trajectory.fit_trajectory(tcfg, x, x, steps=1),
+        lambda: trajectory.fit_trajectory_stream(tcfg, dataset.ShardStream.from_dir(d), steps=1),
+        lambda: trajectory.fit_trajectory_shards(tcfg, d, steps=1),
+        lambda: model.predict(params, cfg, x),
+        lambda: seqmodel.predict(tparams, tcfg, x),
+        lambda: model.init_params(cfg, torch.Generator()),
+        lambda: seqmodel.init_params(tcfg, torch.Generator()),
+        lambda: seqmodel.init_state(tcfg, 2),
+        lambda: train.load_surrogate(str(tmp_path / "cnn")),
+        lambda: trajectory.load_trajectory(str(tmp_path / "traj")),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert model.predict(params, cfg, x, device="cpu").shape == x.shape
+    assert train.load_surrogate(str(tmp_path / "cnn"), device="cpu")[0] == cfg
