@@ -86,16 +86,43 @@ Phases, each followed by a JSON line with its seconds:
                kernel, none of the fp32 one), then 32 greedy decode steps
                (no flash launch);
 15. lm_offload ``generate`` with the KV cache in pinned host memory (4 blocks
-               of 7 layers, prefetch) gives the resident tokens; the same
-               tokens stepped through both decode steps give bitwise equal
-               logits and caches;
-16. kset_main  Proposed 2 as 2SET at main's mesh and 150 springs: two cases,
+               of 7 layers, prefetch) gives the resident tokens, each
+               ``generate`` prefilling in one pass (28 bf16 flash launches,
+               none of the fp32 kernel); the same tokens stepped one at a
+               time through both decode steps give bitwise equal logits and
+               caches;
+16. serve_check  the serving tier small, card against the port on the CPU:
+               ``SurrogateEngine`` and ``TrajectoryEngine`` (two members each;
+               y within 1e-5·max|y|, score within 1e-5, equal signatures),
+               batched ≡ per-request bitwise, ``ShardedEngine`` ≡ its engine
+               with its signature, a repeat from the cache with no ``infer``;
+               ``DecodeEngine`` on reduced qwen3 (fp32: the fp32 flash kernel)
+               with the CPU's tokens, a single prompt padded to its bucket ≡
+               its batched row; ``launch.serve.main`` for all three engines,
+               the surrogate one with a repeat, feedback at threshold 0 and an
+               injected failure, its health counts and feedback records the
+               CPU run's;
+17. serve_main the servers at full width through ``MicroBatcher`` with a
+               ``ResultCache``: (a) the CNN+LSTM ensemble (surrogate_main's
+               trained member and a second from ``init_params``) through
+               ``save_surrogate`` → ``SurrogateEngine.from_checkpoint`` on 16
+               shard waves of 16,000 samples in batches of 8, then again from
+               the cache, then 8 sweep scenarios of 16,000 samples that the
+               ``FeedbackLog`` routes (threshold 0) and ``load_feedback``
+               reads back; (b) the trajectory surrogate alike; (c)
+               ``DecodeEngine`` over lm_main's qwen3-1.7b, 8 prompts of 4,096
+               tokens in buckets of 4, 32 new tokens: 28 bf16 flash launches a
+               batch (its prefill), a prompt alone ≡ its batched row,
+               offloaded KV ≡ resident tokens; then the serve CLI at full
+               width.  Per server: requests/s, infer ms a batch, wait ms, cache
+               hits, peak device bytes, tokens/s;
+18. kset_main  Proposed 2 as 2SET at main's mesh and 150 springs: two cases,
                θ of both resident on the card (2 × 7.08 GB), 4 steps of
                ``run_ensemble``, against each case alone in the same resident
                form (s/step, iterations, parts, peak device memory); one
                k-set multispring launch per step and one k-set EBE launch per
                matvec; lanes ≡ the single runs within 1e-6·max|v|;
-17. campaign_main  the campaign at full width through ``run_campaign(...,
+19. campaign_main  the campaign at full width through ``run_campaign(...,
                device=None)`` (kset_main's 2SET carry parked on the host):
                (a) Proposed 2, kset 2, M 3 (two rounds, the tail padded), 4
                steps, unguarded and guarded — per chunk s/step per case, peak
@@ -105,7 +132,7 @@ Phases, each followed by a JSON line with its seconds:
                is 14.16 GB), stopped after step 2 and resumed, bitwise (a)'s
                guarded round 0, with each checkpoint's bytes and seconds to
                copy, write, CRC and restore, and the free disk before;
-18. timing     each kernel at the shapes its main path gives it, against its
+20. timing     each kernel at the shapes its main path gives it, against its
                plain version, its bound and (flash) SDPA, with flash held in
                fp32 and bf16 there too and timed in both; a breakdown of one
                whole EBE matvec (kernel, slot-table scatter) in both dtypes,
@@ -705,7 +732,9 @@ def surrogate_main(root):
     ``fit_*_shards``, its peak device bytes, and the device's busy share
     over one more warm CNN step under ``torch.profiler`` (its raw kernel
     records: building its event tables takes a minute for ~350k kernels).
-    Returns the TPU kernels' launch counts over the path (none is on it)."""
+    Requires that no TPU kernel launched on the path; returns the trained
+    models, on the host, with the shard directory (phase ``serve_main``
+    serves them)."""
     import shutil
 
     import numpy as np
@@ -715,7 +744,7 @@ def surrogate_main(root):
     from torch.autograd import DeviceType
 
     from repro_torch import kernels
-    from repro_torch.core.stream import tree_leaves
+    from repro_torch.core.stream import tree_leaves, tree_map
     from repro_torch.surrogate import dataset, model, seqmodel, train, trajectory
 
     dev = torch.device("cuda")
@@ -727,6 +756,7 @@ def surrogate_main(root):
     y = fir_response(x, SURROGATE_DATA["fir_taps"], seed=1)
     shards = os.path.join(root, "shards")
     dataset.save_shards(shards, x, y, shard_size=SURROGATE_DATA["shard_size"])
+    trained = {"shards": shards}
     out = {"data": {**SURROGATE_DATA, "shards": dataset.shard_meta(shards)["shards"],
                     "seconds": time.perf_counter() - t0}}
 
@@ -801,12 +831,13 @@ def surrogate_main(root):
                                   "bitwise": bool(torch.equal(streamed, full))}
             require(err <= 1e-5 * top, f"step ≠ apply(scan='seq') over 512 samples: {err} (max|y| {top})")
         out[name] = row
+        trained[name] = (cfg, tree_map(lambda t: t.cpu(), params), info["scale"])  # phase serve_main serves them
         del params
     launches = kernels.launch_counts()
     out["tpu_kernel_launches"] = launches
     emit({"surrogate_main": out})
     require(sum(launches.values()) == 0, f"a TPU kernel ran on the surrogate path: {launches}")
-    return launches
+    return trained
 
 
 def surrogate_timing(cuda_ms):
@@ -880,6 +911,360 @@ def surrogate_timing(cuda_ms):
         require(scan_err <= 1e-5, f"ssm_scan ≠ ssm_scan_ref at T {T}: {scan_err}")
         del a, b, h, h_ref
     return rows
+
+
+# serve_check: the small surrogate ensembles (two members each) and reduced qwen3 (fp32)
+SERVE_CHECK = dict(surrogate=dict(n_c=2, n_lstm=1, latent=8), trajectory=dict(latent=8, state=4, n_layers=1,
+                                                                               obs_every=2), nt=64)
+# the serve CLI's surrogate rehearsal: four 4-case scenarios, two a batch (flush on full,
+# whatever the timing), the second batch's infer failing once (split-retry), a repeat
+SERVE_SWEEP = json.dumps({"base": {"n_cases": 4, "nt": 64},
+                          "axes": {"wave.family": ["ricker", "chirp", "band_noise", "pulse_train"]}})
+SERVE_CLI_SURROGATE = ["--sweep", SERVE_SWEEP, "--max-batch", "8", "--max-wait-ms", "2000", "--repeat", "2",
+                       "--feedback-threshold", "0", "--inject", "fail_infer_every_n=2,limit=1",
+                       "--breaker-threshold", "2"]
+SERVE_CLI_DECODE = ["--engine", "decode", "--arch", "qwen3-1.7b", "--reduced", "--batch", "4", "--prompt-len", "16",
+                    "--new", "8", "--max-batch", "4", "--repeat", "2"]
+HEALTH_KEYS = ("batches", "cache_hits", "engine_failures", "split_retries", "poison_requests", "nonfinite_outputs",
+               "deadline_expired", "breaker_trips", "breaker_rejected", "breaker_state")
+# serve_main: 16 requests of one shard wave each through max_batch 8 (two batches), then
+# the same 16 again (the cache's), then one batch of 8 one-case scenarios at the waves'
+# 16,000 samples, each request carrying its scenario for the feedback log; decode: 8
+# prompts of 4,096 tokens in buckets of 4, 32 new tokens; the serve CLI at qwen3-1.7b's
+# full width on a shorter prompt
+SERVE_MAIN = dict(requests=16, max_batch=8, decode_requests=8, decode_bucket=4, prompt=4096, new_tokens=32,
+                  kv_npart=4)
+SERVE_MAIN_SWEEP = json.dumps({"base": {"n_cases": 1, "nt": 16000},
+                               "axes": {"wave.family": ["ricker", "chirp", "band_noise", "pulse_train"],
+                                        "seed": [0, 1]}})
+SERVE_CLI_FULL = ["--engine", "decode", "--arch", "qwen3-1.7b", "--full", "--batch", "4", "--prompt-len", "512",
+                  "--new", "8", "--max-batch", "4", "--repeat", "2"]
+
+
+def _serve_cli(argv, result):
+    """``launch.serve.main(argv)`` in-process, its output captured: the
+    ``[serve]`` report lines it printed."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve as serve_cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_cli.main(argv, result)
+    require(rc == 0, f"serve CLI {argv} exited {rc}: {buf.getvalue()}")
+    return [ln for ln in buf.getvalue().splitlines() if ln.startswith("[serve]")]
+
+
+def _feedback_records(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def serve_check(root, dev):
+    """The serving tier small, on the card against the port on the CPU: the
+    surrogate and trajectory engines (two members each: y within
+    1e-5·max|y|, score within 1e-5, equal signatures), batched ≡
+    per-request bitwise, ``ShardedEngine`` ≡ its engine bitwise with its
+    signature, a repeat served from the cache with no ``infer``;
+    ``DecodeEngine`` on reduced qwen3 (fp32: the fp32 flash kernel) with the
+    CPU's tokens, a single prompt padded to the bucket giving its batched
+    row; and ``launch.serve.main`` for all three engines, the surrogate one
+    with a repeat, feedback at threshold 0 and an injected failure whose
+    split-retry and breaker counts and feedback records are the CPU run's.
+    Returns the phase's flash launches by kernel."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import (DecodeEngine, MicroBatcher, ResultCache, ShardedEngine, SurrogateEngine,
+                                     TrajectoryEngine)
+    from repro_torch.surrogate import model, seqmodel, train, trajectory
+
+    cpu = torch.device("cpu")
+    shutil.rmtree(root, ignore_errors=True)
+    kernels.reset_launch_counts()  # counts of this phase's paths: the fp32 flash kernel's
+    rows = {}
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((5, SERVE_CHECK["nt"], 3)).astype(np.float32)
+    ckpts = {}
+    for name, mod, cfg, cls, save in (
+            ("surrogate", model, model.SurrogateConfig(**SERVE_CHECK["surrogate"]), SurrogateEngine,
+             train.save_surrogate),
+            ("trajectory", seqmodel, seqmodel.TrajectoryConfig(**SERVE_CHECK["trajectory"]), TrajectoryEngine,
+             trajectory.save_trajectory)):
+        members = [mod.init_params(cfg, torch.Generator().manual_seed(s), device=cpu) for s in (0, 1)]
+        ckpts[name] = os.path.join(root, f"ckpt_{name}")
+        save(ckpts[name], cfg, members, scale=2.0, step=3)
+        card = cls.from_checkpoint(ckpts[name], buckets=(8,), nt=SERVE_CHECK["nt"], device=dev)
+        host = cls(cfg, members, scale=2.0, buckets=(8,), nt=SERVE_CHECK["nt"], device=cpu)
+        got, want = card.infer(x), host.infer(x)
+        y_err = float(np.abs(got.y - want.y).max() / np.abs(want.y).max())
+        s_err = float(np.abs(got.score - want.score).max())
+        solos = [card.infer(x[i:i + 1]) for i in range(len(x))]
+        solo_same = all(np.array_equal(r.y[0], got.y[i]) and r.score[0] == got.score[i] for i, r in enumerate(solos))
+        sharded = ShardedEngine(card)
+        sh = sharded.infer(x)
+        sharded_same = (np.array_equal(sh.y, got.y) and np.array_equal(sh.score, got.score)
+                        and sharded.signature() == card.signature())
+        with MicroBatcher(card, max_batch=8, max_wait_ms=2.0, cache=ResultCache(8)) as mb:
+            r1 = mb.submit("k", x[:1]).result(timeout=60)
+            r2 = mb.submit("k", x[:1]).result(timeout=60)
+            infers = mb.stats()["batches"]
+        cached = r2.cached and infers == 1 and np.array_equal(r1.y, r2.y)
+        rows[name] = {"max_rel_err_y": y_err, "max_abs_err_score": s_err, "tol": 1e-5,
+                      "signature_equal": card.signature() == host.signature(),
+                      "batched_vs_per_request_bitwise": solo_same, "sharded_bitwise_same_signature": sharded_same,
+                      "repeat_from_cache_without_infer": cached, "y_host_numpy": isinstance(got.y, np.ndarray)}
+        require(y_err <= 1e-5 and s_err <= 1e-5, f"{name} engine: card ≠ CPU: {rows[name]}")
+        require(rows[name]["signature_equal"], f"{name} engine: card and CPU signatures differ")
+        require(solo_same and sharded_same and cached and rows[name]["y_host_numpy"], f"{name}: {rows[name]}")
+
+    # DecodeEngine on reduced qwen3 (fp32), card against CPU
+    cfg = ARCHS["qwen3-1.7b"].reduced()
+    p_cpu = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompts = rng.integers(0, cfg.vocab_size, (3, 8)).astype(np.int32)
+    kw = dict(n_new=6, prompt_len=8, buckets=(4,))
+    card, host = DecodeEngine(cfg, p_cpu, device=dev, **kw), DecodeEngine(cfg, p_cpu, device=cpu, **kw)
+    before = kernels.instance_counts()
+    got = card.infer(prompts)
+    one = {n: c - before[n] for n, c in kernels.instance_counts().items()}
+    solo = card.infer(prompts[:1])
+    rows["decode"] = {"arch": cfg.name, "dtype": cfg.dtype, "tokens_equal_cpu": bool(np.array_equal(
+                          got.y, host.infer(prompts).y)),
+                      "solo_padded_equals_batched_row": bool(np.array_equal(solo.y[0], got.y[0])),
+                      "signature_equal": card.signature() == host.signature(), "flash_launches_one_batch": one}
+    require(rows["decode"]["tokens_equal_cpu"], "DecodeEngine's tokens on the card differ from the CPU's")
+    require(rows["decode"]["solo_padded_equals_batched_row"], "a padded single prompt ≠ its batched row")
+    require(one == {"flash_attention_bf16": 0, "flash_attention_f32": cfg.n_layers},
+            f"a reduced fp32 decode batch made flash launches {one}")
+    del card, host
+
+    # the serve CLI in-process, all three engines; the surrogate one also on the CPU
+    cli = {}
+    for where, device_flag in (("card", []), ("cpu", ["--device", "cpu"])):
+        res = {}
+        fb = os.path.join(root, f"feedback_{where}.jsonl")
+        lines = _serve_cli([*device_flag, "--engine", "surrogate", "--ckpt", ckpts["surrogate"], *SERVE_CLI_SURROGATE,
+                            "--feedback-out", fb], res)
+        cli[where] = {"stats": {k: res["stats"][k] for k in HEALTH_KEYS}, "records": _feedback_records(fb),
+                      "plan": res.get("feedback_plan"), "lines": lines,
+                      "failed": [name for _, name, r in res["served"] if r is None]}
+    a, b = cli["card"], cli["cpu"]
+    same_records = [{k: r[k] for k in ("signature", "key", "scenario")} for r in a["records"]] == \
+        [{k: r[k] for k in ("signature", "key", "scenario")} for r in b["records"]]
+    score_err = max(abs(r["score"] - q["score"]) for r, q in zip(a["records"], b["records"]))
+    rows["cli_surrogate"] = {"card": a["stats"], "cpu": b["stats"], "feedback_records": len(a["records"]),
+                             "records_equal_cpu": same_records, "max_score_diff": score_err,
+                             "plan_scenarios": a["plan"].n_scenarios if a["plan"] else 0, "report": a["lines"]}
+    require(a["stats"] == b["stats"], f"serve CLI health counts card {a['stats']} ≠ CPU {b['stats']}")
+    require(a["stats"]["split_retries"] == 1 and a["stats"]["engine_failures"] == 1 and not a["failed"],
+            f"the injected failure was not isolated by a split-retry: {a['stats']}, failed {a['failed']}")
+    require(a["stats"]["cache_hits"] == 4, f"round 2 was not all cache hits: {a['stats']}")
+    require(same_records and score_err <= 1e-5 and len(a["records"]) == 4, "feedback records card ≠ CPU")
+    require(rows["cli_surrogate"]["plan_scenarios"] == 4 and any("feedback plan" in ln for ln in a["lines"]),
+            "the feedback plan was not printed")
+    res = {}
+    lines = _serve_cli(["--engine", "trajectory", "--ckpt", ckpts["trajectory"], "--repeat", "2"], res)
+    rows["cli_trajectory"] = {"stats": {k: res["stats"][k] for k in HEALTH_KEYS}, "report": lines}
+    require(res["stats"]["cache_hits"] == 1 and res["stats"]["batches"] == 1, f"trajectory CLI: {res['stats']}")
+    res = {}
+    before = kernels.instance_counts()
+    lines = _serve_cli(SERVE_CLI_DECODE, res)
+    cli_launches = {n: c - before[n] for n, c in kernels.instance_counts().items()}
+    rows["cli_decode"] = {"stats": {k: res["stats"][k] for k in HEALTH_KEYS}, "report": lines,
+                          "flash_launches": cli_launches}
+    require(res["stats"]["cache_hits"] == 4 and cli_launches["flash_attention_f32"] == 2 * cfg.n_layers,
+            f"decode CLI: {res['stats']}, launches {cli_launches}")  # warm-up + one batch
+    require(res["tokens"].shape == (4, 8), f"decode CLI tokens {res['tokens'].shape}")
+    launches = kernels.instance_counts()
+    rows["flash_launches"] = launches
+    emit({"serve_check": rows})
+    require(launches["flash_attention_bf16"] == 0, f"serve_check launched the bf16 flash kernel: {launches}")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def _serve_round(batcher, requests):
+    """Submit every ``(key, x)`` or ``(key, x, meta)`` and wait for all: each
+    future must resolve.  Returns the results and the round's seconds."""
+    t0 = time.perf_counter()
+    futs = [batcher.submit(*req) for req in requests]
+    out = [f.result() for f in futs]
+    return out, time.perf_counter() - t0
+
+
+def serve_main(root, dev, trained, lm_params, qwen):
+    """The serving tier at full width on the card, through ``MicroBatcher``:
+    (a) the CNN+LSTM ensemble (surrogate_main's trained member and a second
+    from ``init_params``) saved with ``save_surrogate`` and served by
+    ``SurrogateEngine.from_checkpoint(buckets=(8,), nt=16,000)`` on 16 shard
+    waves, then again from the cache, then 8 sweep scenarios at 16,000
+    samples whose requests carry their scenarios, all routed by the
+    ``FeedbackLog`` (threshold 0) and read back by ``load_feedback`` and
+    ``feedback_plan``; (b) the trajectory surrogate the same way; (c)
+    ``DecodeEngine`` over lm_main's qwen3-1.7b (28 layers, bf16 compute),
+    8 prompts of 4,096 tokens in buckets of 4, 32 new tokens: exactly 28
+    bf16 flash launches a batch (its prefill), none of the fp32 kernel, a
+    single prompt ≡ its batched row, offloaded KV ≡ resident tokens; then
+    the serve CLI at full width.  Per server: requests/s and
+    rows/s, infer ms per batch (first, warm), the batcher's wait ms, cache
+    hits, peak device bytes above what was resident; tokens/s for decode.
+    Returns the bf16 flash launches of the path."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.scenario import planner
+    from repro_torch.serving import DecodeEngine, FeedbackLog, MicroBatcher, ResultCache, ServeConfig
+    from repro_torch.serving import SurrogateEngine, TrajectoryEngine, feedback_plan, load_feedback
+    from repro_torch.surrogate import dataset, model, seqmodel, train, trajectory
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    n_req, max_batch = SERVE_MAIN["requests"], SERVE_MAIN["max_batch"]
+    waves = dataset.load_shards(trained["shards"])[0][:n_req]
+    scenarios = planner.expand(planner.sweep_from_json(SERVE_MAIN_SWEEP))
+    routed_requests = [(s.signature(), s.waves().astype(np.float32), s) for s in scenarios]
+    require(len(scenarios) == max_batch and all(x.shape == (1, *waves.shape[1:]) for _, x, _ in routed_requests),
+            f"the sweep's {len(scenarios)} scenarios are not one batch of shard-shaped waves")
+    out = {}
+    for name, mod, cls, save in (("surrogate", model, SurrogateEngine, train.save_surrogate),
+                                 ("trajectory", seqmodel, TrajectoryEngine, trajectory.save_trajectory)):
+        cfg, params, scale = trained["cnn" if name == "surrogate" else "trajectory"]
+        second = mod.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+        ckpt = os.path.join(root, f"ckpt_{name}")
+        t0 = time.perf_counter()
+        save(ckpt, cfg, [params, second], scale=scale, step=SURROGATE_FIT["steps"])
+        save_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine = cls.from_checkpoint(ckpt, buckets=(max_batch,), nt=waves.shape[1])
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sig = engine.signature()
+        sig_s = time.perf_counter() - t0
+        cache, log = ResultCache(64), os.path.join(root, f"feedback_{name}.jsonl")
+        feedback = FeedbackLog(log, threshold=0.0)
+        requests = [(f"wave{i}", waves[i:i + 1]) for i in range(n_req)]
+        with MicroBatcher(engine, max_batch=max_batch, max_wait_ms=1000.0, cache=cache, feedback=feedback) as mb:
+            first, first_s = _serve_round(mb, requests)
+            computed = mb.stats()["batches"]
+            again, again_s = _serve_round(mb, requests)
+            st = mb.stats()
+            routed, routed_s = _serve_round(mb, routed_requests)
+            routed_batches = mb.stats()["batches"] - st["batches"]
+        peak = torch.cuda.max_memory_allocated() - resident
+        infer_ms = [first[i].infer_ms for i in range(0, n_req, max_batch)]  # one request of each batch
+        logged = load_feedback(log)
+        plan = feedback_plan(log)
+        solo = {i: engine.infer(waves[i:i + 1]) for i in (0, n_req - 1)}  # one row of each batch, alone
+        bitwise = all(np.array_equal(solo[i].y[0], first[i].y[0]) and solo[i].score[0] == first[i].score
+                      for i in solo)
+        ys = np.concatenate([r.y for r in first])
+        out[name] = {"config": dataclasses.asdict(cfg), "members": len(engine.members), "signature": sig,
+                     "signature_s": sig_s, "save_s": save_s, "load_s": load_s, "requests": n_req, "nt": waves.shape[1],
+                     "output_shape": list(ys.shape), "requests_per_s": n_req / first_s, "rows_per_s": n_req / first_s,
+                     "infer_ms": {"first": infer_ms[0], "warm": infer_ms[1:]},
+                     "wait_ms": {"mean": st["wait_ms_mean"], "max": st["wait_ms_max"]},
+                     "cache_round": {"seconds": again_s, "hits": st["cache_hits"], "infers": st["batches"] - computed},
+                     "batches": st["batches"], "flush_full": st["flush_full"], "peak_device_bytes": peak,
+                     "score": [float(min(r.score for r in first)), float(max(r.score for r in first))],
+                     "feedback_round": {"scenarios": len(scenarios), "seconds": routed_s, "batches": routed_batches,
+                                        "infer_ms": routed[0].infer_ms, **feedback.stats(),
+                                        "plan_scenarios": plan.n_scenarios, "plan_groups": len(plan.groups)},
+                     "batched_vs_alone_bitwise": bitwise}
+        require(computed == n_req // max_batch and st["flush_full"] == computed, f"{name}: {st}")
+        require(st["cache_hits"] == n_req and all(r.cached for r in again) and st["batches"] == computed,
+                f"{name}: the second round was not all cache hits: {st}")
+        require(routed_batches == 1 and not any(r.cached for r in routed)
+                and feedback.stats()["observed"] == n_req + len(scenarios)
+                and feedback.stats()["routed"] == len(scenarios),
+                f"{name}: the sweep round was not one batch of routed scenarios: {out[name]['feedback_round']}")
+        require([s.signature() for s in logged] == [s.signature() for s in scenarios]
+                and plan.n_scenarios == len(scenarios), f"{name}: the feedback log does not read back its scenarios")
+        require(bool(np.isfinite(ys).all()) and all(r.score > 0 for r in first), f"{name}: non-finite or score 0")
+        require(bitwise, f"{name}: a row alone ≠ its batched row")
+        del engine, solo
+    emit({"serve_main_surrogates": out})
+
+    # (c) the decode server over lm_main's parameters
+    B, S0, NEW = SERVE_MAIN["decode_bucket"], SERVE_MAIN["prompt"], SERVE_MAIN["new_tokens"]
+    n_dec = SERVE_MAIN["decode_requests"]
+    prompts = torch.randint(0, qwen.vocab_size, (n_dec, S0), generator=torch.Generator().manual_seed(5)).numpy()
+    engine = DecodeEngine(qwen, lm_params, n_new=NEW, prompt_len=S0, buckets=(B,))
+    t0 = time.perf_counter()
+    sig = engine.signature()
+    sig_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()  # counts of the decode server's run only
+    with MicroBatcher(engine, max_batch=B, max_wait_ms=1000.0, cache=ResultCache(64)) as mb:
+        first, first_s = _serve_round(mb, [(f"prompt{i}", prompts[i:i + 1]) for i in range(n_dec)])
+        again, _ = _serve_round(mb, [(f"prompt{i}", prompts[i:i + 1]) for i in range(n_dec)])
+        st = mb.stats()
+    served_launches = kernels.instance_counts()
+    peak = torch.cuda.max_memory_allocated() - resident
+    toks = np.concatenate([r.y for r in first])
+    solo = engine.infer(prompts[n_dec - 1:])  # the last prompt alone, padded to the bucket
+    kernels.reset_launch_counts()
+    off = DecodeEngine(qwen, lm_params, n_new=NEW, prompt_len=S0, buckets=(B,), kv_schedule="prefetch",
+                       serve=ServeConfig(kv_offload=True, kv_npart=SERVE_MAIN["kv_npart"]))
+    t0 = time.perf_counter()
+    off_toks = off.infer(prompts[:B]).y
+    off_s = time.perf_counter() - t0
+    off_launches = kernels.instance_counts()
+    batches = st["batches"]
+    infer_ms = [first[i].infer_ms for i in range(0, n_dec, B)]  # one request of each batch
+    out = {"arch": qwen.name, "layers": qwen.n_layers, "dtype": qwen.dtype, "signature": sig, "signature_s": sig_s,
+           "requests": n_dec, "bucket": B, "prompt": S0, "new_tokens": NEW, "requests_per_s": n_dec / first_s,
+           "rows_per_s": n_dec / first_s, "tokens_per_s": n_dec * NEW / first_s,
+           "infer_ms": {"first": infer_ms[0], "warm": infer_ms[1:]},
+           "wait_ms": {"mean": st["wait_ms_mean"], "max": st["wait_ms_max"]}, "cache_hits": st["cache_hits"],
+           "batches": st["batches"], "peak_device_bytes": peak, "flash_launches": served_launches,
+           "solo_equals_batched_row": bool(np.array_equal(solo.y[0], toks[-1])),
+           "offloaded": {"kv_npart": SERVE_MAIN["kv_npart"], "schedule": "prefetch", "seconds": off_s,
+                         "tokens_equal_resident": bool(np.array_equal(off_toks, toks[:B])),
+                         "flash_launches": off_launches},
+           "tokens_row0": toks[0, :8].tolist()}
+    require(batches == n_dec // B and st["cache_hits"] == n_dec and all(r.cached for r in again),
+            f"decode server: {st}, {batches} infers")
+    require(served_launches == {"flash_attention_bf16": qwen.n_layers * batches, "flash_attention_f32": 0},
+            f"decode server's flash launches {served_launches}, not {qwen.n_layers} of the bf16 kernel a batch")
+    require(off_launches == {"flash_attention_bf16": qwen.n_layers, "flash_attention_f32": 0},
+            f"offloaded decode's flash launches {off_launches}")
+    require(toks.shape == (n_dec, NEW) and out["solo_equals_batched_row"], "decode: a prompt alone ≠ its row")
+    require(out["offloaded"]["tokens_equal_resident"], "offloaded KV's tokens differ from the resident engine's")
+    del engine, off
+
+    # the serve CLI at qwen3-1.7b's full width (its own parameters)
+    torch.cuda.empty_cache()
+    res = {}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    lines = _serve_cli(SERVE_CLI_FULL, res)
+    cli_launches = kernels.instance_counts()
+    out["cli_full"] = {"argv": SERVE_CLI_FULL, "seconds": time.perf_counter() - t0, "report": lines,
+                       "flash_launches": cli_launches}
+    require(cli_launches == {"flash_attention_bf16": 2 * qwen.n_layers, "flash_attention_f32": 0},
+            f"the full-width decode CLI's flash launches {cli_launches}")  # warm-up + one batch
+    require(res["stats"]["cache_hits"] == 4 and bool(np.isfinite(res["tokens"]).all()), f"CLI: {res['stats']}")
+    emit({"serve_main_decode": out})
+    shutil.rmtree(root, ignore_errors=True)
+    return {"serve_main_decode": served_launches["flash_attention_bf16"],
+            "serve_main_offloaded": off_launches["flash_attention_bf16"],
+            "serve_main_cli": cli_launches["flash_attention_bf16"]}
 
 
 def main() -> int:
@@ -1229,7 +1614,7 @@ def main() -> int:
         surrogate_check(os.path.join(ROOT, "build", "surrogate_check"))
 
     with Phase("surrogate_main"):
-        surrogate_main(os.path.join(ROOT, "build", "surrogate_main"))
+        trained = surrogate_main(os.path.join(ROOT, "build", "surrogate_main"))
         torch.cuda.empty_cache()
 
     with Phase("main"):
@@ -1429,17 +1814,22 @@ def main() -> int:
         prompt = torch.randint(0, qwen.vocab_size, (B, S0), device=dev,
                                generator=torch.Generator(device=dev).manual_seed(2))
         torch.cuda.synchronize()
+        kernels.reset_launch_counts()  # counts of the two generates: each prefills through the flash kernel
         t0 = time.perf_counter()
         res_tok = serve.generate(params, qwen, prompt, NEW)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        res_launches = kernels.instance_counts()
         off_tok = serve.generate(params, qwen, prompt, NEW, serve.ServeConfig(kv_offload=True, kv_npart=npart),
                                  kv_schedule="prefetch")
         torch.cuda.synchronize()
         res_s, off_s = t1 - t0, time.perf_counter() - t1
-        # the generated tokens stepped through both decode steps, as generate
-        # steps them: every step's logits, the last one's included, and the
-        # final caches bitwise equal
+        off_launches = {n: c - res_launches[n] for n, c in kernels.instance_counts().items()}
+        offload_launches = kernels.instance_counts()
+        # the generated tokens stepped one at a time through both decode
+        # steps (generate prefills the prompt in one pass; this holds the two
+        # decode steps to each other over every position): every step's
+        # logits, the last one's included, and the final caches bitwise equal
         C = S0 + NEW
         state = T.init_decode_state(qwen, B, C, dtype=L.dt(qwen), device=dev)
         ostate, kv = {"pos": 0}, serve.make_kv_blocks(qwen, B, C, npart, dtype=L.dt(qwen), device=dev)
@@ -1456,13 +1846,26 @@ def main() -> int:
               "layers_per_block": qwen.n_layers // npart, "schedule": "prefetch",
               "tokens_equal": torch.equal(off_tok, res_tok), "steps_with_bitwise_logits": steps_equal,
               "steps": C, "kv_bitwise": kv_equal, "kv_blocks_pinned_host": pinned,
-              "resident_generate_s": res_s, "offloaded_generate_s": off_s})
+              "resident_generate_s": res_s, "offloaded_generate_s": off_s,
+              "flash_launches": {"resident_generate": res_launches, "offloaded_generate": off_launches}})
+        one_prefill = {"flash_attention_bf16": qwen.n_layers, "flash_attention_f32": 0}
+        require(res_launches == one_prefill and off_launches == one_prefill,
+                f"generate's flash launches resident {res_launches}, offloaded {off_launches}: not one prefill's")
         require(tuple(off_tok.shape) == (B, S0 + NEW), "generate returned the wrong shape")
         require(torch.equal(off_tok, res_tok), "offloaded generate's tokens differ from resident")
         require(steps_equal == C, f"offloaded logits differ from resident at {C - steps_equal} of {C} steps")
         require(kv_equal, "offloaded KV cache differs from resident")
         require(pinned, "KV blocks are not pinned host tensors")
         del state, ostate, kv, lg, olg
+
+    with Phase("serve_check"):
+        serve_check_launches = serve_check(os.path.join(ROOT, "build", "serve_check"), dev)
+
+    with Phase("serve_main"):
+        # lm_main's qwen3-1.7b parameters serve the decode server
+        serve_launches = serve_main(os.path.join(ROOT, "build", "serve_main"), dev, trained, params, qwen)
+        del trained
+        torch.cuda.empty_cache()
 
     with Phase("kset_main"):
         # the paper's Proposed 2 as 2SET: two cases, θ of both resident on the
@@ -1737,14 +2140,19 @@ def main() -> int:
         b32, by32 = bound(nbytes(*args, out32), flops, torch.float32)
         rows.append({"name": "flash_attention_f32", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
                      "replaces": "src/repro/kernels/flash_attention/flash_attention.py:83",
-                     "launches": cpu_path_launches["flash_attention_f32"], "max_abs_err": err32,
+                     "launches": cpu_path_launches["flash_attention_f32"] + serve_check_launches["flash_attention_f32"],
+                     "max_abs_err": err32,
                      "ms": cuda_ms(lambda: fa_ops.flash_attention_cuda(*args), 3),
                      "plain_ms": cuda_ms(lambda: fa_ops.flash_attention_ref(*args), 1),
                      "bound_ms": b32, "bound_by": by32,
                      "library_ms": cuda_ms(lambda: sdpa(*args, is_causal=True, enable_gqa=True), 3),
                      "detail": {"B": Bf, "Hq": Hq, "Hkv": Hkv, "S": S, "dh": dh, "dtype": "torch.float32",
                                 "causal": True, "v_strided": True, "tol": FLASH_TOL["torch.float32"],
-                                "launches_from": "lm_cpu (fp32 prefill + forward on the card)"}})
+                                "launches_by_path": {
+                                    "lm_cpu (fp32 prefill + forward on the card)": cpu_path_launches[
+                                        "flash_attention_f32"],
+                                    "serve_check (reduced qwen3 DecodeEngine and serve CLI, fp32)":
+                                        serve_check_launches["flash_attention_f32"]}}})
         q, k, v = q.bfloat16(), k.bfloat16(), v_bshd.bfloat16().transpose(1, 2)
         del args, v_bshd, out32
         out_k, out_p = fa_ops.flash_attention_cuda(q, k, v), fa_ops.flash_attention_ref(q, k, v)
@@ -1765,14 +2173,19 @@ def main() -> int:
         rows.append({"name": "flash_attention_bf16", "route": "cuda",
                      "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
                      "replaces": "src/repro/kernels/flash_attention/flash_attention.py:83",
-                     "launches": prefill_by_kernel["flash_attention_bf16"], "max_abs_err": err,
+                     "launches": (prefill_by_kernel["flash_attention_bf16"] + offload_launches["flash_attention_bf16"]
+                                  + sum(serve_launches.values())),
+                     "max_abs_err": err,
                      "ms": fa_ms, "plain_ms": cuda_ms(lambda: fa_ops.flash_attention_ref(q, k, v), 2),
                      "bound_ms": b_fa, "bound_by": by,
                      "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 20),
                      "detail": {"B": Bf, "Hq": Hq, "Hkv": Hkv, "S": S, "dh": dh, "dtype": "torch.bfloat16",
                                 "causal": True, "v_strided": True, "bf16_err_over_limit": ratio,
                                 "bf16_limit": "2 ulp(|o|) + 2^-5 rms(o row)", "sdpa_max_abs_err": lib_err,
-                                "sdpa_err_over_limit": lib_ratio, "tflop_per_s": flops / (fa_ms / 1e3) / 1e12}})
+                                "sdpa_err_over_limit": lib_ratio, "tflop_per_s": flops / (fa_ms / 1e3) / 1e12,
+                                "launches_by_path": {"lm_main": prefill_by_kernel["flash_attention_bf16"],
+                                                     "lm_offload": offload_launches["flash_attention_bf16"],
+                                                     **serve_launches}}})
         del q, k, v, out_k, out_p
         # breakdown of one prefill at lm_main's shape (CUDA events)
         x = torch.randn((4, S, qwen.d_model), device=dev, generator=g).to(torch.bfloat16)

@@ -191,13 +191,15 @@ def _pack_kv(k: torch.Tensor, C: int) -> torch.Tensor:
 
 
 @torch.no_grad()
-def prefill(params, cfg: ModelConfig, batch: dict, cache_len: int):
+def prefill(params, cfg: ModelConfig, batch: dict, cache_len: int, *, out: dict | None = None):
     """Run the prompt, return (last-token logits [B,1,V], decode state).
 
     Attention goes through the flash kernel once per layer.  The state is
     layout-identical to :func:`init_decode_state` (ring-packed caches in the
     activation dtype, written layer by layer into preallocated tensors), so
-    ``decode_step`` continues from it.
+    ``decode_step`` continues from it.  ``out`` (``{"k", "v"}``, each
+    indexable by layer, e.g. the host KV blocks of offloaded serving) takes
+    the caches in place of new device tensors, one layer at a time.
     """
     check_supported(cfg)
     x = _embed(params, cfg, batch["tokens"])
@@ -205,10 +207,10 @@ def prefill(params, cfg: ModelConfig, batch: dict, cache_len: int):
     positions = torch.arange(S, device=x.device)
     n = n_stacked(params["layers"])
     C = cache_capacity(cfg, cache_len)
-    caches = _kv_cache(cfg, (n,), B, C, x.dtype, x.device)
+    caches = out if out is not None else _kv_cache(cfg, (n,), B, C, x.dtype, x.device)
     for i in range(n):
         x, (k, v) = _apply_attn_block(layer(params["layers"], i), x, cfg, positions=positions,
                                       window=cfg.window, return_kv=True)
-        caches["k"][i] = _pack_kv(k, C)
-        caches["v"][i] = _pack_kv(v, C)
+        caches["k"][i].copy_(_pack_kv(k, C))
+        caches["v"][i].copy_(_pack_kv(v, C))
     return _unembed(params, cfg, x[:, -1:, :]), {"pos": S, "layers": caches}

@@ -1,6 +1,9 @@
-"""Scenario catalog of the port: wave families, soil profiles and
-observation grids as data (:mod:`repro_torch.scenario.catalog`).  The
-planner, autotuner and scheduler of the JAX package are not ported yet."""
+"""Scenario subsystem of the port: the catalog (wave families, soil
+profiles and observation grids as data, :mod:`repro_torch.scenario.catalog`)
+and the planner's declarative half (sweep expansion, compile-key grouping,
+plan manifests, :mod:`repro_torch.scenario.planner`).  The planner's
+campaign execution, the autotuner and the scheduler of the JAX package are
+not ported yet."""
 from repro_torch.scenario.catalog import (  # noqa: F401
     CATALOG,
     WAVE_FAMILIES,
@@ -10,4 +13,14 @@ from repro_torch.scenario.catalog import (  # noqa: F401
     WaveSpec,
     cosine_taper,
     get,
+)
+from repro_torch.scenario.planner import (  # noqa: F401
+    Plan,
+    PlanGroup,
+    SweepSpec,
+    expand,
+    make_plan,
+    manifest,
+    scenario_from_dict,
+    sweep_from_json,
 )

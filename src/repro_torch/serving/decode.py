@@ -11,6 +11,12 @@ depth) is on the card at a time.
 
 The layer computations are those of ``models/transformer.decode_step``, in
 the same order, so offloaded decode is bitwise equal to resident decode.
+
+:func:`generate` prefills the prompt in one pass (``transformer.prefill``:
+the flash kernel once per layer) and then decodes token by token.  With
+the KV cache offloaded, the same prefill writes each layer's cache straight
+into its host block, so both paths decode from bitwise the same caches.
+(The JAX package prefills by decode, one step per prompt token.)
 """
 from __future__ import annotations
 
@@ -111,9 +117,10 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, n_new: int, scfg: S
     host-offloaded KV (``kv_offload`` / ``kv_npart``), greedy or
     temperature-sampled tokens (``temperature`` / ``seed``).
 
-    Runs where the parameters are.  Prefill is by decode (one step per
-    prompt token), as in the JAX package, so the resident and offloaded
-    paths share one step.  Returns ``[B, S0 + n_new]`` (prompt + generated).
+    Runs where the parameters are.  The prompt is prefilled in one pass
+    (the flash kernel once per layer; offloaded, its caches written layer by
+    layer into the host blocks), then each new token is one decode step.
+    Returns ``[B, S0 + n_new]`` (prompt + generated).
     """
     B, S0 = prompt.shape
     cache_len = cache_len or S0 + n_new
@@ -121,8 +128,10 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, n_new: int, scfg: S
     gen = torch.Generator(device=dev).manual_seed(scfg.seed) if scfg.temperature > 0 else None
 
     if scfg.kv_offload:
-        state = {"pos": 0}
         blocks = make_kv_blocks(cfg, B, cache_len, scfg.kv_npart, dtype=L.dt(cfg), device=dev)
+        host = {name: [x for blk in blocks for x in blk[j]] for j, name in enumerate(("k", "v"))}  # by layer
+        logits, state = T.prefill(params, cfg, {"tokens": prompt}, cache_len, out=host)
+        state = {"pos": state["pos"]}
 
         def advance(tok):
             nonlocal state, blocks
@@ -130,7 +139,7 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, n_new: int, scfg: S
                                                           schedule=kv_schedule, prefetch=kv_prefetch)
             return logits
     else:
-        state = T.init_decode_state(cfg, B, cache_len, dtype=L.dt(cfg), device=dev)
+        logits, state = T.prefill(params, cfg, {"tokens": prompt}, cache_len)
 
         def advance(tok):
             nonlocal state
@@ -141,8 +150,6 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, n_new: int, scfg: S
         return sample_token(logits[:, -1], scfg.temperature, gen)[:, None].to(prompt.dtype)
 
     out = [prompt]
-    for t in range(S0):
-        logits = advance(prompt[:, t:t + 1])
     cur = pick(logits)
     for _ in range(n_new):
         out.append(cur)

@@ -476,3 +476,67 @@ def test_surrogate_entry_points_raise_without_a_card(tmp_path):
             call()
     assert model.predict(params, cfg, x, device="cpu").shape == x.shape
     assert train.load_surrogate(str(tmp_path / "cnn"), device="cpu")[0] == cfg
+
+
+SERVING_MODULES = ("serving/cache.py", "serving/batcher.py", "serving/engine.py", "serving/feedback.py",
+                   "serving/__init__.py", "scenario/planner.py", "launch/serve.py")
+
+
+def test_serving_slice_imports_neither_jax_nor_reference():
+    """The serving slice's modules (framework-free ones included) are scanned
+    by the import test above, and a fresh interpreter that imports them all
+    has loaded no module of JAX or of the JAX package."""
+    import subprocess
+    import sys
+
+    files = {os.path.relpath(p, os.path.join(REPO, "src", "repro_torch")) for p in _port_files()}
+    assert set(SERVING_MODULES) <= files
+    names = ["repro_torch." + m[:-3].replace("/", ".").replace(".__init__", "") for m in SERVING_MODULES]
+    code = (f"import sys\nfor n in {names!r}:\n    __import__(n)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    run = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+
+
+def test_serving_engines_and_cli_raise_without_a_card(tmp_path):
+    """Every engine and the serve CLI default to the card and raise without
+    one, before serving anything; the CPU runs only when asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from repro_torch.launch import serve
+    from repro_torch.serving import DecodeEngine, ShardedEngine, SurrogateEngine, TrajectoryEngine
+    from repro_torch.surrogate import model, seqmodel, train, trajectory
+
+    cfg, tcfg = model.SurrogateConfig(latent=8, n_lstm=1), seqmodel.TrajectoryConfig(latent=8, state=2)
+    params = model.init_params(cfg, torch.Generator(), device="cpu")
+    tparams = seqmodel.init_params(tcfg, torch.Generator(), device="cpu")
+    train.save_surrogate(str(tmp_path / "cnn"), cfg, params)
+    trajectory.save_trajectory(str(tmp_path / "traj"), tcfg, tparams)
+    lm_cfg, lm_params, _ = _tiny_lm()
+    calls = [
+        lambda: SurrogateEngine(cfg, params),
+        lambda: TrajectoryEngine(tcfg, tparams),
+        lambda: SurrogateEngine.from_checkpoint(str(tmp_path / "cnn")),
+        lambda: TrajectoryEngine.from_checkpoint(str(tmp_path / "traj")),
+        lambda: DecodeEngine(lm_cfg, lm_params),
+        lambda: serve.main(["--engine", "surrogate", "--ckpt", str(tmp_path / "cnn")]),
+        lambda: serve.main(["--engine", "trajectory", "--ckpt", str(tmp_path / "traj")]),
+        lambda: serve.main(["--engine", "decode", "--arch", "qwen3-1.7b"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    eng = ShardedEngine(SurrogateEngine(cfg, params, device="cpu"))
+    assert eng.infer(np.zeros((1, 8, 3), np.float32)).y.shape == (1, 8, 3)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_serve_cli_multi_device_exits_nonzero(n):
+    from repro_torch.launch import serve
+
+    with pytest.raises(SystemExit) as e:
+        serve.main(["--device", "cpu", "--host-devices", str(n)])
+    assert e.value.code not in (0, None)
+    assert f"--host-devices {n}" in str(e.value.code) and "not ported yet" in str(e.value.code)
