@@ -116,13 +116,25 @@ Phases, each followed by a JSON line with its seconds:
                offloaded KV ≡ resident tokens; then the serve CLI at full
                width.  Per server: requests/s, infer ms a batch, wait ms, cache
                hits, peak device bytes, tokens/s;
-18. kset_main  Proposed 2 as 2SET at main's mesh and 150 springs: two cases,
+18. plan_check the planning and scheduling layer at crs_check's mesh, 12
+               springs, on the card against the port on the CPU: ``run_plan`` of
+               a two-group sweep (soil axis, 2 cases a scenario, 6 steps,
+               tuned by the model) within 1e-6·max|v| with equal manifests
+               apart from the time fields; ``choose(probe=True)`` on the card
+               (a shortlisted candidate, the k-set kernels launched) and the
+               CLI's ``--autotune --probe``; kill-and-rejoin through the queue
+               (``run_worker`` w0 preempted after step 3, w1 finishing)
+               bitwise the serial run; the CLI's ``--schedule --workers 2
+               --train-while-generating`` (both workers rc 0, the queue
+               settled, the trainer's validation MAE); ``--scenarios`` over
+               ``serve_check``'s feedback log, its shards read back with CRCs;
+19. kset_main  Proposed 2 as 2SET at main's mesh and 150 springs: two cases,
                θ of both resident on the card (2 × 7.08 GB), 4 steps of
                ``run_ensemble``, against each case alone in the same resident
                form (s/step, iterations, parts, peak device memory); one
                k-set multispring launch per step and one k-set EBE launch per
                matvec; lanes ≡ the single runs within 1e-6·max|v|;
-19. campaign_main  the campaign at full width through ``run_campaign(...,
+20. campaign_main  the campaign at full width through ``run_campaign(...,
                device=None)`` (kset_main's 2SET carry parked on the host):
                (a) Proposed 2, kset 2, M 3 (two rounds, the tail padded), 4
                steps, unguarded and guarded — per chunk s/step per case, peak
@@ -132,7 +144,7 @@ Phases, each followed by a JSON line with its seconds:
                is 14.16 GB), stopped after step 2 and resumed, bitwise (a)'s
                guarded round 0, with each checkpoint's bytes and seconds to
                copy, write, CRC and restore, and the free disk before;
-20. timing     each kernel at the shapes its main path gives it, against its
+21. timing     each kernel at the shapes its main path gives it, against its
                plain version, its bound and (flash) SDPA, with flash held in
                fp32 and bf16 there too and timed in both; a breakdown of one
                whole EBE matvec (kernel, slot-table scatter) in both dtypes,
@@ -145,7 +157,20 @@ Phases, each followed by a JSON line with its seconds:
                surrogates' recurrences, outside Pallas: the LSTM loop against
                ``torch.nn.LSTM`` (cuDNN) at B 4, T 4,000, H 1,024, forward and
                forward + backward, and ``ssm_scan`` against its loop at T ∈
-               {256, 1,024, 4,096, 16,000} (``{"outside_pallas": [...]}``).
+               {256, 1,024, 4,096, 16,000} (``{"outside_pallas": [...]}``);
+22. plan_main  the planning and scheduling layer at main's size, 150 springs,
+               with a calibration table written from ``timing``'s own kernel
+               times (the multispring block and the fp64 EBE product as
+               backend ``cuda``, their plain versions as ``torch``): (a) the
+               CLI's ``--sweep`` over one soil and two wave families (one
+               group of 4 cases, 4 steps) with ``--autotune --probe
+               --calibration``, beside the model's choices at the default
+               4 GB budget and at 70 GB; (b) ``--schedule --workers 2
+               --lease-s 120 --method proposed2 --kset 1`` over two soils × 2
+               cases, one group per worker process on the card: the queue
+               settled, no dead group, no takeover.  The FEM rows of the
+               kernel line gain ``launches_by_path`` (``plan_check``, (a);
+               (b)'s launches are in its worker processes).
 
 It prints one ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -961,7 +986,7 @@ def _feedback_records(path):
         return [json.loads(line) for line in f]
 
 
-def serve_check(root, dev):
+def serve_check(root, dev, keep_feedback=None):
     """The serving tier small, on the card against the port on the CPU: the
     surrogate and trajectory engines (two members each: y within
     1e-5·max|y|, score within 1e-5, equal signatures), batched ≡
@@ -972,7 +997,8 @@ def serve_check(root, dev):
     row; and ``launch.serve.main`` for all three engines, the surrogate one
     with a repeat, feedback at threshold 0 and an injected failure whose
     split-retry and breaker counts and feedback records are the CPU run's.
-    Returns the phase's flash launches by kernel."""
+    The card's feedback log is copied to ``keep_feedback`` (``plan_check``
+    sweeps it).  Returns the phase's flash launches by kernel."""
     import shutil
 
     import numpy as np
@@ -1085,6 +1111,8 @@ def serve_check(root, dev):
     rows["flash_launches"] = launches
     emit({"serve_check": rows})
     require(launches["flash_attention_bf16"] == 0, f"serve_check launched the bf16 flash kernel: {launches}")
+    if keep_feedback:
+        shutil.copyfile(os.path.join(root, "feedback_card.jsonl"), keep_feedback)
     shutil.rmtree(root, ignore_errors=True)
     return launches
 
@@ -1265,6 +1293,302 @@ def serve_main(root, dev, trained, lm_params, qwen):
     return {"serve_main_decode": served_launches["flash_attention_bf16"],
             "serve_main_offloaded": off_launches["flash_attention_bf16"],
             "serve_main_cli": cli_launches["flash_attention_bf16"]}
+
+
+# plan_check: the planner, autotuner and scheduler at crs_check's mesh, 12 springs: a
+# sweep over the soil axis (two compile groups, 2 cases a scenario, 6 steps)
+PLAN_CHECK_SWEEP = {"base": {"n_cases": 2, "nt": 6, "mesh_n": [8, 8, 4], "nspring": 12},
+                    "axes": {"soil.vs": [[0.8, 1.0], [1.0, 1.0]]}}
+# plan_main at main's size and 150 springs: (a) one soil, two wave families, 2 cases each,
+# 4 steps, autotuned with the probe; (b) two soils × 2 cases, 4 steps, through two queue workers
+PLAN_MAIN_BASE = {"n_cases": 2, "nt": 4, "mesh_n": [64, 64, 12], "nspring": 150}
+PLAN_MAIN_SWEEP_A = {"base": PLAN_MAIN_BASE, "axes": {"wave.family": ["band_noise", "ricker"]}}
+PLAN_MAIN_SWEEP_B = {"base": PLAN_MAIN_BASE, "axes": {"soil.vs": [[0.8, 1.0], [1.0, 1.0]]}}
+PLAN_TIME_FIELDS = ("wall_s", "cases_per_s")
+
+
+def _campaign_cli(argv, result):
+    """``launch.campaign.main(argv)`` in-process, its output captured."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import campaign as campaign_cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = campaign_cli.main(argv, result)
+    require(rc == 0, f"campaign CLI {argv} exited {rc}: {buf.getvalue()}")
+    return buf.getvalue().splitlines()
+
+
+def _manifest(path, strip=False):
+    with open(path) as f:
+        m = json.load(f)
+    if strip:
+        for g in m["groups"]:
+            for k in PLAN_TIME_FIELDS:
+                g.pop(k, None)
+    return m
+
+
+def _require_groups_completed(stats, what):
+    bad = {k: st for k, st in stats.items() if not st.get("completed") or st.get("failed")}
+    require(stats and not bad, f"{what}: a group did not complete: {bad}")
+
+
+def _shortlist(mesh, cfg, n_cases, calibration=None):
+    """The autotuner's model ranking at its defaults, and the probe's
+    shortlist of it."""
+    from repro_torch.scenario import autotune
+
+    scored = sorted(autotune._model_scores(
+        mesh, cfg, n_cases=n_cases, n_devices=1, methods=("proposed2", "proposed1"), kset_cap=4, npart_cap=8,
+        link_gbps=autotune.DEFAULT_LINK_GBPS, device_budget_bytes=autotune.DEFAULT_DEVICE_GB * 1e9,
+        calibration=calibration), key=lambda c: (c[0], c[1], c[2], c[3]))
+    return scored, autotune._probe_shortlist(scored, 2)
+
+
+def _shards_equal(a, b, names):
+    import numpy as np
+
+    from repro_torch.surrogate import dataset
+
+    for n in names:
+        (xa, ya), (xb, yb) = dataset.load_shards(os.path.join(a, n)), dataset.load_shards(os.path.join(b, n))
+        if not (np.array_equal(xa, xb) and np.array_equal(ya, yb)):
+            return False
+    return True
+
+
+def plan_check(root, dev, feedback):
+    """The planning and scheduling layer on the card at (8, 8, 4), 12 springs,
+    against the port on the CPU: ``run_plan`` of a two-group sweep (soil axis,
+    autotuned by the model) within 1e-6·max|v| of the CPU with equal manifests
+    apart from the time fields (so equal ``TuneChoice``s); ``choose(probe=True)``
+    on the card, whose k-set kernels launch, and the CLI's ``--autotune
+    --probe``; kill-and-rejoin (``run_worker`` w0 preempted after step 3, w1
+    finishing) bitwise the serial run on the card; the CLI's ``--schedule
+    --workers 2 --train-while-generating``; and ``--scenarios`` over the
+    feedback log that ``serve_check`` wrote.  Returns the phase's in-process
+    launches by kernel."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels, scenario as sc
+    from repro_torch.scenario import autotune
+    from repro_torch.surrogate import dataset
+
+    cpu = torch.device("cpu")
+    shutil.rmtree(root, ignore_errors=True)
+    kernels.reset_launch_counts()
+    spec = sc.sweep_from_json(json.dumps(PLAN_CHECK_SWEEP))
+    group_kw = dict(autotune=True, ckpt_every=2, shard_size=1)
+    rows = {}
+
+    # 1. run_plan on the card against the CPU (model-tuned: equal choices)
+    runs = {}
+    for where, d in (("card", dev), ("cpu", cpu)):
+        runs[where] = sc.run_plan(sc.make_plan(spec), device=d, ckpt_dir=os.path.join(root, f"ck_{where}"),
+                                  out_dir=os.path.join(root, f"serial_{where}"), **group_kw)
+        _require_groups_completed(runs[where].group_stats, f"run_plan on {where}")
+    a, b = runs["card"].scenarios, runs["cpu"].scenarios
+    require(sorted(a) == sorted(b) and len(a) == 2, f"run_plan scenarios: {sorted(a)} vs {sorted(b)}")
+    scale = max(float(np.abs(r.responses).max()) for r in b.values())
+    err = max(float(np.abs(a[n].responses - b[n].responses).max()) for n in a)
+    m_card, m_cpu = (_manifest(runs[w].manifest_path, strip=True) for w in ("card", "cpu"))
+    rows["run_plan"] = {"groups": len(runs["card"].plan.groups), "card_vs_cpu_rel": err / scale,
+                        "tol": 1e-6, "manifests_equal_but_time": m_card == m_cpu,
+                        "choices": [g["choice"] for g in m_card["groups"]],
+                        "mean_iters": [g["mean_iters"] for g in m_card["groups"]],
+                        "wall_s": [runs["card"].group_stats[g.key]["wall_s"] for g in runs["card"].plan.groups]}
+    require(scale > 0 and err <= 1e-6 * scale, f"run_plan on the card ≠ CPU: {err / scale}")
+    require(m_card == m_cpu, f"plan manifests differ between card and CPU: {m_card} vs {m_cpu}")
+    require(len(m_card["groups"]) == 2 and all(g["choice"]["source"] == "model" for g in m_card["groups"]),
+            "the model did not tune each group")
+
+    # 2. the probe on the card: a shortlisted candidate, its k-set kernels launched
+    group = runs["card"].plan.groups[0]
+    ref = group.scenarios[0]
+    mesh = ref.build_mesh()
+    waves = np.concatenate([s.waves() for s in group.scenarios])
+    cfg = ref.sim_config()
+    shortlist = _shortlist(mesh, cfg, group.n_cases)[1]
+    before = kernels.launch_counts()
+    probed = autotune.choose(mesh, cfg, n_cases=group.n_cases, probe=True, waves=waves, obs=ref.obs.indices(mesh),
+                             device=dev)
+    probe_launches = {k: c - before[k] for k, c in kernels.launch_counts().items()}
+    res = {}
+    _campaign_cli(["--sweep", json.dumps(PLAN_CHECK_SWEEP), "--autotune", "--probe",
+                   "--out", os.path.join(root, "probe_out")], res)
+    _require_groups_completed(res["plan_run"].group_stats, "--autotune --probe")
+    cli_choices = [g.choice for g in res["plan_run"].plan.groups]
+    rows["probe"] = {"choice": dataclasses.asdict(probed), "shortlist": shortlist, "launches": probe_launches,
+                     "cli_choices": [dataclasses.asdict(c) for c in cli_choices]}
+    require(probed.source == "probe" and probed.probed_case_s > 0
+            and (probed.modeled_case_s, probed.method, probed.npart, probed.kset) in shortlist,
+            f"the probe on the card: {probed}, shortlist {shortlist}")
+    require(probe_launches["multispring_kset"] > 0, f"the probe launched no k-set multispring: {probe_launches}")
+    require(probe_launches["ebe_matvec_kset_f64"] > 0 and probe_launches["ebe_matvec_kset_f32"] > 0,
+            f"the Proposed 2 probe launched no k-set EBE product: {probe_launches}")
+    require(all(c.source == "probe" and c.probed_case_s > 0 for c in cli_choices), f"CLI probe: {cli_choices}")
+
+    # 3. kill-and-rejoin through the queue ≡ the serial run on the card, bitwise
+    ck, out = os.path.join(root, "ck_queue"), os.path.join(root, "queue_out")
+    w0 = sc.run_worker(sc.make_plan(spec), worker="w0", device=dev, ckpt_dir=ck, out_dir=out,
+                       stop_after_steps=3, **group_kw)
+    w1 = sc.run_worker(sc.make_plan(spec), worker="w1", device=dev, ckpt_dir=ck, out_dir=out, **group_kw)
+    names = sorted(a)
+    q = sc.JobQueue(os.path.join(ck, "queue"))
+    fails = sorted(os.path.basename(p) for g in runs["card"].plan.groups for p in q.fail_paths(g.key))
+    same = _shards_equal(out, os.path.join(root, "serial_card"), names)
+    rows["kill_rejoin"] = {"w0_preempted": len(w0.preempted), "w0_done": len(w0.done), "w1_done": len(w1.done),
+                           "settled": w1.settled, "dead": w1.dead, "fail_records": fails,
+                           "bitwise_serial": same}
+    require(len(w0.preempted) == 1 and not w0.done and w1.settled and not w1.dead and len(w1.done) == 2,
+            f"kill-and-rejoin: {rows['kill_rejoin']}")
+    require(same, "the scheduled kill-and-rejoin is not bitwise the serial run on the card")
+
+    # 4. the CLI's two-worker pool with the trainer alongside (children on the card)
+    res = {}
+    t0 = time.perf_counter()
+    lines = _campaign_cli(["--sweep", json.dumps(PLAN_CHECK_SWEEP), "--schedule", "--workers", "2",
+                           "--train-while-generating", "--train-steps", "8", "--shard-size", "1",
+                           "--out", os.path.join(root, "sched_out"), "--ckpt-dir", os.path.join(root, "sched_ck")],
+                          res)
+    train = res.get("train", {})
+    rows["schedule_cli"] = {"seconds": time.perf_counter() - t0, "rcs": res.get("rcs"), "settled": res.get("settled"),
+                            "dead": res.get("dead"), "train_val_mae": train.get("info", {}).get("val_mae"),
+                            "train_shards": train.get("info", {}).get("n_shards"),
+                            "report": [ln for ln in lines if "[train]" in ln or "[schedule]" in ln]}
+    require(res.get("rcs") == [0, 0] and res.get("settled") and not res.get("dead"),
+            f"the scheduled CLI did not settle: {rows['schedule_cli']}")
+    require("info" in train and np.isfinite(train["info"]["val_mae"]) and any("val MAE" in ln for ln in lines),
+            f"the trainer did not report its validation MAE: {train.get('error')}")
+
+    # 5. --scenarios over the serving tier's feedback log
+    res = {}
+    fb_out = os.path.join(root, "feedback_out")
+    _campaign_cli(["--scenarios", feedback, "--out", fb_out], res)
+    run = res["plan_run"]
+    _require_groups_completed(run.group_stats, "--scenarios")
+    loaded = {n: dataset.load_shards(os.path.join(fb_out, n)) for n in run.scenarios}  # CRCs checked
+    rows["feedback_sweep"] = {"scenarios": len(run.scenarios), "groups": len(run.plan.groups),
+                              "cases": {n: len(x) for n, (x, _) in loaded.items()},
+                              "finite": all(bool(np.isfinite(y).all()) for _, y in loaded.values())}
+    require(len(run.scenarios) == run.plan.n_scenarios >= 1 and rows["feedback_sweep"]["finite"],
+            f"--scenarios: {rows['feedback_sweep']}")
+    launches = kernels.launch_counts()
+    rows["launches"] = launches
+    emit({"plan_check": rows})
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def calibration_table(path, rows, device_name):
+    """``timing``'s multispring (one streamed block) and fp64 EBE rows as a
+    ``BENCH_kernels.json``-format table: the CUDA kernels as backend ``cuda``,
+    their plain versions as ``torch``."""
+    by = {r["name"]: r for r in rows}
+    table = {"bench": "chip_smoke.py timing", "platform": "gpu", "device": device_name, "kernels": {}}
+    for name, row, unit, units in (
+            ("multispring", by["multispring"], "point_spring", by["multispring"]["detail"]["P"]
+             * by["multispring"]["detail"]["S"]),
+            ("ebe_matvec", by["ebe_matvec_f64"], "element", by["ebe_matvec_f64"]["detail"]["E"])):
+        table["kernels"][name] = {"unit": unit, "units": units, "backends": {
+            "cuda": {"us_per_call": row["ms"] * 1e3}, "torch": {"us_per_call": row["plain_ms"] * 1e3}}}
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(table, f, indent=1)
+    return path
+
+
+def plan_main(root, dev, calibration, mesh):
+    """The planning and scheduling layer at main's size, 150 springs:
+    (a) the CLI's ``--sweep`` over one soil and two wave families (one
+    compile group of 4 cases, 4 steps), ``--autotune --probe --calibration``
+    (the table ``timing`` measured), beside the model's choices at the
+    default 4 GB budget and at 70 GB; (b) ``--schedule --workers 2 --lease-s
+    120 --method proposed2 --kset 1`` over two soils × 2 cases: one group per
+    worker process on the card, a settled queue with no dead group and no
+    takeover.  ``mesh`` is main's mesh (its element count sizes the model).
+    Returns (a)'s launches by kernel."""
+    import glob
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels, scenario as sc
+    from repro_torch.scenario import autotune
+
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    # (a) the autotuned sweep, in-process
+    cfg = sc.Scenario(nspring=PLAN_MAIN_BASE["nspring"]).sim_config()
+    cal = autotune.pipeline.load_kernel_calibration(calibration)
+    model = {f"device_gb_{gb:g}": dataclasses.asdict(autotune.choose(mesh, cfg, n_cases=4, device_gb=gb,
+                                                                      calibration=cal))
+             for gb in (autotune.DEFAULT_DEVICE_GB, 70.0)}
+    scored, shortlist = _shortlist(mesh, cfg, 4, cal)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    res = {}
+    a_out = os.path.join(root, "a_out")
+    t0 = time.perf_counter()
+    lines = _campaign_cli(["--sweep", json.dumps(PLAN_MAIN_SWEEP_A), "--autotune", "--probe", "--calibration",
+                           calibration, "--out", a_out], res)
+    torch.cuda.synchronize()
+    a_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    run = res["plan_run"]
+    _require_groups_completed(run.group_stats, "plan_main (a)")
+    m = _manifest(os.path.join(a_out, "plan.json"))
+    g = m["groups"][0]
+    peak_v = max(float(np.abs(r.responses).max()) for r in run.scenarios.values())
+    out["a"] = {"sweep": PLAN_MAIN_SWEEP_A, "groups": len(m["groups"]), "cases": m["n_cases"], "choice": g["choice"],
+                "shortlist": shortlist, "considered": len(scored), "model_choice": model,
+                "wall_s": g["wall_s"], "cases_per_s": g["cases_per_s"], "mean_iters": g["mean_iters"],
+                "cli_s": a_s, "peak_device_bytes": torch.cuda.max_memory_allocated() - resident,
+                "resident_before_bytes": resident, "launches": launches, "peak_abs_v": peak_v,
+                "report": [ln for ln in lines if "group" in ln]}
+    ch = g["choice"]
+    require(len(m["groups"]) == 1 and m["n_cases"] == 4, f"plan_main (a): {m['n_cases']} cases")
+    require(ch["source"] == "probe" and ch["probed_case_s"] > 0 and ch["calibration"] == "cuda"
+            and (ch["modeled_case_s"], ch["method"], ch["npart"], ch["kset"]) in shortlist,
+            f"plan_main (a): the probe's choice {ch} is not in the shortlist {shortlist}")
+    require(launches["multispring_kset"] > 0, f"plan_main (a) launched no k-set multispring: {launches}")
+    require(np.isfinite(peak_v) and peak_v > 0, "plan_main (a): responses not finite or zero")
+    del res, run
+    torch.cuda.empty_cache()
+
+    # (b) two worker processes on the card, one group each
+    res = {}
+    b_out = os.path.join(root, "b_out")
+    t0 = time.perf_counter()
+    lines = _campaign_cli(["--sweep", json.dumps(PLAN_MAIN_SWEEP_B), "--schedule", "--workers", "2",
+                           "--lease-s", "120", "--method", "proposed2", "--kset", "1", "--out", b_out], res)
+    settle_s = time.perf_counter() - t0
+    qdir = os.path.join(b_out, "queue")
+    fails = [json.load(open(p)) for p in sorted(glob.glob(os.path.join(qdir, "job_*.fail_*.json")))]
+    m = _manifest(os.path.join(b_out, "plan.json"))
+    out["b"] = {"sweep": PLAN_MAIN_SWEEP_B, "workers": 2, "lease_s": 120, "rcs": res.get("rcs"),
+                "settled": res.get("settled"), "dead": res.get("dead"), "seconds_to_settle": settle_s,
+                "groups": [{k: g.get(k) for k in ("key", "worker", "attempt", "wall_s", "cases_per_s", "mean_iters")}
+                           for g in m["groups"]],
+                "fail_records": [{k: f.get(k) for k in ("kind", "worker", "error")} for f in fails],
+                "report": [ln for ln in lines if "[schedule]" in ln or "[watchdog]" in ln]}
+    emit({"plan_main": out})
+    require(res.get("rcs") == [0, 0] and res.get("settled") and not res.get("dead"),
+            f"plan_main (b) did not settle: {out['b']}")
+    require(all(g.get("completed") for g in m["groups"]) and len(m["groups"]) == 2, "plan_main (b): a group")
+    require(not any(f.get("kind") == "expired" for f in fails), f"plan_main (b): a lease was taken over: {fails}")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
 
 
 def main() -> int:
@@ -1858,13 +2182,18 @@ def main() -> int:
         require(pinned, "KV blocks are not pinned host tensors")
         del state, ostate, kv, lg, olg
 
+    feedback_log = os.path.join(ROOT, "build", "serve_feedback.jsonl")
     with Phase("serve_check"):
-        serve_check_launches = serve_check(os.path.join(ROOT, "build", "serve_check"), dev)
+        serve_check_launches = serve_check(os.path.join(ROOT, "build", "serve_check"), dev, keep_feedback=feedback_log)
 
     with Phase("serve_main"):
         # lm_main's qwen3-1.7b parameters serve the decode server
         serve_launches = serve_main(os.path.join(ROOT, "build", "serve_main"), dev, trained, params, qwen)
         del trained
+        torch.cuda.empty_cache()
+
+    with Phase("plan_check"):
+        plan_launches = {"plan_check": plan_check(os.path.join(ROOT, "build", "plan_check"), dev, feedback_log)}
         torch.cuda.empty_cache()
 
     with Phase("kset_main"):
@@ -2307,6 +2636,21 @@ def main() -> int:
         # parts outside Pallas: the surrogates' recurrences against cuDNN's LSTM and the loop
         torch.cuda.empty_cache()
         emit({"outside_pallas": surrogate_timing(cuda_ms)})
+        calibration = calibration_table(os.path.join(ROOT, "build", "plan_main_calibration", "kernels.json"), rows,
+                                        torch.cuda.get_device_name(0))
+        # main's carry (θ pinned on the host) and what still holds the LM's stacked
+        # weights (layer 0's views) go before plan_main's worker processes start
+        del ops, nm, ps, D, alpha, beta_e, res, lp, x, eps_all
+
+    with Phase("plan_main"):
+        torch.cuda.empty_cache()
+        plan_launches["plan_main_a"] = plan_main(os.path.join(ROOT, "build", "plan_main"), dev, calibration, mesh)
+        # the planning paths' launches of the FEM kernels; plan_main (b)'s run in
+        # its worker processes and are not counted here
+        for r in rows:
+            if r["name"] in plan_launches["plan_check"]:
+                r["detail"]["launches_by_path"] = {**{p: c[r["name"]] for p, c in plan_launches.items()},
+                                                   "plan_main_b": "in the worker processes, not counted"}
         print(smi, flush=True)
         emit({"kernel_detail": {r["name"]: r["detail"] for r in rows}})
         emit({"kernels": [{k: v for k, v in r.items() if k != "detail"} for r in rows]})

@@ -64,6 +64,12 @@ class CampaignConfig:
     ``seed``              recorded in every checkpoint and verified on
                           resume — a checkpoint from a different wave set
                           must not silently splice into this campaign.
+    ``scenario_sig``      opaque scenario identity (:mod:`repro_torch.
+                          scenario`) folded into the campaign signature.
+                          Scenario changes that alter the *mesh* (soil
+                          perturbations) are invisible to the wave and config
+                          fields; this string is how they still refuse a
+                          foreign checkpoint.
     """
 
     kset: int = 2
@@ -72,6 +78,7 @@ class CampaignConfig:
     checkpoint_every: int = 0
     keep: int = 3
     seed: int = 0
+    scenario_sig: str = ""
 
     def __post_init__(self):
         if self.kset < 1:
@@ -159,7 +166,7 @@ def _campaign_sig(campaign: CampaignConfig, cfg, waves: np.ndarray, B: int, obs,
     knobs = sorted((f.name, getattr(cfg, f.name)) for f in dataclasses.fields(cfg) if f.name not in specs)
     knobs = [(k, str(v) if isinstance(v, torch.dtype) else v) for k, v in knobs]
     ident = repr((
-        campaign.seed, campaign.kset, campaign.method, M, nt, B, knobs, kernel_backend,
+        campaign.seed, campaign.kset, campaign.method, campaign.scenario_sig, M, nt, B, knobs, kernel_backend,
         np.asarray(obs).tolist(), zlib.crc32(np.ascontiguousarray(waves).tobytes()),
     ))
     # every entry masked to the positive int32 range, as the reference does

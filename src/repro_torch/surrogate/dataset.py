@@ -11,8 +11,9 @@ streams back in.
 The JAX package's ``surrogate/dataset.py`` with its on-disk format (npz
 shards and a committed ``index.json`` with CRCs and ``meta``), so each
 package reads the other's shards, and its :class:`ShardStream`, which the
-trainer (:mod:`repro_torch.surrogate.train`) consumes.  ``generate_sweep``
-waits for the scenario planner.
+trainer (:mod:`repro_torch.surrogate.train`) consumes, and
+:func:`generate_sweep`, the pooled dataset of a scenario sweep run by the
+planner.
 """
 from __future__ import annotations
 
@@ -475,3 +476,54 @@ class ShardStream:
         # as it advances, so the trainer's full-dataset phase can re-load
         # any consumed shard from disk without the stream holding it
         return _load_shard(self.paths[i])
+
+
+# ---------------------------------------------------------------------------
+# catalog sweeps: diverse training data instead of one wave family
+# ---------------------------------------------------------------------------
+
+
+def generate_sweep(
+    sweep,
+    *,
+    method: str = "proposed2",
+    autotune: bool = False,
+    device=None,
+    device_mesh=None,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 0,
+    out_dir: Optional[str] = None,
+    shard_size: int = 16,
+) -> tuple[np.ndarray, np.ndarray]:
+    """→ pooled ``(waves, responses)`` over a scenario-catalog sweep, run on
+    ``device`` (``None``: the card).
+
+    The multi-scenario analogue of :func:`generate`: a
+    :class:`~repro_torch.scenario.planner.SweepSpec` (or an already-made
+    :class:`~repro_torch.scenario.planner.Plan`) expands into scenarios —
+    several wave families, soil profiles, observation grids — that run as
+    compile-grouped campaigns (:func:`repro_torch.scenario.planner.run_plan`)
+    and pool into one training set.  With ``out_dir`` each scenario also
+    lands in its own shard directory (``out_dir/<name>/``) loadable by
+    :func:`load_shards`.  Responses are taken at observation point 0 so the
+    pooled set matches the surrogate trainer's ``[N, nt, 3]`` format even
+    for grid-observation scenarios.
+    """
+    from repro_torch.scenario.planner import Plan, make_plan, run_plan
+
+    plan = sweep if isinstance(sweep, Plan) else make_plan(sweep)
+    run = run_plan(
+        plan, method=method, autotune=autotune, device=device, device_mesh=device_mesh,
+        ckpt_dir=checkpoint_dir, ckpt_every=checkpoint_every,
+        out_dir=out_dir, shard_size=shard_size,
+    )
+    if len(run.scenarios) < plan.n_scenarios:
+        raise RuntimeError(
+            f"sweep incomplete ({len(run.scenarios)}/{plan.n_scenarios} "
+            f"scenarios) — a checkpointed group stopped early or failed "
+            f"({run.group_stats}); rerun to resume"
+        )
+    order = [s.name for g in plan.groups for s in g.scenarios]
+    x = np.concatenate([run.scenarios[n].waves for n in order])
+    y = np.concatenate([run.scenarios[n].responses[:, :, 0, :] for n in order])
+    return x.astype(np.float32), y.astype(np.float32)

@@ -1,1 +1,1 @@
-"""Training-side utilities of the port: checkpoints for now."""
+"""Training-side utilities of the port: checkpoints and the straggler watchdog."""

@@ -396,21 +396,64 @@ def test_campaign_and_its_cli_raise_without_a_card(tmp_path):
     assert run_campaign(mesh, cfg, waves, device="cpu").completed
 
 
-@pytest.mark.parametrize("flags", [
-    ["--sweep", "{}"], ["--scenario", "ricker-soft-basin"], ["--scenarios", "feedback.jsonl"], ["--schedule"],
-    ["--workers", "2"], ["--worker-id", "w0"], ["--autotune"], ["--probe"], ["--calibration", "BENCH_kernels.json"],
-    ["--train-while-generating"], ["--cpu-backend"], ["--devices", "2"], ["--host-devices", "2"],
-    ["--num-processes", "2", "--coordinator", "localhost:1234"],
+def test_sweeps_and_the_probe_refuse_the_cpu_without_a_card(tmp_path):
+    """No sweep, probe or worker falls back to the CPU: with no card the
+    sweep CLI and the probe raise; ``run_plan`` records each group's failure
+    (the reference's design: one bad group does not end the plan) and writes
+    no shard; ``generate_sweep`` raises on the incomplete sweep."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from repro_torch import scenario as sc
+    from repro_torch.launch import campaign as cli
+    from repro_torch.scenario import autotune
+    from repro_torch.surrogate import dataset
+
+    spec = sc.SweepSpec(base=sc.Scenario(mesh_n=(1, 1, 1), n_cases=1, nt=4),
+                        axes=(("soil.vs", ((0.8, 1.0), (1.0, 1.0))),))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--sweep", SWEEP, "--out", str(tmp_path / "cli")])
+    run = sc.run_plan(sc.make_plan(spec), out_dir=str(tmp_path / "out"))
+    assert not run.scenarios and len(run.group_stats) == 2
+    assert all(st["failed"] and "no CUDA device" in st["error"] for st in run.group_stats.values())
+    assert os.listdir(tmp_path / "out") == ["plan.json"]
+    with pytest.raises(RuntimeError, match="sweep incomplete"):
+        dataset.generate_sweep(spec)
+    scn = spec.base
+    mesh = scn.build_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        autotune.choose(mesh, scn.sim_config(), n_cases=1, probe=True, waves=scn.waves(), obs=scn.obs.indices(mesh))
+    assert not os.path.exists(tmp_path / "cli")
+
+
+SWEEP = '{"base": {"n_cases": 2, "nt": 6, "mesh_n": [2, 2, 2]}}'
+
+
+@pytest.mark.parametrize("flags,message", [
+    # the multi-device and multi-process campaign: not ported yet
+    (["--cpu-backend"], "--cpu-backend is not ported yet"), (["--devices", "2"], "--devices 2 is not ported yet"),
+    (["--host-devices", "2"], "--host-devices 2 is not ported yet"),
+    (["--num-processes", "2", "--coordinator", "localhost:1234"], "--num-processes 2 is not ported yet"),
+    # the reference launcher's own refusals of its sweep modes
+    (["--sweep", SWEEP, "--trajectories"], "--trajectories rides the plain campaign path"),
+    (["--scenario", "ricker-soft-basin", "--inject", "nan_at_step=2,case=1"], "--inject rides the plain campaign"),
+    (["--sweep", SWEEP, "--scenario", "ricker-soft-basin"], "pass one of --scenario / --sweep / --scenarios"),
+    (["--sweep", SWEEP, "--schedule"], "--schedule needs --ckpt-dir or --out"),
+    (["--sweep", SWEEP, "--schedule", "--ckpt-dir", "unused", "--train-while-generating"],
+     "--train-while-generating streams shards from --out; pass --out"),
 ])
-def test_unported_campaign_modes_exit_nonzero(flags, capsys):
-    """The reference launcher's other modes are refused by name, before
-    anything runs (no device is needed to see it)."""
+def test_unported_campaign_modes_exit_nonzero(flags, message, capsys):
+    """The multi-device modes of the reference launcher are refused by name,
+    and so are the combinations of its sweep modes that the reference
+    refuses, each with the reference's message, before anything runs (no
+    device is needed to see it)."""
     from repro_torch.launch import campaign as cli
 
     with pytest.raises(SystemExit) as e:
         cli.main(["--device", "cpu", *flags])
     assert e.value.code not in (0, None)
-    assert f"{flags[0]}" in str(e.value.code) and "not ported yet" in str(e.value.code)
+    assert message in str(e.value.code)
+    if "not ported yet" in message:
+        assert "multi-device and multi-process campaign is a later slice" in str(e.value.code)
 
 
 def test_one_process_topology_and_its_limits(monkeypatch):
