@@ -16,8 +16,8 @@ Phases, each followed by a JSON line with its seconds:
                (gather fused in) in both dtypes on a random x and a random
                int32 connectivity with repeated nodes, E ragged and E
                smaller than a tile, at three tile sizes;
-               flash attention in fp32 (CUDA-core kernel) and bf16 (wgmma/TMA
-               kernel) over GQA, ragged, Sq < Skv, window, softcap,
+               flash attention in fp32 (3×TF32 mma.sync kernel) and bf16
+               (wgmma/TMA kernel) over GQA, ragged, Sq < Skv, window, softcap,
                non-causal, Sq × Skv, dh ∈ {128, 256, 192 with dv 128}, dh and
                dv not multiples of 8 (the padding step) and Sq 1 against
                4,096 keys; the k-set entries (k members in one launch):
@@ -39,6 +39,11 @@ Phases, each followed by a JSON line with its seconds:
                (1e-9·max|v|); Proposed 1's k-set with θ offloaded ≡ θ on the
                card bitwise; a guarded NaN in lane 1 (Proposed 2): health
                words equal the CPU port's, the siblings bitwise unchanged;
+               the same for Proposed 1 with θ offloaded (``guard_step`` gives
+               it a second pinned θ set): words and counts the CPU port's,
+               velocity within 1e-6·max|v|, siblings bitwise the clean run,
+               which is bitwise the unguarded one, lane 1's pinned θ in both
+               sets its last healthy θ, the bytes of both sets;
 8.  campaign_check  the campaign CLI (``launch.campaign.main``) at (8, 8, 4),
                3 waves in rounds of 2, 6 steps, a checkpoint every 2,
                guarded, for Proposed 2, Proposed 1 and Baseline 1: killed
@@ -146,7 +151,9 @@ Phases, each followed by a JSON line with its seconds:
                copy, write, CRC and restore, and the free disk before;
 21. timing     each kernel at the shapes its main path gives it, against its
                plain version, its bound and (flash) SDPA, with flash held in
-               fp32 and bf16 there too and timed in both; a breakdown of one
+               fp32 and bf16 there too and timed in both (fp32 against the
+               3×TF32 bound and the fp32 cores' bound, also at gemma2-2b's
+               and deepseek-v2's MLA heads); a breakdown of one
                whole EBE matvec (kernel, slot-table scatter) in both dtypes,
                of one full-size FEM step (with the multispring kernel summed
                over the step's blocks beside the streamed pass and the θ
@@ -191,7 +198,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, non-tensor-core for fp32/fp64)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"torch.float64": 34e12, "torch.float32": 67e12, "torch.bfloat16": 989e12}  # bf16: tensor cores
+PEAK_FLOPS = {"torch.float64": 34e12, "torch.float32": 67e12, "torch.bfloat16": 989e12,  # bf16: tensor cores
+              "tf32x3": 495e12 / 3}  # fp32 work done as three TF32 products on the tensor cores (495 TFLOP/s)
 MS_OPS_PER_SPRING = 124  # counted from csrc/multispring.cu (pow as one op)
 EBE_OPS_PER_ELEM = 2448  # 4 points × (2·90 g + 2·90 H + 2·36 Dε + 2·90 Bᵀσ)
 FEM_KERNELS = ("multispring", "ebe_matvec_f64", "ebe_matvec_f32")
@@ -240,7 +248,7 @@ def ptxas_report(log):
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
         if (m or fa) and regs:
-            if fa:  # flash_kernel is the fp32 CUDA-core kernel, flash_wgmma_kernel the bf16 one
+            if fa:  # flash_kernel is the fp32 3×TF32 mma.sync kernel, flash_wgmma_kernel the bf16 one
                 name = f"{fa.group(1)}<{'bf16' if 'wgmma' in fa.group(1) else 'float'}, {fa.group(2)}>"
             else:  # the EBE kernel has a one-member and a k-set instance
                 kset = {"Lb0E": ", one member", "Lb1E": ", k-set"}.get(m.group(3), "")
@@ -1601,7 +1609,7 @@ def main() -> int:
 
     from repro_torch import kernels
     from repro_torch.configs import ARCHS
-    from repro_torch.core import faults, hetmem
+    from repro_torch.core import faults, health, hetmem
     from repro_torch.core.stream import tree_map
     from repro_torch.fem import assembly, meshgen, methods, multispring as ms, spmv
     from repro_torch.kernels import _build
@@ -1930,6 +1938,58 @@ def main() -> int:
         require(siblings, "the poisoned lane changed its siblings")
         require(bool(torch.isfinite(bad["velocity_history"]).all()), "NaN entered the frozen lane's carry")
         del card, cpu, solo, clean, bad, bad_cpu
+
+        # Proposed 1's k-set with θ offloaded (pinned host blocks), guarded: the
+        # guard gives θ a second pinned set; a NaN in lane 1's forcing at step 1
+        def offloaded_p1(device, waves, guard):
+            ops_g = methods.FemOperators(mesh_c, cfg_c, device=device)
+            step, carry = methods.make_ensemble_step(ops_g, "proposed1", kset=3, offload=True)
+            if guard:
+                step, carry = health.guard_step(step), health.initial_guard_carry(carry)
+            obs, vel, theta_before = torch.as_tensor(every_c, device=device), [], None
+            for t, f_t in enumerate(torch.as_tensor(waves, device=device).unbind(1)):
+                if t == 1 and guard:  # lane 1's last healthy θ
+                    theta_before = [x[1].clone() for blk in carry[0][1].blocks for x in blk]
+                carry, _ = step(carry, f_t)
+                vel.append((carry[0][0] if guard else carry[0]).v[:, obs])
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            return carry, torch.stack(vel, dim=1).cpu(), theta_before
+
+        cpu_dev = torch.device("cpu")
+        g_bad, v_bad, theta_before = offloaded_p1(dev, poisoned, True)
+        g_cpu, v_cpu, _ = offloaded_p1(cpu_dev, poisoned, True)
+        _, v_clean, _ = offloaded_p1(dev, waves_c, True)
+        _, v_plain, _ = offloaded_p1(dev, waves_c, False)
+        theta = g_bad[0][1]
+        sets = {"blocks": theta.blocks, "spare": theta.spare}
+        lane1_frozen = {name: all(torch.equal(x[1], y) for x, y in zip((x for blk in blocks for x in blk), theta_before))
+                        for name, blocks in sets.items()}
+        pinned = {name: all(hetmem.is_pinned_host(x) for blk in blocks for x in blk) for name, blocks in sets.items()}
+        set_bytes = {name: sum(x.numel() * x.element_size() for blk in blocks for x in blk)
+                     for name, blocks in sets.items()}
+        scale_p1 = float(v_cpu[[0, 2]].abs().max())
+        err_p1 = float((v_bad - v_cpu).abs().max())
+        sib_p1 = all(torch.equal(v_bad[i], v_clean[i]) for i in (0, 2))
+        emit({"check": "kset_guarded_offloaded", "method": "proposed1", "mesh": [8, 8, 4], "M": 3, "steps": 3,
+              "nan": {"step": 1, "lane": 1}, "words": g_bad[1].tolist(), "words_cpu": g_cpu[1].tolist(),
+              "nonconverged": g_bad[2].tolist(), "nonconverged_cpu": g_cpu[2].tolist(),
+              "card_vs_cpu_rel": err_p1 / scale_p1, "siblings_bitwise": sib_p1,
+              "clean_guarded_vs_unguarded_bitwise": torch.equal(v_clean, v_plain),
+              "frozen_lanes": list(theta.frozen), "lane1_theta_frozen": lane1_frozen, "theta_pinned_host": pinned,
+              "theta_set_bytes": set_bytes})
+        require(torch.equal(g_bad[1], g_cpu[1]) and torch.equal(g_bad[2], g_cpu[2]),
+                "guarded offloaded Proposed 1: health words or counts differ between card and CPU")
+        require(health.diverged(g_bad[1]).tolist() == [False, True, False],
+                f"the NaN did not trip lane 1 alone (offloaded Proposed 1): {g_bad[1].tolist()}")
+        require(bool(torch.isfinite(v_bad).all()) and err_p1 <= 1e-6 * scale_p1,
+                f"guarded offloaded Proposed 1 on the card disagrees with the CPU port: {err_p1 / scale_p1}")
+        require(sib_p1, "the poisoned lane changed its siblings (offloaded Proposed 1)")
+        require(torch.equal(v_clean, v_plain), "the clean guarded offloaded run is not the unguarded one")
+        require(all(lane1_frozen.values()), f"lane 1's pinned θ is not its last healthy θ: {lane1_frozen}")
+        require(all(pinned.values()) and set_bytes["blocks"] == set_bytes["spare"],
+                f"θ's two host sets: pinned {pinned}, bytes {set_bytes}")
+        del g_bad, g_cpu, theta, sets, theta_before
 
     with Phase("campaign_check"):
         campaign_check(os.path.join(ROOT, "build", "campaign_check"))
@@ -2459,31 +2519,60 @@ def main() -> int:
         sdpa = torch.nn.functional.scaled_dot_product_attention  # yardstick only: the port never calls it
         pairs = S * (S + 1) // 2  # (q, k) pairs the causal mask keeps
         flops = 4 * Bf * Hq * pairs * dh
-        # fp32 (the CUDA-core kernel) at the reference's 2e-5: at S 4,096 most
-        # rows average thousands of keys, so |o| is ~0.03 and only fp32 holds
-        # those rows sharply
+        # fp32 (the 3×TF32 mma.sync kernel) at the reference's 2e-5: at S 4,096
+        # most rows average thousands of keys, so |o| is ~0.03 and only fp32
+        # holds those rows sharply.  Its bound is three TF32 products at the
+        # tensor cores' rate; the fp32 cores' bound stands beside it.
+        def flash32(q, k, v, flops, sdpa_kw, **kw):
+            """One fp32 instance: error against the plain version, ms of the
+            kernel, the plain version and (where it computes the function) SDPA,
+            and both bounds."""
+            out = fa_ops.flash_attention_cuda(q, k, v, **kw)
+            err = float((out - fa_ops.flash_attention_ref(q, k, v, **kw)).abs().max())
+            require(err <= FLASH_TOL["torch.float32"], f"flash_attention fp32 disagrees at {tuple(q.shape)}: {err}")
+            moved = nbytes(q, k, v, out)
+            b3, by3 = bound(moved, flops, "tf32x3")
+            return {"max_abs_err": err, "ms": cuda_ms(lambda: fa_ops.flash_attention_cuda(q, k, v, **kw), 5),
+                    "plain_ms": cuda_ms(lambda: fa_ops.flash_attention_ref(q, k, v, **kw), 1),
+                    "bound_ms": b3, "bound_by": by3, "bound_basis": "3×TF32 on the tensor cores, 495 TFLOP/s",
+                    "bound_fp32_cores_ms": bound(moved, flops, torch.float32)[0],
+                    "library_ms": None if sdpa_kw is None else cuda_ms(lambda: sdpa(q, k, v, **sdpa_kw), 3)}
+
         args = (q, k, v_bshd.transpose(1, 2))
-        out32 = fa_ops.flash_attention_cuda(*args)
-        err32 = float((out32 - fa_ops.flash_attention_ref(*args)).abs().max())
-        require(err32 <= FLASH_TOL["torch.float32"], f"flash_attention fp32 disagrees at the main path's shape: {err32}")
-        b32, by32 = bound(nbytes(*args, out32), flops, torch.float32)
+        f32 = flash32(*args, flops, dict(is_causal=True, enable_gqa=True))
+        del args
+        # two more fp32 instances, at published head shapes: gemma2-2b (Hq 8,
+        # Hkv 4, dh 256, window 4,096, softcap 50; SDPA has no softcap) and
+        # deepseek-v2's MLA heads (dh 192, dv 128, Hq = Hkv, 128 heads cut to 16)
+        instances = {}
+        for name, (Bi, Hqi, Hkvi, dhi, dvi, win, cap) in {
+                "gemma2-2b": (2, 8, 4, 256, 256, 4096, 50.0), "deepseek-v2 MLA": (1, 16, 16, 192, 128, None, None)}.items():
+            qi = torch.randn((Bi, Hqi, S, dhi), device=dev, generator=g)
+            ki = torch.randn((Bi, Hkvi, S, dhi), device=dev, generator=g)
+            vi = torch.randn((Bi, S, Hkvi, dvi), device=dev, generator=g).transpose(1, 2)
+            kept = sum(min(i + 1, win or S) for i in range(S))  # (q, k) pairs the causal mask and window keep
+            fl = 2 * Bi * Hqi * kept * (dhi + dvi)
+            instances[name] = {"B": Bi, "Hq": Hqi, "Hkv": Hkvi, "S": S, "dh": dhi, "dv": dvi, "window": win,
+                               "softcap": cap, "causal": True, "v_strided": True, "flops": fl,
+                               **flash32(qi, ki, vi, fl, None if cap else dict(is_causal=True, enable_gqa=Hqi != Hkvi),
+                                         causal=True, window=win, softcap=cap)}
+            del qi, ki, vi
+        regs = {key: val for key, val in ptxas_report(_build.ptxas_log()).items() if key.startswith("flash_kernel<")}
         rows.append({"name": "flash_attention_f32", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
                      "replaces": "src/repro/kernels/flash_attention/flash_attention.py:83",
                      "launches": cpu_path_launches["flash_attention_f32"] + serve_check_launches["flash_attention_f32"],
-                     "max_abs_err": err32,
-                     "ms": cuda_ms(lambda: fa_ops.flash_attention_cuda(*args), 3),
-                     "plain_ms": cuda_ms(lambda: fa_ops.flash_attention_ref(*args), 1),
-                     "bound_ms": b32, "bound_by": by32,
-                     "library_ms": cuda_ms(lambda: sdpa(*args, is_causal=True, enable_gqa=True), 3),
+                     **f32,
                      "detail": {"B": Bf, "Hq": Hq, "Hkv": Hkv, "S": S, "dh": dh, "dtype": "torch.float32",
-                                "causal": True, "v_strided": True, "tol": FLASH_TOL["torch.float32"],
+                                "causal": True, "v_strided": True, "tol": FLASH_TOL["torch.float32"], "flops": flops,
+                                "tflop_per_s": flops / (f32["ms"] / 1e3) / 1e12,
+                                "registers_spills": regs, "instances": instances,
                                 "launches_by_path": {
                                     "lm_cpu (fp32 prefill + forward on the card)": cpu_path_launches[
                                         "flash_attention_f32"],
                                     "serve_check (reduced qwen3 DecodeEngine and serve CLI, fp32)":
                                         serve_check_launches["flash_attention_f32"]}}})
         q, k, v = q.bfloat16(), k.bfloat16(), v_bshd.bfloat16().transpose(1, 2)
-        del args, v_bshd, out32
+        del v_bshd
         out_k, out_p = fa_ops.flash_attention_cuda(q, k, v), fa_ops.flash_attention_ref(q, k, v)
         err = float((out_k.float() - out_p.float()).abs().max())
         # bf16 relative to each value: 2 ulps of |o| plus 2^-5 of its row's rms

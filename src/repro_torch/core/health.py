@@ -23,9 +23,11 @@ The port's counterpart of the JAX package's ``core/health.py``, over a
 native k-set instead of a ``vmap``: every tensor leaf of a carry has the
 member axis first.  Freezing writes only the tripped lanes, in place (a
 whole-carry select would copy θ, 14.2 GB at the full-size mesh with k = 2,
-every step), so the old carry must still exist when the step returns:
-θ must be resident on the device (or Baseline 2's on the host), not in
-pinned host blocks the stream engine updates in place.
+every step), so the old carry must still exist when the step returns.  θ
+resident on the device (or Baseline 2's on the host) is a new tensor each
+step; θ streamed through pinned host blocks (Proposed 1 with
+``offload=True``) is given a second host set that the passes alternate
+between (:func:`guard_step`).
 """
 from __future__ import annotations
 
@@ -110,13 +112,30 @@ def finite_all(tree) -> torch.Tensor:
 
 def freeze(live: torch.Tensor, new_tree, old_tree):
     """``new_tree`` with each lane where ``live`` is False set back to
-    ``old_tree``'s, in place, leaf by leaf; returns ``new_tree``."""
+    ``old_tree``'s, in place, leaf by leaf; returns ``new_tree``.
+
+    A :class:`PartitionedState` written into the second set of
+    ``old_tree``'s (``new.spare is old.blocks``) has its dead lanes' rows
+    copied once, when they trip; they join ``frozen``, so later passes skip
+    their write-back and both sets keep them."""
     dead = (~live).nonzero().flatten()
-    if dead.numel():
-        for n, o in zip(_tensors(new_tree), _tensors(old_tree)):
-            if n is not o:
-                idx = dead.to(n.device)
-                n[idx] = o[idx]
+    if not dead.numel():
+        return new_tree
+    for n, o in zip(tree_leaves(new_tree), tree_leaves(old_tree)):
+        lanes = dead
+        if isinstance(n, PartitionedState):
+            if n.spare is not None and n.spare is o.blocks:
+                lanes = torch.tensor([i for i in dead.tolist() if i not in n.frozen], dtype=torch.long)
+                n.frozen = tuple(dead.tolist())
+            pairs = list(zip((t for blk in n.blocks for t in blk), (t for blk in o.blocks for t in blk)))
+        elif isinstance(n, torch.Tensor):
+            pairs = [(n, o)]
+        else:
+            continue
+        for nt, ot in pairs:
+            if nt is not ot and lanes.numel():
+                idx = lanes.to(nt.device)
+                nt[idx] = ot[idx]
     return new_tree
 
 
@@ -143,6 +162,31 @@ def initial_guard_carry(carry):
     return (carry, init_word(k), torch.zeros((k,), dtype=torch.int32))
 
 
+def _with_second_set(carry, springs_index: int = 1):
+    """``carry`` with its streamed θ (a :class:`PartitionedState`) given a
+    second set of blocks, allocated like the first (pinned host memory
+    where the first is pinned); the identity when it has one already."""
+    ps = carry[springs_index]
+    if not isinstance(ps, PartitionedState):
+        raise ValueError(f"a step with θ updated in place needs θ as a PartitionedState at carry[{springs_index}], "
+                         f"got {type(ps).__name__}")
+    if ps.spare is not None:
+        return carry
+    spare = [[torch.empty(x.shape, dtype=x.dtype, device=x.device, pin_memory=x.is_pinned()) for x in blk]
+             for blk in ps.blocks]
+    two = PartitionedState(blocks=ps.blocks, spare=spare, frozen=ps.frozen)
+    return (*carry[:springs_index], two, *carry[springs_index + 1:])
+
+
+def _synchronize(tree) -> None:
+    """Wait for the current stream of the CUDA device ``tree`` computes on
+    (the streamed pass's copies back into host blocks are queued there)."""
+    for x in tree_leaves(tree):
+        if isinstance(x, torch.Tensor) and x.device.type == "cuda":
+            torch.cuda.current_stream(x.device).synchronize()
+            return
+
+
 def guard_step(step, *, springs_index: int = 1):
     """Wrap a k-set ``step(carry, f_t) -> (carry', aux)`` with health tracking.
 
@@ -150,17 +194,30 @@ def guard_step(step, *, springs_index: int = 1):
     :func:`initial_guard_carry`.  ``springs_index`` locates the constitutive
     state inside the carry tuple (the FEM step factories keep it at 1).
     ``aux`` exposes ``relres`` and ``converged`` per lane
-    (:class:`repro_torch.fem.methods.StepAux`).  A step that updates θ in
-    place in host memory (``step.theta_in_place``: a streamed step with
-    ``offload=True``) is refused: a tripped lane's old θ would be gone.
+    (:class:`repro_torch.fem.methods.StepAux`).
+
+    A step that streams θ through host blocks it updates in place
+    (``step.theta_in_place``: Proposed 1 with ``offload=True``) gets a
+    second host set of θ on its first call (:func:`_with_second_set`): each
+    pass reads one set and writes the other, and the carry points at the set
+    just written, as the reference's functional update keeps old and new θ
+    across the step.  A lane that trips has its rows of the old set copied
+    into the new one once, on the host; its write-back is skipped from then
+    on, so both sets keep its frozen θ.  While every lane is healthy this
+    adds no transfer and no host copy; it costs a second pinned θ (k × 7.08
+    GB at the full-size mesh, 150 springs) and a wait for the pass's copies
+    before the host reads θ's finiteness each step.  The blocks of the carry
+    handed to the first call are written by the second.
     """
-    if getattr(step, "theta_in_place", False):
-        raise ValueError("guard_step needs the old θ when a lane trips, but this step updates θ in place "
-                         "in pinned host blocks (offload=True); build it with offload=False")
+    two_sets = getattr(step, "theta_in_place", False)
 
     def wrapped(hcarry, f_t):
         inner, word, ncg = hcarry
+        if two_sets:
+            inner = _with_second_set(inner, springs_index)
         new_inner, aux = step(inner, f_t)
+        if two_sets:
+            _synchronize(new_inner)  # the host blocks are read below
         live_before = is_live(word)
         word_new = torch.where(live_before, update_word(word, new_inner, new_inner[springs_index], aux), word)
         frozen = freeze(is_live(word_new), new_inner, inner)

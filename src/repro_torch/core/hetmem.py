@@ -38,9 +38,18 @@ def partition_arrays(tree: dict[str, torch.Tensor], npart: int) -> list[dict[str
 
 @dataclasses.dataclass
 class PartitionedState:
-    """State of Algorithm 3: ``npart`` blocks, each a list of tensors."""
+    """State of Algorithm 3: ``npart`` blocks, each a list of tensors.
+
+    ``spare``, when given, is a second set of blocks of the same shapes: a
+    streamed pass then reads ``blocks``, writes the evolved blocks into
+    ``spare`` and returns a state whose ``blocks`` are the set it wrote and
+    whose ``spare`` is the set it read, so the old state outlives the pass.
+    ``frozen`` names k-set lanes whose evolved rows are not written back
+    (with ``spare``: both sets keep the rows they hold)."""
 
     blocks: list[list[torch.Tensor]]
+    spare: list[list[torch.Tensor]] | None = None
+    frozen: tuple[int, ...] = ()
 
     @property
     def npart(self) -> int:

@@ -42,10 +42,16 @@ one-member function over the leading axis, and :func:`stack_kset` …
 
 Host blocks are updated **in place**: each evolved block is copied back
 into the pinned host tensors it came from, so θ is held once in host
-memory.  The copies are asynchronous; the host tensors are valid to read
-from the CPU once the current stream has been synchronised.  When the
-computation runs on the CPU, or with ``offload=False``, there are no
-transfers and the evolved blocks are new tensors.
+memory.  A state with a second set (``PartitionedState.spare``) is read
+from one set and written into the other instead, and the returned state
+points at the set just written, with the set read as its spare: the old
+state then outlives the pass (what ``health.guard_step`` needs to freeze a
+lane), at the cost of a second host copy of θ and no extra transfer.  The
+lanes in ``PartitionedState.frozen`` are not written back.  The copies are
+asynchronous; the host tensors are valid to read from the CPU once the
+current stream has been synchronised.  When the computation runs on the
+CPU, or with ``offload=False``, there are no transfers and the evolved
+blocks are new tensors (copied into the second set where there is one).
 """
 from __future__ import annotations
 
@@ -161,6 +167,11 @@ class StreamEngine:
                         raise ValueError(
                             f"kset={plan.kset} but block {j} leaf has shape {tuple(x.shape)} — "
                             f"stack members with stack_kset_states")
+        if state.spare is not None and [[(x.shape, x.dtype) for x in b] for b in state.spare] != [
+                [(x.shape, x.dtype) for x in b] for b in blocks]:
+            raise ValueError("the second set of blocks (spare) differs in shape or dtype from the blocks")
+        dst = blocks if state.spare is None else state.spare  # where the evolved blocks go
+        frozen = state.frozen
         bc = tuple(broadcast)
         has_carry = carry is not None
         box = [carry]  # the carry after the blocks called so far
@@ -179,28 +190,31 @@ class StreamEngine:
             out_blocks = []
             for j in range(npart):
                 new_blk, extra = call(j, blocks[j])
+                if state.spare is not None:
+                    _write_back(dst[j], new_blk, frozen)
+                    new_blk = dst[j]
                 out_blocks.append(list(new_blk))
                 extras.append(extra)
         elif plan.schedule == "serial":
-            out_blocks = self._serial(call, blocks, extras)
+            out_blocks = self._serial(call, blocks, dst, frozen, extras)
         elif plan.schedule == "prefetch":
-            out_blocks = self._prefetch(call, blocks, extras)
+            out_blocks = self._prefetch(call, blocks, dst, frozen, extras)
         else:
-            out_blocks = self._donate(call, blocks, extras)
-        return StreamResult(state=PartitionedState(blocks=out_blocks), carry=box[0],
+            out_blocks = self._donate(call, blocks, dst, frozen, extras)
+        spare = None if state.spare is None else blocks
+        return StreamResult(state=PartitionedState(blocks=out_blocks, spare=spare, frozen=frozen), carry=box[0],
                             extras=extras if plan.collect else [])
 
-    def _serial(self, call, blocks, extras):
+    def _serial(self, call, blocks, dst, frozen, extras):
         dev = torch.device(self.plan.device)
         for j, host in enumerate(blocks):
             dev_blk = [x.to(dev, non_blocking=True) for x in host]
             new_blk, extra = call(j, dev_blk)
-            for h, d in zip(host, new_blk):
-                h.copy_(d, non_blocking=True)  # in place, same stream: ordered
+            _write_back(dst[j], new_blk, frozen)  # same stream: ordered
             extras.append(extra)
-        return blocks
+        return dst
 
-    def _prefetch(self, call, blocks, extras):
+    def _prefetch(self, call, blocks, dst, frozen, extras):
         dev = torch.device(self.plan.device)
         npart, depth = len(blocks), self.plan.prefetch
         compute = torch.cuda.current_stream(dev)
@@ -231,15 +245,15 @@ class StreamEngine:
             extras.append(extra)
             d2h.wait_event(compute.record_event())
             with torch.cuda.stream(d2h):
-                for h, d in zip(blocks[j], new_blk):
+                for d in new_blk:
                     d.record_stream(d2h)  # not reused while the copy reads it
-                    h.copy_(d, non_blocking=True)  # in place
+                _write_back(dst[j], new_blk, frozen)
         # Block j's copy back completes before anything later on the compute
         # stream, including the next pass's copy of block j to the device.
         compute.wait_stream(d2h)
-        return blocks
+        return dst
 
-    def _donate(self, call, blocks, extras):
+    def _donate(self, call, blocks, dst, frozen, extras):
         dev = torch.device(self.plan.device)
         shapes = [(tuple(x.shape), x.dtype) for x in blocks[0]]
         for j, blk in enumerate(blocks):
@@ -274,13 +288,25 @@ class StreamEngine:
             extras.append(extra)
             d2h.wait_event(compute.record_event())
             with torch.cuda.stream(d2h):
-                for h, d in zip(blocks[j], new_blk):
+                for d in new_blk:
                     d.record_stream(d2h)  # not reused while the copy reads it
-                    h.copy_(d, non_blocking=True)  # in place
+                _write_back(dst[j], new_blk, frozen)
                 released[s] = d2h.record_event()  # the compute came before it on d2h
         compute.wait_stream(d2h)
         compute.wait_stream(h2d)
-        return blocks
+        return dst
+
+
+def _write_back(dst: list[torch.Tensor], new_blk: Sequence[torch.Tensor], frozen: tuple[int, ...]) -> None:
+    """Copy an evolved block into the host tensors ``dst`` in place, on the
+    current stream, leaving the k-set lanes in ``frozen`` as they are."""
+    for h, d in zip(dst, new_blk):
+        if not frozen:
+            h.copy_(d, non_blocking=True)
+            continue
+        for i in range(h.shape[0]):
+            if i not in frozen:
+                h[i].copy_(d[i], non_blocking=True)
 
 
 # ---------------------------------------------------------------------------

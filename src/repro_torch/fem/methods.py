@@ -452,7 +452,7 @@ def make_step_crs(ops: FemOperators, *, transfer_boundaries: bool = False, strea
         tail = (res.x,) if cfg.warm_start else ()
         return (nm, springs, D_new, alpha, beta_e, *tail), StepAux(res.iters, res.relres, res.converged)
 
-    step.theta_in_place = streamed and offload
+    step.theta_in_place = streamed and offload  # health.guard_step gives θ a second host set
     return step
 
 
@@ -507,7 +507,7 @@ def make_step_ebe(ops: FemOperators, *, streamed: bool = True, offload: bool = T
             tail += (Minv, tstep + 1)
         return (nm, springs, D_new, alpha, beta_e, *tail), StepAux(res.iters, res.relres, res.converged)
 
-    step.theta_in_place = streamed and offload
+    step.theta_in_place = streamed and offload  # health.guard_step gives θ a second host set
     return step
 
 
@@ -648,8 +648,10 @@ def make_ensemble_step(ops: FemOperators, method: str, *, kset: int, offload: bo
     sets through).  ``proposed1`` streams a :class:`PartitionedState` whose
     blocks are ``[kset, chunk, S]`` through ``StreamPlan(kset=kset,
     offload=offload)``: on the device with ``offload=False``, in pinned host
-    memory, updated in place, with ``offload=True``.  The baselines are as in
-    :func:`make_step`.  Raises ``KeyError`` for names outside :data:`METHODS`."""
+    memory, updated in place, with ``offload=True`` (or alternating between
+    two host sets under :func:`repro_torch.core.health.guard_step`).  The
+    baselines are as in :func:`make_step`.  Raises ``KeyError`` for names
+    outside :data:`METHODS`."""
     return ensemble_step(ops, method, offload=offload), initial_ensemble_carry(ops, method, kset=kset,
                                                                                 offload=offload)
 

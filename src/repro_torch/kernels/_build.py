@@ -98,7 +98,7 @@ _ENTRY_POINTS = {
     "ebe_matvec": (("f32", "f64"), [_P] * 7 + [_I, _I, _I, _I, _P, _P]),
     # q, k, v, out, B, Hq, Hkv, Sq, Skv, dh, dv, q/k/v strides (batch, head, row),
     # scale, causal, window (0: none), softcap (0: none), stream
-    "flash_attention": (("f32",), _FLASH_ARGS),  # CUDA cores
+    "flash_attention": (("f32",), _FLASH_ARGS),  # tensor cores, 3×TF32 mma.sync
     "flash_attention_wgmma": (("bf16",), _FLASH_ARGS),  # tensor cores, TMA
 }
 

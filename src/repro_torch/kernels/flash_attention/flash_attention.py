@@ -4,8 +4,10 @@ The dtype alone chooses the kernel, and both are hand-written:
 
 * bfloat16 → ``csrc/flash_attention_wgmma.cu``: wgmma on the tensor cores,
   q, k and v brought in by TMA through a ring of shared-memory stages;
-* float32 → ``csrc/flash_attention.cu``: the CUDA cores (TF32 tensor cores
-  could not hold the reference's fp32 tolerance).
+* float32 → ``csrc/flash_attention.cu``: mma.sync on the tensor cores in
+  3×TF32 (each operand split into a TF32 high part and the rest, three
+  products), which holds the reference's fp32 tolerance where one TF32
+  pass does not; K and V come by cp.async through a two-stage ring.
 
 Each launches on the current CUDA stream; the output ``[B,Hq,Sq,dv]`` is
 allocated here with ``torch.empty``.  q, k and v are passed with their batch,

@@ -21,18 +21,18 @@ makes that coverage declarative and hashable:
   nodes instead of the single hand-picked point.
 
 Two scenarios that differ in any physics-bearing field hash differently
-(:meth:`Scenario.signature`).  The JAX package threads that signature into
-the campaign checkpoint signature, so a checkpoint written under one
-scenario refuses to resume under another — including soil perturbations,
-which change the mesh but neither the waves nor the ``SeismicConfig`` the
-original signature covered; the port does so with its scenario campaigns,
-which are not ported yet.
+(:meth:`Scenario.signature`).  Both packages thread that signature into the
+campaign checkpoint signature (the port through
+:meth:`repro_torch.scenario.planner.PlanGroup.signature` in ``run_group``), so
+a checkpoint written under one scenario refuses to resume under another —
+including soil perturbations, which change the mesh but neither the waves
+nor the ``SeismicConfig`` the original signature covered.
 
 :meth:`Scenario.compile_key` captures the subset of fields that shape the
 campaign's operators and shapes (mesh, physics, observation count, record
-length).  Scenarios sharing a compile key can run as one campaign over
-many rounds (the reference's planner groups them so; the port has no
-planner yet).
+length).  Scenarios sharing a compile key run as one campaign over many
+rounds: :func:`repro_torch.scenario.planner.make_plan` groups them so, as
+the reference's planner does.
 """
 from __future__ import annotations
 

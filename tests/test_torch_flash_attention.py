@@ -7,7 +7,21 @@ Tolerances are the reference's (tests/test_kernels.py:121-166): fp32 atol
 2e-5, bf16 atol 2e-2 at N(0,1) inputs, the Sq × Skv property 3e-5.  The
 plain version is also run with small blocks, so that the online softmax
 crosses several q and kv blocks with ragged edges at these small shapes.
+
+The fp32 CUDA kernel (``csrc/flash_attention.cu``) runs both products as
+3×TF32 on the tensor cores, which only the card can execute.  A PyTorch
+model of that arithmetic (``_tf32x3_flash``: each operand split into hi,
+rounded to TF32 to nearest on the low 13 mantissa bits, and lo = x − hi,
+read by the tensor core as its top 19 bits; lo·hi + hi·lo then hi·hi per
+k-step of 8 in fp32, a score in two halves of k-steps, a tile's P·V apart
+from O, over the kernel's key tiles in order) is held to the same
+2e-5 against the oracle and the Pallas kernel, on the fp32 cases
+``chip_smoke.py`` holds the kernel to and on one long causal prefill,
+before the card sees it.
 """
+import os
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +30,9 @@ import torch
 from repro.kernels.flash_attention import attention_ref, flash_attention_pallas
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from chip_smoke import FLASH_CASES  # noqa: E402  (the repository root's script: constants only at import)
 
 CASES = [
     (1, 2, 2, 64, 64, 32, True, None, None),
@@ -137,10 +154,11 @@ def test_tma_layout_checks():
 
 
 def test_dtype_selects_the_kernel():
-    """bf16 goes to the wgmma/TMA kernel and fp32 to the CUDA-core kernel,
-    each with its own launch counter; the CUDA-core source has no bf16
-    instance, and the Hopper source issues wgmma for both products and loads
-    through TMA into an mbarrier-guarded ring."""
+    """bf16 goes to the wgmma/TMA kernel and fp32 to the 3×TF32 mma.sync
+    kernel, each with its own launch counter; the fp32 source has no bf16
+    instance and issues TF32 mma.sync fed by cp.async, and the bf16 source
+    issues wgmma for both products and loads through TMA into an
+    mbarrier-guarded ring."""
     from repro_torch import kernels
     from repro_torch.kernels import _build
 
@@ -155,7 +173,11 @@ def test_dtype_selects_the_kernel():
                 "setmaxnreg"):
         assert ptx in hopper
     assert "flash_attention_wgmma.cu" in _build.SOURCES
-    assert "bfloat16" not in (_build.CSRC / "flash_attention.cu").read_text()
+    fp32 = (_build.CSRC / "flash_attention.cu").read_text()
+    assert "bfloat16" not in fp32
+    for ptx in ("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32", "cp.async.cg.shared.global",
+                "cp.async.wait_group"):
+        assert ptx in fp32
 
 
 def test_launch_counter_parts():
@@ -167,3 +189,132 @@ def test_launch_counter_parts():
     assert (whole.n, a.n, b.n) == (3, 2, 1)
     whole.reset()
     assert (whole.n, a.n, b.n) == (0, 0, 0)
+
+
+# ---------------------------------------------------------------------------
+# a model of the fp32 kernel's 3×TF32 arithmetic
+# ---------------------------------------------------------------------------
+
+# (B, Hq, Hkv, Sq, Skv, dh, dv, causal, window, softcap): the cases chip_smoke.py
+# holds the fp32 kernel to on the card, their layout flag dropped
+KERNEL_CASES = [case[:10] for case in FLASH_CASES]
+
+
+def _tf32(x):
+    """Round fp32 to TF32 (10 mantissa bits): to nearest, ties away from zero."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _top19(x):
+    """What the tensor core reads of an fp32 register passed as TF32."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _top19(x - hi)
+
+
+def _mma3(a, b, halves=1):
+    """``a [..., M, K] @ b [..., K, N]`` as the kernel's 3×TF32 mma.sync:
+    per k-step of 8, lo·hi + hi·lo, then hi·hi, into fp32 accumulators, k-step
+    i into sum ``i % halves``; the sums are added last."""
+    K = a.shape[-1]
+    pad = -K % (8 * halves)
+    C = (K + pad) // 8
+    a_hi, a_lo = _split(torch.nn.functional.pad(a, (0, pad)).unflatten(-1, (C, 8)))
+    b_hi, b_lo = _split(torch.nn.functional.pad(b, (0, 0, 0, pad)).unflatten(-2, (C, 8)))
+    # each k-step's three products [..., C, M, N], each an 8-term sum in fp32
+    steps = [torch.einsum("...mck,...ckn->...cmn", x, y) for x, y in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi))]
+    acc = [torch.zeros((*a.shape[:-1], b.shape[-1]), dtype=torch.float32) for _ in range(halves)]
+    for i in range(C):
+        for prod in steps:
+            acc[i % halves] = acc[i % halves] + prod[..., i, :, :]
+    return sum(acc[1:], acc[0])
+
+
+def _tf32x3_flash(q, k, v, *, causal=True, window=None, softcap=None):
+    """The fp32 kernel's function and arithmetic on the CPU: key tiles of 64,
+    32 or 16 (head-dim bucket 64, 128, 256) in order, the online softmax in
+    fp32.  Every row runs over every tile: a tile the kernel skips for a row
+    adds exactly nothing (p = 0 and a correction of 1 after the row's first
+    visible key, or garbage wiped by a correction of exactly 0 before it)."""
+    B, Hq, Sq, dh = q.shape
+    Hkv, Skv, dv = k.shape[1], k.shape[2], v.shape[3]
+    d = max(dh, dv)
+    BK = 64 if d <= 64 else 32 if d <= 128 else 16
+    kk, vv = (x.repeat_interleave(Hq // Hkv, dim=1) for x in (k, v))
+    scale = dh**-0.5
+    qpos = torch.arange(Sq) + Skv - Sq
+    m = torch.full((B, Hq, Sq, 1), -1e30)
+    l = torch.zeros((B, Hq, Sq, 1))
+    acc = torch.zeros((B, Hq, Sq, dv))
+    for k0 in range(0, Skv, BK):
+        kb, vb = kk[:, :, k0:k0 + BK], vv[:, :, k0:k0 + BK]
+        s = _mma3(q, kb.transpose(-1, -2), halves=2) * scale
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        kpos = torch.arange(k0, k0 + kb.shape[2])
+        ok = torch.ones((Sq, kb.shape[2]), dtype=torch.bool)
+        if causal:
+            ok &= kpos[None, :] <= qpos[:, None]
+        if window:
+            ok &= qpos[:, None] - kpos[None, :] < window
+        s = torch.where(ok, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + _mma3(p, vb)
+        m = m_new
+    return acc / (l + 1e-30)
+
+
+@pytest.fixture
+def one_thread():
+    """The model runs thousands of small tensor operations: with the test
+    workers sharing the cores, torch's intra-op threads would spend their
+    time waiting on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_tf32_rounding_and_split():
+    x = torch.tensor([1.0, 1.0 + 2**-11, 1.0 + 3 * 2**-12, -(1.0 + 2**-11), 3.0e-5, -7.25e3, 0.0])
+    hi, lo = _split(x)
+    assert hi.tolist()[:4] == [1.0, 1.0 + 2**-10, 1.0 + 2**-10, -(1.0 + 2**-10)]  # ties away from zero
+    assert bool(((hi.view(torch.int32) & 0x1FFF) == 0).all()) and bool(((lo.view(torch.int32) & 0x1FFF) == 0).all())
+    assert bool(((x - hi).abs() <= 2**-11 * x.abs()).all())
+    assert bool(((x - (hi + lo)).abs() <= 2**-21 * x.abs()).all())
+
+
+@pytest.mark.parametrize("case", KERNEL_CASES + [(1, 2, 1, 2048, 2048, 128, 128, True, None, None)],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_tf32x3_model_holds_the_fp32_tolerance(case, one_thread):
+    """The 3×TF32 arithmetic of the fp32 kernel within the reference's fp32
+    atol 2e-5 of the oracle and the Pallas kernel (interpret mode)."""
+    B, Hq, Hkv, Sq, Skv, dh, dv, causal, window, cap = case
+    q, k, v = _inputs(Sq * 1000 + Skv, B, Hq, Hkv, Sq, Skv, dh, dv=dv)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    ref = np.asarray(attention_ref(jq, jk, jv, **kw))
+    tq = 128 if Sq > 1024 else 32
+    pal = np.asarray(flash_attention_pallas(jq, jk, jv, tq=tq, tk=128, interpret=True, **kw))
+    model = _tf32x3_flash(*(torch.tensor(x) for x in (q, k, v)), **kw).numpy()
+    np.testing.assert_allclose(model, ref, rtol=0, atol=2e-5)
+    np.testing.assert_allclose(model, pal, rtol=0, atol=2e-5)
+
+
+def test_one_tf32_pass_misses_the_fp32_tolerance(monkeypatch, one_thread):
+    """Why three passes: the same model with one TF32 product (operands
+    rounded to TF32) is ~40× off the reference's 2e-5 at qwen3's heads."""
+    case = (2, 16, 8, 100, 150, 128, 128, True, None, None)
+    B, Hq, Hkv, Sq, Skv, dh, dv, causal, window, cap = case
+    q, k, v = (torch.tensor(x) for x in _inputs(Sq * 1000 + Skv, B, Hq, Hkv, Sq, Skv, dh, dv=dv))
+    ref = flash_attention_ref(q.double(), k.double(), v.double()).float()
+    err3 = float((_tf32x3_flash(q, k, v) - ref).abs().max())
+    monkeypatch.setitem(globals(), "_mma3", lambda a, b, halves=1: _tf32(a) @ _tf32(b))
+    err1 = float((_tf32x3_flash(q, k, v) - ref).abs().max())
+    assert err3 < 5e-6 < 2e-5 < 10 * 2e-5 < err1

@@ -9,7 +9,10 @@ functions only, as ``repro/campaign/runner.py`` does: ``jax.vmap`` of
 carry0), 3)`` in a ``lax.scan``.  A NaN in case 1's forcing at step 3
 (``faults.nan_at_step``) must give the reference's health words and
 nonconverged counts exactly; the siblings must be bitwise the port's clean
-guarded run, and the clean guarded run bitwise the unguarded one.
+guarded run, and the clean guarded run bitwise the unguarded one.  The
+same holds for Proposed 1 with θ offloaded (``offload=True``), whose guard
+keeps θ in two host sets, and its tripped lane's θ stays as it was before
+the trip.
 """
 import dataclasses
 
@@ -93,6 +96,96 @@ def test_guarded_equals_unguarded_when_healthy(guarded):
     v = ref["velocity_history"][[0, 2]]
     np.testing.assert_allclose(runs["bad"]["velocity_history"][[0, 2]].numpy(), v, rtol=0,
                                atol=1e-6 * np.abs(v).max())
+
+
+@pytest.fixture(scope="module")
+def guarded_offloaded():
+    """Proposed 1 with θ offloaded (``offload=True``), guarded: the reference's
+    ``jax.vmap(guard_step(step))`` in a ``lax.scan`` against the port's
+    guarded k-set on the CPU, whose θ alternates between two block sets.
+
+    The reference's step is its ``offload=False`` form, whose arithmetic its
+    ``offload=True`` form shares (the flag only places θ): on a JAX whose CPU
+    runtime has a ``pinned_host`` memory, the reference's ``finite_all``
+    refuses to combine a host-memory θ's checks with device ones."""
+    ref_mesh = ref_meshgen.generate(2, 2, 2, pad_elems_to=4)
+    mesh = convert.mesh_from_arrays(ref_mesh)
+    waves = _waves(3)
+    poisoned = faults.nan_at_step(waves, 3, case=1)
+    obs = ref_mesh.surface[:1]
+    with jax.enable_x64(True):
+        ops = ref_backend.make_operators(ref_mesh, ref_methods.SeismicConfig(**KW))
+        step, carry0 = ref_methods.make_ensemble_step(ops, "proposed1", offload=False)
+        gstep = ref_health.guard_step(step)
+
+        def body(c, f_t):
+            c, aux = jax.vmap(gstep)(c, f_t)
+            return c, (c[0][0].v[:, obs], aux.iters)
+
+        hc = ref_broadcast_kset(ref_health.initial_guard_carry(carry0), 3)
+        hc, (vel, iters) = jax.lax.scan(body, hc, jnp.swapaxes(jnp.asarray(poisoned), 0, 1))
+        ref = {"health": np.asarray(hc[1]), "nonconverged": np.asarray(hc[2]),
+               "iters": np.asarray(iters).T, "velocity_history": np.swapaxes(np.asarray(vel), 0, 1)}
+
+    ops = backend.make_operators(mesh, methods.SeismicConfig(**KW), device="cpu")
+    obs_t = torch.as_tensor(obs)
+
+    def run(w, guarded):
+        step, carry = methods.make_ensemble_step(ops, "proposed1", kset=3, offload=True)
+        if guarded:
+            step, carry = health.guard_step(step), health.initial_guard_carry(carry)
+        vel, iters, theta_before_trip = [], [], None
+        for t, f_t in enumerate(torch.tensor(w).unbind(1)):
+            if t == 3 and guarded:  # lane 1's θ before the step its forcing is NaN
+                theta_before_trip = [x[1].clone() for blk in carry[0][1].blocks for x in blk]
+            carry, aux = step(carry, f_t)
+            vel.append((carry[0][0] if guarded else carry[0]).v[:, obs_t])
+            iters.append(aux.iters)
+        return {"velocity_history": torch.stack(vel, dim=1), "iters": torch.stack(iters, dim=1), "carry": carry,
+                "theta_before_trip": theta_before_trip}
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)  # small tensors: intra-op threads would only wait on the other test workers
+    try:
+        return ref, {"bad": run(poisoned, True), "clean": run(waves, True), "plain": run(waves, False)}
+    finally:
+        torch.set_num_threads(n)
+
+
+def test_guarded_offloaded_kset_matches_reference(guarded_offloaded):
+    """guard_step over Proposed 1 with θ offloaded gives the reference's
+    health words and counts; the siblings are bitwise the clean guarded
+    run, and that run bitwise the unguarded offloaded one."""
+    ref, runs = guarded_offloaded
+    (_, word, ncg), clean = runs["bad"]["carry"], runs["clean"]["carry"]
+    np.testing.assert_array_equal(word.numpy(), ref["health"])
+    np.testing.assert_array_equal(ncg.numpy(), ref["nonconverged"])
+    np.testing.assert_array_equal(runs["bad"]["iters"].numpy(), ref["iters"])
+    assert health.diverged(word).tolist() == [False, True, False] and clean[1].tolist() == [0, 0, 0]
+    bad_v = runs["bad"]["velocity_history"]
+    for sib in (0, 2):
+        assert torch.equal(bad_v[sib], runs["clean"]["velocity_history"][sib])
+    assert bool(torch.isfinite(bad_v).all())
+    assert torch.equal(runs["clean"]["velocity_history"], runs["plain"]["velocity_history"])
+    v = ref["velocity_history"][[0, 2]]
+    np.testing.assert_allclose(bad_v[[0, 2]].numpy(), v, rtol=0, atol=1e-6 * np.abs(v).max())
+
+
+def test_guarded_offloaded_kset_freezes_theta(guarded_offloaded):
+    """The tripped lane's θ is the θ it had before the trip, in both host
+    sets; the siblings' θ is bitwise the clean run's."""
+    _, runs = guarded_offloaded
+    theta = runs["bad"]["carry"][0][1]
+    assert theta.spare is not None and theta.frozen == (1,)
+    for blocks in (theta.blocks, theta.spare):
+        lane1 = [x[1] for blk in blocks for x in blk]
+        assert all(torch.equal(x, y) for x, y in zip(lane1, runs["bad"]["theta_before_trip"]))
+    clean = runs["clean"]["carry"][0][1]
+    assert clean.frozen == () and all(
+        torch.equal(x[i], y[i]) for b1, b2 in zip(theta.blocks, clean.blocks) for x, y in zip(b1, b2) for i in (0, 2))
+    plain = runs["plain"]["carry"][1]
+    assert plain.spare is None and all(
+        torch.equal(x, y) for b1, b2 in zip(clean.blocks, plain.blocks) for x, y in zip(b1, b2))
 
 
 # ---------------------------------------------------------------------------

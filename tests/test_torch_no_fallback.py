@@ -356,19 +356,33 @@ def test_kset_multispring_entries_refuse_a_missing_or_mismatched_k():
 
 
 def test_guard_step_refuses_an_offloaded_theta():
-    """A tripped lane is frozen by writing its old carry back; with θ in
-    pinned host blocks updated in place (offload=True) the old θ is gone."""
+    """A tripped lane is frozen by writing its old carry back.  guard_step no
+    longer refuses θ in host blocks updated in place (offload=True): it gives
+    θ a second set of blocks, each pass writes the set it did not read, and
+    the old θ outlives the step.  What it still refuses is such a step whose
+    carry holds θ in another form than a PartitionedState."""
     from repro_torch.core import health
 
     mesh = meshgen.generate(1, 1, 1, pad_elems_to=2)
     ops = backend.make_operators(mesh, methods.SeismicConfig(npart=2, nspring=6), device="cpu")
-    step, _ = methods.make_ensemble_step(ops, "proposed1", kset=2, offload=True)
-    with pytest.raises(ValueError, match="in place"):
-        health.guard_step(step)
-    with pytest.raises(ValueError, match="in place"):
-        health.guard_step(methods.make_step("proposed2", ops)[0])  # methods.run's streamed step
+    step, carry = methods.make_ensemble_step(ops, "proposed1", kset=2, offload=True)
+    assert step.theta_in_place
+    gstep = health.guard_step(step)
+    hc = health.initial_guard_carry(carry)
+    first = carry[1].blocks
+    for f in torch.zeros((2, 2, 3), dtype=torch.float64).unbind(1):
+        hc, _ = gstep(hc, f)
+        theta = hc[0][1]
+        assert theta.spare is not None and theta.blocks is not theta.spare
+        assert all(x is not y for b1, b2 in zip(theta.blocks, theta.spare) for x, y in zip(b1, b2))
+    # two passes: back in the set the carry came with
+    assert all(x is y for b1, b2 in zip(theta.blocks, first) for x, y in zip(b1, b2))
+    assert hc[1].tolist() == [0, 0]
+    _, resident = methods.make_ensemble_step(ops, "baseline1", kset=2)
+    with pytest.raises(ValueError, match="PartitionedState"):
+        gstep(health.initial_guard_carry(resident), torch.zeros((2, 3), dtype=torch.float64))
     step, _ = methods.make_ensemble_step(ops, "proposed1", kset=2, offload=False)
-    assert callable(health.guard_step(step))
+    assert callable(health.guard_step(step)) and not step.theta_in_place
 
 
 def test_run_ensemble_raises_without_a_card():
