@@ -80,8 +80,8 @@ Phases, each followed by a JSON line with its seconds:
                memory), ``npart=8``, prefetch, fp64, 8 steps;
 12. crs_main   the CRS rungs at main's size and config through ``methods.run``:
                Baseline 1 (θ on the card) and Proposed 1 (θ streamed) 4
-               steps each, Baseline 2 (θ and the multispring on the host) 2
-               steps; per step the parts of the step, per rung the peak
+               steps each, Baseline 2 (θ and the multispring on the host) 1
+               step; per step the parts of the step, per rung the peak
                device memory against θ's bytes;
 13. lm_cpu     qwen3-1.7b at full width, 2 layers, fp32: prefill + 4 decode
                steps on the card against the CPU, and prefill→decode against
@@ -149,7 +149,20 @@ Phases, each followed by a JSON line with its seconds:
                is 14.16 GB), stopped after step 2 and resumed, bitwise (a)'s
                guarded round 0, with each checkpoint's bytes and seconds to
                copy, write, CRC and restore, and the free disk before;
-21. timing     each kernel at the shapes its main path gives it, against its
+21. campaign_mp  the multi-process campaign through the CLI
+               (``python -m repro_torch.launch.campaign``, one process each)
+               at main's size: Proposed 2, 150 springs, k 1, 5 waves of 4
+               steps, a checkpoint every 2; one process as the reference,
+               then two processes on the card (``--num-processes 2``),
+               stopped after step 2 and relaunched: each process's banked
+               rounds bitwise the one-process rows (process 1's padded lane
+               bitwise case 4), ``OUT/p00`` ∪ ``OUT/p01`` the one-process
+               shards, the pair's checkpoint refused by one process ("world
+               size"), each worker's FEM kernel launches; per process and
+               chunk s/step per case and peak device bytes, checkpoint bytes
+               and seconds, cases/s and the pair's summed rate against one
+               process's;
+22. timing     each kernel at the shapes its main path gives it, against its
                plain version, its bound and (flash) SDPA, with flash held in
                fp32 and bf16 there too and timed in both (fp32 against the
                3×TF32 bound and the fp32 cores' bound, also at gemma2-2b's
@@ -165,7 +178,7 @@ Phases, each followed by a JSON line with its seconds:
                ``torch.nn.LSTM`` (cuDNN) at B 4, T 4,000, H 1,024, forward and
                forward + backward, and ``ssm_scan`` against its loop at T ∈
                {256, 1,024, 4,096, 16,000} (``{"outside_pallas": [...]}``);
-22. plan_main  the planning and scheduling layer at main's size, 150 springs,
+23. plan_main  the planning and scheduling layer at main's size, 150 springs,
                with a calibration table written from ``timing``'s own kernel
                times (the multispring block and the fp64 EBE product as
                backend ``cuda``, their plain versions as ``torch``): (a) the
@@ -176,8 +189,9 @@ Phases, each followed by a JSON line with its seconds:
                --lease-s 120 --method proposed2 --kset 1`` over two soils × 2
                cases, one group per worker process on the card: the queue
                settled, no dead group, no takeover.  The FEM rows of the
-               kernel line gain ``launches_by_path`` (``plan_check``, (a);
-               (b)'s launches are in its worker processes).
+               kernel line gain ``launches_by_path`` (``plan_check``, (a),
+               ``campaign_mp``'s workers summed; (b)'s launches are in its
+               worker processes, not counted).
 
 It prints one ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -203,7 +217,7 @@ PEAK_FLOPS = {"torch.float64": 34e12, "torch.float32": 67e12, "torch.bfloat16": 
 MS_OPS_PER_SPRING = 124  # counted from csrc/multispring.cu (pow as one op)
 EBE_OPS_PER_ELEM = 2448  # 4 points × (2·90 g + 2·90 H + 2·36 Dε + 2·90 Bᵀσ)
 FEM_KERNELS = ("multispring", "ebe_matvec_f64", "ebe_matvec_f32")
-CRS_STEPS = {"baseline1": 4, "proposed1": 4, "baseline2": 2}  # crs_main; Baseline 2's host pass is slow
+CRS_STEPS = {"baseline1": 4, "proposed1": 4, "baseline2": 1}  # crs_main; Baseline 2's host pass is slow
 # (B, Hq, Hkv, Sq, Skv, dh, dv, causal, window, softcap, strided q/k/v)
 FLASH_CASES = [
     (1, 2, 2, 64, 64, 32, 32, True, None, None, False),
@@ -536,6 +550,194 @@ def campaign_main(mesh, cfg, waves, kset_v, root):
             f"the resume held more than one k-set carry: peak {peak_resumed} B vs {peak_guarded} B uninterrupted")
     shutil.rmtree(root, ignore_errors=True)
     return plain["launches"]
+
+
+# campaign_mp: the campaign CLI at main's size (Proposed 2, 150 springs, k 1), 5 waves of
+# 4 steps, a checkpoint every 2: one process, then two processes on the one card
+CAMPAIGN_MP_FLAGS = ["--waves", "5", "--nt", "4", "--mesh-n", "64x64x12", "--nspring", "150",
+                     "--method", "proposed2", "--kset", "1", "--ckpt-every", "2"]
+CAMPAIGN_MP_TIMEOUT_S = {"one": 300, "pair_stopped": 240, "pair_resumed": 300}
+_CLI_RECORD = re.compile(r"\[(chunk|checkpoint|launches)\] (\{.*\})$")
+
+
+def _spawn_campaign_cli(argvs, log_dir, name, timeout):
+    """Each argv as ``python -m repro_torch.launch.campaign`` in a process of
+    its own, all started at once, each writing a log file (a pipe left full
+    would stall a sibling at a barrier).  A child that exits non-zero, or a
+    launch that outlives ``timeout``, fails the phase; its siblings are
+    killed.  Returns each child's output and wall seconds."""
+    src = os.path.join(ROOT, "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (src, os.environ.get("PYTHONPATH")) if p))
+    procs, logs, walls = [], [], [None] * len(argvs)
+    t0 = time.perf_counter()
+    try:
+        for i, argv in enumerate(argvs):
+            logs.append(open(os.path.join(log_dir, f"{name}_{i}.log"), "w+"))
+            procs.append(subprocess.Popen([sys.executable, "-m", "repro_torch.launch.campaign", *argv],
+                                          stdout=logs[-1], stderr=subprocess.STDOUT, env=env, cwd=ROOT))
+        while None in walls:
+            for i, p in enumerate(procs):
+                if walls[i] is None and p.poll() is not None:
+                    walls[i] = time.perf_counter() - t0
+                    if p.returncode:
+                        logs[i].seek(0)
+                        raise AssertionError(f"campaign_mp {name}: process {i} exited {p.returncode}:\n"
+                                             f"{logs[i].read()[-4000:]}")
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"campaign_mp {name}: not done within {timeout} s")
+            time.sleep(0.2)
+        outs = []
+        for f in logs:
+            f.seek(0)
+            outs.append(f.read())
+        return outs, walls
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+
+
+def _cli_records(out):
+    """The ``[chunk]``, ``[checkpoint]`` and ``[launches]`` JSON records a
+    campaign CLI printed, by kind."""
+    recs = {"chunk": [], "checkpoint": [], "launches": []}
+    for line in out.splitlines():
+        m = _CLI_RECORD.search(line)
+        if m:
+            recs[m.group(1)].append(json.loads(m.group(2)))
+    return recs
+
+
+def _host_mem_available():
+    with open("/proc/meminfo") as f:
+        return next(int(ln.split()[1]) * 1024 for ln in f if ln.startswith("MemAvailable:"))
+
+
+def campaign_mp(root):
+    """The multi-process campaign through the CLI, as a user runs it, at
+    main's size (64×64×12, 150 springs, Proposed 2, k 1; θ of a case, 7.08
+    GB, on the card, as the campaign's k-set keeps it), 5 waves of 4 steps,
+    a checkpoint every 2: (1) one process, as the reference; (2) two
+    processes on the one card (``--num-processes 2``), stopped after step 2;
+    (3) the pair relaunched, resuming.  Each process's banked rounds are
+    bitwise the one-process run's rows (process 1's padded lane bitwise
+    case 4), the union of ``OUT/p00`` and ``OUT/p01`` is the one-process
+    shards, a one-process manager refuses the pair's checkpoints, and every
+    worker launched the FEM kernels.  Returns the workers' summed launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.parallel.distributed import free_port
+    from repro_torch.surrogate import dataset
+    from repro_torch.training.checkpoint import CheckpointManager
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = {"parent_allocated_bytes": torch.cuda.memory_allocated(),
+              "parent_reserved_bytes": torch.cuda.memory_reserved(),
+              "host_mem_available_bytes": _host_mem_available(), "free_disk_bytes": shutil.disk_usage(root).free}
+    emit({"campaign_mp_before": before})
+    one_ck, one_out = os.path.join(root, "one_ckpt"), os.path.join(root, "one_out")
+    mp_ck, mp_out = os.path.join(root, "mp_ckpt"), os.path.join(root, "mp_out")
+    (one,), (one_s,) = _spawn_campaign_cli([CAMPAIGN_MP_FLAGS + ["--ckpt-dir", one_ck, "--out", one_out]],
+                                           root, "one", CAMPAIGN_MP_TIMEOUT_S["one"])
+    for name in os.listdir(one_ck):  # its banked rounds are what the pair is held to; the steps free the disk
+        if name.startswith("step_"):
+            shutil.rmtree(os.path.join(one_ck, name))
+
+    def pair(name, *extra):
+        port = free_port()
+        return _spawn_campaign_cli(
+            [CAMPAIGN_MP_FLAGS + ["--ckpt-dir", mp_ck, "--out", mp_out, "--coordinator", f"127.0.0.1:{port}",
+                                  "--num-processes", "2", "--process-id", str(p), *extra] for p in range(2)],
+            root, name, CAMPAIGN_MP_TIMEOUT_S[name])
+
+    stopped, stopped_s = pair("pair_stopped", "--stop-after-steps", "2")
+    names = os.listdir(mp_ck)
+    on_disk = {s: any(n.endswith(s) for n in names) for s in (".p00", ".p01", ".commit.json")}
+    resumed, resumed_s = pair("pair_resumed")
+    runs = {"one": [one], "pair_stopped": stopped, "pair_resumed": resumed}
+    recs = {k: [_cli_records(o) for o in outs] for k, outs in runs.items()}
+    # the one-process run's banked rounds (round r is case r at k 1) against the pair's (round r of
+    # process p is lane 2r + p; lane 5 pads with a repeat of case 4)
+    n_waves = int(CAMPAIGN_MP_FLAGS[CAMPAIGN_MP_FLAGS.index("--waves") + 1])
+
+    def banked(path):
+        with np.load(path) as z:
+            return z["vel"], z["iters"], z["health"]
+
+    ref = [banked(os.path.join(one_ck, "rounds", f"round_{r:05d}.npz")) for r in range(n_waves)]
+    rounds, same = [], []
+    for r in range((n_waves + 1) // 2):
+        for p in range(2):
+            lane = 2 * r + p
+            got = banked(os.path.join(mp_ck, "rounds", f"round_{r:05d}.p{p:02d}.npz"))
+            want = ref[min(lane, n_waves - 1)]
+            same.append(all(np.array_equal(a, b) for a, b in zip(got, want)))
+            rounds.append({"round": r, "process": p, "lane": lane, "padding": lane >= n_waves, "bitwise": same[-1],
+                           "committed": os.path.exists(os.path.join(mp_ck, "rounds", f"round_{r:05d}.ok")),
+                           "max_abs_v": float(np.abs(got[0]).max()), "iters": got[1].tolist()})
+    # the shards: OUT/p00 ∪ OUT/p01 against the one-process shards, matched by wave row
+    x, y = dataset.load_shards(mp_out)
+    sx, sy = dataset.load_shards(one_out)
+    match = [next((j for j, sj in enumerate(sx) if np.array_equal(sj, xi)), -1) for xi in x]
+    shards_same = sorted(match) == list(range(n_waves)) and bool(np.array_equal(y, sy[match]))
+    per_process = {p: len(dataset.load_shards(os.path.join(mp_out, f"p{p:02d}"))[0]) for p in range(2)}
+    try:
+        CheckpointManager(mp_ck).restore_latest({"meta": {"round": np.zeros((), np.int64)}})
+        refused = "accepted"
+    except ValueError as e:
+        refused = str(e)
+    # launches of each worker (stopped and resumed runs summed); the one-process run's beside them
+    worker = [{k: recs["pair_stopped"][p]["launches"][-1][k] + recs["pair_resumed"][p]["launches"][-1][k]
+               for k in recs["pair_stopped"][p]["launches"][-1]} for p in range(2)]
+    summed = {k: worker[0][k] + worker[1][k] for k in worker[0]}
+
+    def s_step(rs):
+        return [c["s_per_step_per_case"] for c in rs["chunk"]]
+
+    one_steps = s_step(recs["one"][0])
+    pair_steps = [s_step(recs["pair_stopped"][p]) + s_step(recs["pair_resumed"][p]) for p in range(2)]
+    med = lambda v: float(np.median(v))  # noqa: E731
+    out = {
+        "flags": CAMPAIGN_MP_FLAGS, "before": before, "checkpoint_files": on_disk,
+        "one": {"wall_s": one_s, "cases_per_s": n_waves / one_s, "s_per_step_per_case": one_steps,
+                "peak_device_bytes": [c.get("peak_device_bytes") for c in recs["one"][0]["chunk"]],
+                "checkpoints": recs["one"][0]["checkpoint"], "launches": recs["one"][0]["launches"][-1]},
+        "pair": {"wall_s_stopped": stopped_s, "wall_s_resumed": resumed_s,
+                 "cases_per_s": n_waves / (max(stopped_s) + max(resumed_s)),
+                 "s_per_step_per_case": pair_steps,
+                 "summed_case_steps_per_s_over_one": sum(1 / med(v) for v in pair_steps) * med(one_steps),
+                 "peak_device_bytes": [[c.get("peak_device_bytes") for k in ("pair_stopped", "pair_resumed")
+                                        for c in recs[k][p]["chunk"]] for p in range(2)],
+                 "checkpoints": [[dict(c, run=k) for k in ("pair_stopped", "pair_resumed")
+                                  for c in recs[k][p]["checkpoint"]] for p in range(2)],
+                 "launches": worker},
+        "rounds": rounds, "shards_union_equal": shards_same, "shard_rows_per_process": per_process,
+        "one_process_refused": refused,
+        "printed": {k: [ln for o in outs for ln in o.splitlines()
+                        if "[stopped]" in ln or "[resume]" in ln or "[done]" in ln or "[shards]" in ln]
+                    for k, outs in runs.items()}}
+    emit({"campaign_mp": out})
+    require(all(on_disk.values()), f"campaign_mp: the stopped pair's checkpoint files {on_disk}")
+    require(all("[stopped]" in o for o in stopped) and all("[resume]" in o for o in resumed),
+            "campaign_mp: the pair did not stop and resume")
+    require(all(same) and all(r["committed"] for r in rounds), f"campaign_mp: a round differs {rounds}")
+    require(all(np.isfinite(r["max_abs_v"]) and r["max_abs_v"] > 0 for r in rounds),
+            "campaign_mp: a velocity history is not finite or moved nothing")
+    require(shards_same and per_process == {0: 3, 1: 2}, f"campaign_mp: shards {match} {per_process}")
+    require("world size" in refused, f"campaign_mp: one process resumed the pair's checkpoint: {refused}")
+    for p, w in enumerate(worker):
+        require(all(w[k] > 0 for k in ("multispring", *KSET_KERNELS)), f"campaign_mp: worker {p} launched {w}")
+    shutil.rmtree(root, ignore_errors=True)
+    return summed
 
 
 # surrogate_check: the CNN+LSTM (n_c 2, n_lstm 2, kernel 9, latent 16, T 64) and the
@@ -2333,8 +2535,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         campaign_launches = campaign_main(mesh, cfg, kset_waves(3, 4, cfg.dt), kset_v,
                                           os.path.join(ROOT, "build", "campaign_main"))
-        kset_carry = tree_map(lambda x: x.to(dev), kset_carry)
         del kset_v
+
+    with Phase("campaign_mp"):
+        # the CLI in one and in two worker processes on the card beside this one,
+        # with kset_main's carry still on the host
+        campaign_mp_launches = campaign_mp(os.path.join(ROOT, "build", "campaign_mp"))
+        kset_carry = tree_map(lambda x: x.to(dev), kset_carry)
 
     def cuda_ms(fn, reps):
         fn()
@@ -2739,7 +2946,8 @@ def main() -> int:
         for r in rows:
             if r["name"] in plan_launches["plan_check"]:
                 r["detail"]["launches_by_path"] = {**{p: c[r["name"]] for p, c in plan_launches.items()},
-                                                   "plan_main_b": "in the worker processes, not counted"}
+                                                   "plan_main_b": "in the worker processes, not counted",
+                                                   "campaign_mp": campaign_mp_launches[r["name"]]}
         print(smi, flush=True)
         emit({"kernel_detail": {r["name"]: r["detail"] for r in rows}})
         emit({"kernels": [{k: v for k, v in r.items() if k != "detail"} for r in rows]})

@@ -1,28 +1,41 @@
-"""Ensemble campaigns with checkpoint/resume (the paper's §3 run), on one card.
+"""Ensemble campaigns with checkpoint/resume (the paper's §3 run), one card
+a process.
 
 A campaign advances ``M`` independent earthquake cases through the chosen
-solution method in *rounds* of ``B = kset`` cases:
+solution method in *rounds* of ``B = kset × n_dev`` cases, where ``n_dev``
+counts the processes on the case mesh (one device each):
 
-* each round is one native k-set (``methods.make_ensemble_step``): every
-  carry leaf leads with the member axis, and each matvec and multispring
-  pass is one k-set kernel launch for all members (the paper's 2SET,
-  Algorithm 4);
+* each process owns the contiguous block of ``kset`` lanes of every round
+  that :func:`case_topology` gives it, and advances it as one native k-set
+  (``methods.make_ensemble_step``): every carry leaf leads with the member
+  axis, and each matvec and multispring pass is one k-set kernel launch for
+  all members (the paper's 2SET, Algorithm 4).  Cases never communicate, so
+  processes exchange nothing but barriers (:mod:`repro_torch.parallel.
+  distributed`): node-parallelism as the paper runs its production
+  ensemble;
 * time stepping is chunked at ``checkpoint_every`` steps; at every chunk
   boundary the campaign state — round index, time index, the k-set carry
   and this round's observations — goes through
   :class:`~repro_torch.training.checkpoint.CheckpointManager`, so a killed
-  campaign resumes *bit-identically*.  Completed rounds are banked once as
-  ``rounds/round_NNNNN.npz``;
+  campaign resumes *bit-identically*.  Several processes checkpoint their
+  own shards (``step_<n>.pNN/``) and process 0 commits the step between
+  two barriers.  Completed rounds are banked once as
+  ``rounds/round_NNNNN.npz`` (several processes: ``round_NNNNN.pNN.npz``
+  each, made visible by process 0's ``round_NNNNN.ok``).  A killed
+  N-process campaign resumes on N processes and refuses any other world
+  size;
 * ``M`` need not divide ``B``: the tail round is padded with repeats of the
   last case (``core.stream.pad_kset``) and the padded lanes are masked out
-  of every returned array.
+  of every returned array.  Each process returns only the cases it owns
+  (``CampaignResult.case_indices``); a process that owns only padded lanes
+  returns none.
 
 The port's counterpart of the JAX package's ``campaign/runner.py``, with
-its checkpoint layout and signature rules.  It differs where one card and
-PyTorch differ from a device mesh and ``jit``:
+its checkpoint layout and signature rules.  It differs where PyTorch
+differs from a device mesh and ``jit``:
 
-* one device: :func:`case_topology` takes no mesh and raises for one (the
-  case axis sharded over several devices or processes is not ported);
+* one device a process: a mesh with several devices in one process raises
+  (``exec_mesh`` is always ``None``);
 * a chunk is a python loop over the step, not a compiled ``scan``;
 * each round starts from a fresh initial carry, built when the round
   starts, and a checkpoint at a round boundary (``t == 0``) stores no carry:
@@ -47,6 +60,7 @@ from repro_torch.core import health as health_mod
 from repro_torch.core.stream import pad_kset
 from repro_torch.fem import backend as fem_backend, methods
 from repro_torch.launch.mesh import MULTI_DEVICE
+from repro_torch.parallel import distributed as dist
 from repro_torch.training.checkpoint import CheckpointCorruptError, CheckpointManager
 
 
@@ -88,15 +102,16 @@ class CampaignConfig:
 
 
 class CampaignResult(NamedTuple):
-    velocity_history: np.ndarray  # [M, nt, n_obs, 3]
-    iters: np.ndarray             # [M, nt] outer solver iterations per step
+    velocity_history: np.ndarray  # [M_local, nt, n_obs, 3] owned cases only
+    iters: np.ndarray             # [M_local, nt] outer solver iterations per step
     rounds_done: int
     steps_done: int               # global time steps advanced (across rounds)
     completed: bool
     resumed_from: Optional[int]   # checkpoint step number, if resumed
     case_indices: np.ndarray = np.zeros(0, np.int64)
-    """Global ``waves`` row of each returned case (``arange(M)`` once the
-    campaign has completed)."""
+    """Global ``waves`` row of each returned case.  One process owns every
+    case (``arange(M)`` once the campaign has completed); each process of a
+    multi-process campaign gets only its owned cases, in global order."""
     health: np.ndarray = np.zeros(0, np.int32)
     """Per-case health word (:mod:`repro_torch.core.health` bitmask); all
     zeros when every case stayed healthy.  Empty unless the campaign ran
@@ -120,10 +135,10 @@ class CampaignResult(NamedTuple):
 class CaseTopology:
     """Which slice of every round this process owns, and how to execute it.
 
-    ``n_dev``      devices on the case axis.
+    ``n_dev``      devices on the case axis, one a process.
     ``offset``     first case lane (within a round) owned by this process.
-    ``local``      cases per round owned here (``kset × local devices``).
-    ``exec_mesh``  always ``None``: one device, no mesh.
+    ``local``      cases per round owned here (``kset``).
+    ``exec_mesh``  always ``None``: one device a process, no mesh.
     """
 
     n_dev: int
@@ -135,11 +150,38 @@ class CaseTopology:
 
 
 def case_topology(device_mesh, kset: int) -> CaseTopology:
-    """One device owns every lane of a round; a device mesh raises (the
-    case axis over several devices or processes is not ported)."""
-    if device_mesh is not None:
-        raise NotImplementedError(f"case_topology over a device mesh: {MULTI_DEVICE}")
-    return CaseTopology(1, 0, 1, 0, kset, None)
+    """This process's case ownership on ``device_mesh``.
+
+    ``None`` is one device owning every lane.  A mesh (``launch.mesh.
+    make_case_mesh``) lists one entry a device, each with the
+    ``process_index`` that owns it; this process owns the contiguous block
+    of lanes on its entries, in mesh order (process-major).  A mesh that
+    skips this process, gives processes unequal device counts or
+    interleaves them raises :class:`ValueError`; several devices in one
+    process raise :class:`NotImplementedError` (one device a process)."""
+    if device_mesh is None:
+        return CaseTopology(1, 0, 1, 0, kset, None)
+    devs = list(device_mesh.devices.flat)
+    procs = sorted({d.process_index for d in devs})
+    me = dist.process_index()
+    if len(procs) > 1:
+        if me not in procs:
+            raise ValueError(f"case mesh spans processes {procs} but process {me} owns none "
+                             f"of its devices — every process must participate")
+        counts = {p: sum(1 for d in devs if d.process_index == p) for p in procs}
+        if len(set(counts.values())) != 1:
+            raise ValueError(f"case mesh is unbalanced across processes ({counts}); equal "
+                             f"per-process device counts are required for uniform rounds")
+        mine = [i for i, d in enumerate(devs) if d.process_index == me]
+        if mine != list(range(mine[0], mine[0] + len(mine))):
+            raise ValueError("case mesh interleaves processes; build it with "
+                             "launch.mesh.make_case_mesh (process-major device order)")
+    else:
+        mine = list(range(len(devs)))
+    if len(mine) > 1:
+        raise NotImplementedError(f"case_topology over {len(mine)} devices in one process: {MULTI_DEVICE}")
+    return CaseTopology(n_dev=len(devs), process_index=me if len(procs) > 1 else 0, process_count=len(procs),
+                        offset=kset * mine[0], local=kset, exec_mesh=None)
 
 
 def _chunk_bounds(nt: int, every: int) -> list[tuple[int, int]]:
@@ -174,30 +216,53 @@ def _campaign_sig(campaign: CampaignConfig, cfg, waves: np.ndarray, B: int, obs,
     return np.asarray([campaign.seed & 0x7FFFFFFF, M, nt, B, zlib.crc32(ident.encode()) & 0x7FFFFFFF], np.int64)
 
 
-def _round_path(ckpt_dir: str, r: int) -> str:
-    return os.path.join(ckpt_dir, "rounds", f"round_{r:05d}.npz")
+def _round_path(ckpt_dir: str, r: int, topo: CaseTopology) -> str:
+    shard = f".p{topo.process_index:02d}" if topo.process_count > 1 else ""
+    return os.path.join(ckpt_dir, "rounds", f"round_{r:05d}{shard}.npz")
+
+
+def _round_ok_path(ckpt_dir: str, r: int) -> str:
+    return os.path.join(ckpt_dir, "rounds", f"round_{r:05d}.ok")
 
 
 def _bank_round(
-    ckpt_dir: str, r: int, vel: np.ndarray, iters: np.ndarray,
+    ckpt_dir: str, r: int, vel: np.ndarray, iters: np.ndarray, topo: CaseTopology,
     health: Optional[np.ndarray] = None, nonconverged: Optional[np.ndarray] = None,
 ) -> None:
     """Persist one completed round atomically — banked rounds are immutable,
     so they are written exactly once instead of into every later checkpoint
-    (which would make checkpoint volume grow quadratically)."""
+    (which would make checkpoint volume grow quadratically).
+
+    Several processes: each banks its own lanes (``round_NNNNN.pNN.npz``);
+    after a barrier confirms every shard is on disk, process 0 commits the
+    round with an ``.ok`` marker, as the checkpoint manifest is committed —
+    a kill between shard writes leaves the round uncommitted."""
     os.makedirs(os.path.join(ckpt_dir, "rounds"), exist_ok=True)
-    path = _round_path(ckpt_dir, r)
+    path = _round_path(ckpt_dir, r, topo)
     tmp = path + ".tmp"
     extra = {} if health is None else {"health": health, "nonconverged": nonconverged}
     with open(tmp, "wb") as f:
         np.savez(f, vel=vel, iters=iters, **extra)
     os.replace(tmp, path)
+    if topo.process_count > 1:
+        dist.barrier("bank_round")
+        if topo.process_index == 0:
+            ok = _round_ok_path(ckpt_dir, r)
+            with open(ok + ".tmp", "w") as f:
+                f.write(f"{topo.process_count}\n")
+            os.replace(ok + ".tmp", ok)
 
 
 def _load_banked_round(
-    ckpt_dir: str, r: int, r0: int
+    ckpt_dir: str, r: int, r0: int, topo: CaseTopology
 ) -> tuple[np.ndarray, np.ndarray, Optional[np.ndarray], Optional[np.ndarray]]:
-    path = _round_path(ckpt_dir, r)
+    path = _round_path(ckpt_dir, r, topo)
+    if topo.process_count > 1 and not os.path.exists(_round_ok_path(ckpt_dir, r)):
+        raise ValueError(
+            f"checkpoint says round {r0} but banked round {r} was never "
+            f"committed (missing {_round_ok_path(ckpt_dir, r)}) — checkpoint "
+            f"directory corrupt"
+        )
     if not os.path.exists(path):
         raise ValueError(
             f"checkpoint says round {r0} but banked round file {path} is "
@@ -234,7 +299,7 @@ def make_campaign_chunk(
     together — and a case whose step goes non-finite is frozen at its last
     healthy carry, so NaN cannot march forward in time.
     """
-    case_topology(device_mesh, kset)  # one device
+    case_topology(device_mesh, kset)  # one device a process
     step = methods.ensemble_step(ops, method)
     guarded = bool(ops.cfg.health)
     if guarded:
@@ -274,7 +339,12 @@ def run_campaign(
     """Run (or resume) an ensemble campaign over ``waves`` on ``device``
     (``None`` → the card; the CPU only when asked).
 
-    ``device_mesh`` must be ``None`` (one device).  ``stop_after_steps``
+    ``device_mesh`` is ``None`` (one process, one device) or the case mesh
+    of a multi-process launch (``launch.mesh.make_case_mesh()``): every
+    process then calls ``run_campaign`` with the same arguments, owns the
+    case slice :func:`case_topology` gives it, runs it on its own
+    ``device`` and returns only its own cases (``CampaignResult.
+    case_indices``).  ``stop_after_steps``
     aborts the campaign at the first chunk boundary at or past that many
     global time steps *after* writing its checkpoint — the fault-injection
     hook of the kill-and-resume tests (a real SIGKILL anywhere is no worse:
@@ -286,7 +356,16 @@ def run_campaign(
     waves = np.asarray(waves)
     M, nt = waves.shape[0], waves.shape[1]
     topo = case_topology(device_mesh, campaign.kset)
-    B = campaign.kset * topo.n_dev  # round size
+    if topo.process_count == 1 and campaign.checkpoint_dir and dist.is_distributed():
+        # N uncoordinated processes checkpointing one-process layouts into one
+        # directory would race each other's renames and splice trajectories
+        raise ValueError(
+            f"running under torch.distributed with {dist.process_count()} "
+            f"processes but the case mesh spans only this one; pass a "
+            f"spanning mesh (launch.mesh.make_case_mesh()) or give each "
+            f"process its own checkpoint_dir"
+        )
+    B = campaign.kset * topo.n_dev  # global round size
     padded, valid = pad_kset(waves, B)
     n_rounds = padded.shape[0] // B
     obs = np.asarray(observe if observe is not None else mesh.surface[:1])
@@ -298,7 +377,8 @@ def run_campaign(
     wave_all = torch.as_tensor(padded, dtype=cfg.rdtype, device=ops.device)
     vdt = np.dtype(str(cfg.rdtype).removeprefix("torch."))
     sig = _campaign_sig(campaign, cfg, waves, B, obs, ops.kernel_backend.describe())
-    mgr = CheckpointManager(campaign.checkpoint_dir, keep=campaign.keep) if campaign.checkpoint_dir else None
+    mgr = (CheckpointManager(campaign.checkpoint_dir, keep=campaign.keep, process_index=topo.process_index,
+                             process_count=topo.process_count) if campaign.checkpoint_dir else None)
 
     # ---- resume ------------------------------------------------------------
     # Mutable campaign state splits in two: completed rounds are immutable
@@ -352,7 +432,7 @@ def run_campaign(
             if t0 > 0:
                 carry = st.pop("carry")  # ``template``'s tensors, filled
             for rr in range(r0):
-                done_rounds.append(_load_banked_round(campaign.checkpoint_dir, rr, r0))
+                done_rounds.append(_load_banked_round(campaign.checkpoint_dir, rr, r0, topo))
             if t0 > 0:
                 cur_vel = [np.asarray(st["vel"])]
                 cur_iters = [np.asarray(st["iters"])]
@@ -370,6 +450,8 @@ def run_campaign(
                       else np.zeros((topo.local, 0), np.int64)),
             "meta": {"sig": sig, "round": np.int64(r_next), "t": np.int64(t_next)},
         }
+        # the JSON meta is the cross-shard agreement key restore_latest
+        # validates: all processes must have saved the same (round, t)
         mgr.save(r_next * nt + t_next, state, blocking=blocking, meta={"round": int(r_next), "t": int(t_next)})
 
     template = None  # a carry restored into it is ``carry``; a partly filled one is dropped
@@ -408,7 +490,7 @@ def run_campaign(
                     round_health = round_ncg = None
                 done_rounds.append((round_vel, round_iters, round_health, round_ncg))
                 if mgr is not None:
-                    _bank_round(campaign.checkpoint_dir, r, round_vel, round_iters, round_health, round_ncg)
+                    _bank_round(campaign.checkpoint_dir, r, round_vel, round_iters, topo, round_health, round_ncg)
                 cur_vel, cur_iters = [], []
                 completed = r + 1 == n_rounds
                 _save(r + 1, 0, None, blocking=completed)
@@ -424,7 +506,7 @@ def run_campaign(
         mgr.wait()
 
     nr_done = len(done_rounds)
-    # global waves row of each case, before masking out padding
+    # global waves row of each case held here, before masking out padding
     ids = (np.concatenate([r * B + topo.offset + np.arange(topo.local) for r in range(nr_done)])
            if nr_done else np.zeros(0, np.int64))
     vmask = valid[ids]

@@ -20,9 +20,18 @@ join/leave freely and the surrogate can train on shards mid-sweep::
     PYTHONPATH=src python -m repro_torch.launch.campaign --sweep sweep.json \\
         --schedule --worker-id w0 --out shards/ --ckpt-dir DIR
 
+Multi-process campaigns — one command per process, the same flags but
+``--process-id``; each process owns a contiguous slice of every round's
+cases, runs it on its own device and writes ``OUT/pNN/``::
+
+    PYTHONPATH=src python -m repro_torch.launch.campaign --waves 100 --nt 16000 \\
+        --kset 1 --ckpt-dir DIR --ckpt-every 500 --out shards/ \\
+        --coordinator 127.0.0.1:PORT --num-processes 2 --process-id 0   # and 1
+
 It runs on the card unless ``--device`` names another device (``cpu``).
 Kill it anywhere and relaunch it with the same arguments: it resumes from
-the latest atomic checkpoint bit-identically.
+the latest atomic checkpoint bit-identically (on the same number of
+processes; another world size is refused).
 
 Flags (as the JAX package's ``repro.launch.campaign``)
 ------------------------------------------------------
@@ -103,10 +112,19 @@ Flags (as the JAX package's ``repro.launch.campaign``)
     campaign signature.  Plain campaign path only.
 ``--device``
     Where the campaign runs (default: the card).
+``--coordinator / --num-processes / --process-id``
+    A multi-process campaign (plain campaign path only): process 0 hosts
+    the ``torch.distributed`` store at ``--coordinator`` (host:port) and
+    every process joins it; the processes share nothing but barriers
+    (``repro_torch.parallel.distributed``).
+``--cpu-backend``
+    Run on the CPU (the same as ``--device cpu``): the rehearsal of a
+    multi-process launch without a card.
 
-The JAX package's multi-device and multi-process campaigns (``--cpu-backend``,
-``--devices``/``--host-devices`` above 1, ``--num-processes`` above 1) are
-not ported yet: those flags are accepted and exit non-zero saying so.
+Each chunk prints a ``[chunk]`` line, each checkpoint a ``[checkpoint]``
+line and the run its kernel launches (``[launches]``), as JSON objects.
+Several devices in one process (``--devices``/``--host-devices`` above 1)
+are not ported yet: those flags exit non-zero saying so.
 """
 from __future__ import annotations
 
@@ -119,7 +137,7 @@ import numpy as np
 from repro_torch.kernels.ebe_matvec.ebe_matvec import TILE_E
 from repro_torch.kernels.multispring.multispring import TILE_P
 
-MULTI_DEVICE_SLICE = "the multi-device and multi-process campaign is a later slice; the port runs one process on one device"
+MULTI_DEVICE_SLICE = "several devices in one process are a later slice; the port runs one device a process"
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -173,24 +191,34 @@ def _parser() -> argparse.ArgumentParser:
                     help="overlap fit_stream with generation (needs --out)")
     ap.add_argument("--train-steps", type=int, default=120,
                     help="fit_stream optimizer steps for --train-while-generating")
-    # the JAX package's multi-device topology flags: accepted, refused below
-    ap.add_argument("--cpu-backend", action="store_true", help="not ported yet (multi-process rehearsal)")
-    ap.add_argument("--devices", type=int, default=0, help="devices on the case axis: 1 (more are not ported)")
-    ap.add_argument("--host-devices", type=int, default=0, help="not ported (the port has one device)")
-    ap.add_argument("--coordinator", default=None)
-    ap.add_argument("--num-processes", type=int, default=1, help="processes: 1 (more are not ported)")
+    # the multi-process topology (repro_torch.launch.bootstrap)
+    ap.add_argument("--cpu-backend", action="store_true", help="run on the CPU (multi-process rehearsal)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="devices on the case axis: one a process (several in one process are not ported)")
+    ap.add_argument("--host-devices", type=int, default=0, help="not ported (the port has one device a process)")
+    ap.add_argument("--coordinator", default=None, help="process 0's torch.distributed store, host:port")
+    ap.add_argument("--num-processes", type=int, default=1)
     ap.add_argument("--process-id", type=int, default=0)
     return ap
 
 
-def _refuse_unported(args) -> None:
-    """Exit non-zero naming the first flag whose mode the port lacks."""
-    if args.cpu_backend:
-        raise SystemExit(f"[campaign] --cpu-backend is not ported yet: {MULTI_DEVICE_SLICE}")
-    for flag, n in (("--devices", args.devices), ("--host-devices", args.host_devices),
-                    ("--num-processes", args.num_processes)):
+def _refuse_unported(args, tag: str) -> None:
+    """Exit non-zero, before any process group or device is touched, naming
+    the first flag whose mode the port lacks or the reference refuses.  The
+    port has one device a process, so the case mesh of ``N`` processes has
+    ``N`` devices."""
+    n_proc = args.num_processes
+    if args.cpu_backend and args.device not in (None, "cpu"):
+        raise SystemExit(f"{tag} --cpu-backend runs on the CPU; drop --device {args.device}")
+    if n_proc > 1 and args.devices and args.devices != n_proc:
+        raise SystemExit(f"{tag} --devices {args.devices} with {n_proc} processes: a multi-host campaign must "
+                         f"use every device on the global case mesh ({n_proc}); drop --devices")
+    for flag, n in (("--devices", 0 if n_proc > 1 else args.devices), ("--host-devices", args.host_devices)):
         if n > 1:
-            raise SystemExit(f"[campaign] {flag} {n} is not ported yet: {MULTI_DEVICE_SLICE}")
+            raise SystemExit(f"{tag} {flag} {n} is not ported yet: {MULTI_DEVICE_SLICE}")
+    if n_proc > 1 and (args.sweep or args.scenario or args.scenarios):
+        raise SystemExit(f"{tag} --scenario/--sweep are single-process for now (multi-host campaigns take the "
+                         f"plain flag path); drop the distributed flags")
 
 
 def main(argv=None, result: dict | None = None) -> int:
@@ -204,8 +232,11 @@ def main(argv=None, result: dict | None = None) -> int:
     (``"train"``); a worker's :class:`~repro_torch.scenario.WorkerSummary`
     under ``"worker"``."""
     args = _parser().parse_args(argv)
-    _refuse_unported(args)
-    tag = "[campaign]"
+    multi = args.num_processes > 1
+    tag = f"[campaign p{args.process_id}]" if multi else "[campaign]"
+    _refuse_unported(args, tag)
+    if args.cpu_backend:
+        args.device = "cpu"
     if args.trajectories and args.obs_every < 1:
         raise SystemExit(f"{tag} --obs-every must be ≥ 1, got {args.obs_every}")
     if args.sweep or args.scenario or args.scenarios:
@@ -216,21 +247,30 @@ def main(argv=None, result: dict | None = None) -> int:
                              f"waves); drop --scenario/--sweep/--scenarios")
         return _run_scenarios(args, tag, result)
 
+    import json
+
+    import torch
+
+    from repro_torch import kernels
     from repro_torch.campaign import CampaignConfig, run_campaign
     from repro_torch.core import faults, health as health_mod
     from repro_torch.device import resolve_device
     from repro_torch.fem import backend as fem_backend, meshgen
     from repro_torch.launch.bootstrap import DistributedArgs, distributed_init
+    from repro_torch.launch.mesh import make_case_mesh
     from repro_torch.surrogate.dataset import (EnsembleConfig, random_band_limited_waves, save_shards,
                                                simulation_config)
 
+    device = resolve_device(args.device)  # no card and no --device cpu: raise before joining the group
     distributed_init(DistributedArgs(coordinator=args.coordinator, num_processes=args.num_processes,
-                                     process_id=args.process_id))
-    device = resolve_device(args.device)
+                                     process_id=args.process_id, cpu_backend=args.cpu_backend))
+    n_proc, pid = args.num_processes, args.process_id
+    dmesh = make_case_mesh(device=device) if multi else None
     cfg = EnsembleConfig(n_waves=args.waves, nt=args.nt, mesh_n=tuple(int(x) for x in args.mesh_n.split("x")),
                          nspring=args.nspring, seed=args.seed, kset=args.kset)
     print(f"{tag} {args.waves} waves × {args.nt} steps, method={args.method}, "
-          f"1 device(s) × kset={args.kset} → rounds of {args.kset} on {device}")
+          f"{n_proc} device(s) × kset={args.kset} → rounds of {args.kset * n_proc}"
+          + (f" across {n_proc} processes" if multi else "") + f" on {device}", flush=True)
     sim = simulation_config(cfg, backend=args.kernel_backend, ebe_backend=args.ebe_backend,
                             ms_backend=args.ms_backend, tile_e=args.tile_e, tile_p=args.tile_p,
                             warm_start=args.warm_start, precond_every=args.precond_every, health=args.health)
@@ -244,14 +284,28 @@ def main(argv=None, result: dict | None = None) -> int:
         waves = faults.apply_wave_fault(inject, waves)
         print(f"{tag} [inject] {inject.describe()}")
     obs = mesh.surface[len(mesh.surface) // 2: len(mesh.surface) // 2 + 1]
+    on_card = device.type == "cuda"
+
+    def on_chunk(info):
+        row = dict(info, s_per_step_per_case=info["seconds"] / ((info["t1"] - info["t0"]) * args.kset))
+        if on_card:
+            row["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        print(f"{tag} [chunk] {json.dumps(row)}", flush=True)
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
     res = run_campaign(
         mesh, sim, waves, observe=obs,
         campaign=CampaignConfig(kset=args.kset, method=args.method, seed=args.seed,
                                 checkpoint_dir=args.ckpt_dir, checkpoint_every=args.ckpt_every),
-        device=device, stop_after_steps=args.stop_after_steps,
+        device=device, device_mesh=dmesh, stop_after_steps=args.stop_after_steps, on_chunk=on_chunk,
     )
     if result is not None:
         result["campaign"] = res
+    for rec in res.checkpoints:
+        print(f"{tag} [checkpoint] {json.dumps(rec)}")
+    print(f"{tag} [launches] {json.dumps({**kernels.launch_counts(), **kernels.instance_counts()})}", flush=True)
     if res.resumed_from is not None:
         print(f"{tag} [resume] from checkpoint step {res.resumed_from}")
     if not res.completed:
@@ -259,9 +313,12 @@ def main(argv=None, result: dict | None = None) -> int:
               f"({res.rounds_done} rounds banked) — relaunch to resume")
         return 0
     y = res.velocity_history[:, :, 0, :]
+    # a process can own only padded lanes (waves ≤ its round offset): no responses
     stats = (f", peak |v| = {np.abs(y).max():.3e} m/s, mean solver iters {res.iters.mean():.1f}"
              if len(y) else "")
-    print(f"{tag} [done] {len(y)} responses" + stats)
+    print(f"{tag} [done] {len(y)} responses"
+          + (f" (cases {res.case_indices.min()}–{res.case_indices.max()} of {args.waves})" if multi and len(y) else "")
+          + stats)
     diverged = np.zeros(0, np.int64)
     keep = np.ones(len(y), bool)
     if res.health.size:
@@ -274,6 +331,7 @@ def main(argv=None, result: dict | None = None) -> int:
             print(f"{tag} [quarantine] case {int(c)}: {health_mod.describe(res.health[i])} — excluded from "
                   f"shard output")
     if args.out:
+        out_dir = os.path.join(args.out, f"p{pid:02d}") if multi else args.out
         y_out, meta = y, None
         if args.trajectories:
             # the trajectory surrogate's target: the same history, strided —
@@ -284,11 +342,11 @@ def main(argv=None, result: dict | None = None) -> int:
             meta = {**(meta or {}), "quarantine": [int(c) for c in diverged]}
         x_out = waves[res.case_indices[keep]].astype(np.float32)
         y_out = y_out[keep].astype(np.float32)
-        paths = save_shards(args.out, x_out, y_out, shard_size=args.shard_size, meta=meta)
+        paths = save_shards(out_dir, x_out, y_out, shard_size=args.shard_size, meta=meta)
         if result is not None:
             result["waves"], result["responses"] = x_out, y_out
         kind = f"trajectory (obs_every={args.obs_every}) " if args.trajectories else ""
-        print(f"{tag} [shards] wrote {len(paths)} {kind}shard(s) to {args.out}")
+        print(f"{tag} [shards] wrote {len(paths)} {kind}shard(s) to {out_dir}")
     return 0
 
 

@@ -365,12 +365,20 @@ def run_group(
     in-flight, **excluded from shard output**, and recorded in
     ``stats["health"]["diverged"]`` — the planner manifest's quarantine
     record, which the elastic scheduler's quarantine round consumes.
-    ``device_mesh`` must be ``None``: the port runs a group on one device.
+    ``device_mesh`` is ``None`` (one device) or the case mesh of a
+    multi-process launch (``launch.mesh.make_case_mesh()``), one device a
+    process: each process then runs its slice of the group's cases.  Shards
+    are refused there: every process would write the same
+    ``out_dir/<scenario>/``.
     """
     from repro_torch.campaign import CampaignConfig, case_topology, run_campaign
     from repro_torch.scenario import autotune as _autotune
 
-    case_topology(device_mesh, 1)  # one device: a mesh raises
+    topo = case_topology(device_mesh, 1)  # several devices in one process raise
+    if out_dir and topo.process_count > 1:
+        raise ValueError(f"run_group over {topo.process_count} processes with out_dir: every process would "
+                         f"write the same {out_dir}/<scenario>/ shards; run one process, or pass no out_dir")
+    n_devices = topo.n_dev
     log = log or (lambda msg: None)
     prior = prior or {}
     knobs = dict(backend=backend, ebe_backend=ebe_backend, ms_backend=ms_backend,
@@ -384,7 +392,7 @@ def run_group(
     elif autotune:
         group.choice = _autotune.choose(
             mesh, ref.sim_config(npart=npart, tol=tol, maxiter=maxiter, **knobs),
-            n_cases=group.n_cases, n_devices=1, probe=probe,
+            n_cases=group.n_cases, n_devices=n_devices, probe=probe,
             obs=obs, waves=waves, calibration=calibration, device=device,
         )
     elif group.choice is None:
@@ -403,7 +411,7 @@ def run_group(
         scenario_sig=group.signature(),
     )
     t0 = time.perf_counter()
-    res = run_campaign(mesh, sim, waves, observe=obs, campaign=cc, device=device,
+    res = run_campaign(mesh, sim, waves, observe=obs, campaign=cc, device=device, device_mesh=device_mesh,
                        stop_after_steps=stop_after_steps)
     wall_s = time.perf_counter() - t0
     stats = {

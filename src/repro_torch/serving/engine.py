@@ -22,9 +22,8 @@ cache (:mod:`repro_torch.serving.cache`) and active-learning feedback loop
     decode).
 ``ShardedEngine``
     wraps any engine and pads its batch to a multiple of the case mesh's
-    devices.  The port's case mesh is one device
-    (:func:`repro_torch.launch.mesh.make_case_mesh`), so it is a
-    pass-through; a mesh over more devices is not ported yet.
+    devices.  The port shards over one device, so it is a pass-through; a
+    mesh over more devices is not ported yet.
 
 Each engine runs on ``device`` (``None``: the card), fixed when it is
 built: ``infer`` is called from the batcher's thread, whose current device
@@ -341,9 +340,8 @@ class ShardedEngine:
 
     Pads the batch to a multiple of the mesh size (``pad_kset`` repeats of
     the last row), runs the inner engine and slices outputs and scores back
-    to the true batch.  The port's case mesh is one device
-    (``make_case_mesh()`` is ``None``), so the multiple is 1; a mesh over
-    more devices raises in :func:`~repro_torch.launch.mesh.make_case_mesh`.
+    to the true batch.  The port shards over one device (``mesh`` is
+    ``None``), so the multiple is 1; a mesh raises.
 
     The signature is the *inner* engine's: sharding is an execution detail
     that must not change results, so sharded and unsharded servers share
@@ -351,12 +349,12 @@ class ShardedEngine:
     """
 
     def __init__(self, inner, device_mesh=None):
-        from repro_torch.launch.mesh import MULTI_DEVICE, make_case_mesh
+        from repro_torch.launch.mesh import MULTI_DEVICE
 
         if device_mesh is not None:
             raise NotImplementedError(f"ShardedEngine over {device_mesh!r}: {MULTI_DEVICE}")
         self.inner = inner
-        self.mesh = make_case_mesh()  # None: one device
+        self.mesh = None  # one device
 
     @property
     def n_devices(self) -> int:

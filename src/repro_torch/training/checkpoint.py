@@ -16,9 +16,9 @@ plain trees.
   :meth:`~CheckpointManager.restore_latest` falls back to the previous step.
 * **sharded layout**: with ``process_count > 1`` each process writes only its
   own shard ``step_<n>.p<k>/`` and process 0 commits ``step_<n>.commit.json``
-  after a barrier.  The port runs one process, so a sharded manager needs an
-  injected barrier (tests drive two managers from one process with a no-op);
-  without one it raises :class:`NotImplementedError`.
+  after a barrier (by default the process group's,
+  :func:`repro_torch.parallel.distributed.barrier`; tests drive two managers
+  from one process with a no-op).
 
 On-disk layout::
 
@@ -57,7 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.hetmem import PartitionedState
-from repro_torch.parallel.distributed import MULTI_PROCESS
+from repro_torch.parallel.distributed import make_barrier
 
 _CRC_CHUNK = 1 << 26  # bytes per read while checksumming (bounds host memory)
 
@@ -166,14 +166,14 @@ class CheckpointManager:
         process_count: int = 1,
         barrier: Optional[Callable[[], None]] = None,
     ):
-        """``barrier`` syncs all processes (a zero-argument callable).  The
-        port runs one process, so a sharded manager (``process_count > 1``)
-        needs one injected; unit tests pass a no-op to emulate N processes
-        from one."""
+        """``barrier`` syncs all processes (a zero-argument callable); with
+        ``process_count > 1`` it defaults to the process group's barrier
+        (``make_barrier("ckpt")``).  Unit tests pass a no-op to emulate N
+        processes from one."""
         if not 0 <= process_index < process_count:
             raise ValueError(f"process_index {process_index} outside [0, {process_count})")
         if barrier is None and process_count > 1:
-            raise NotImplementedError(f"a sharded checkpoint needs a barrier across processes: {MULTI_PROCESS}")
+            barrier = make_barrier("ckpt")
         self.directory = directory
         self.keep = keep
         self.process_index = process_index

@@ -161,14 +161,18 @@ def test_campaign_rejects_foreign_checkpoint(meshes, tmp_path):
 
 
 def test_case_topology_one_device_only():
+    """One process has one device: no mesh, and a mesh with two devices in
+    this process raises (the multi-process mesh is
+    tests/test_torch_campaign_distributed.py's)."""
     assert case_topology(None, 3) == CaseTopology(1, 0, 1, 0, 3, None)
     assert launch_mesh.make_case_mesh() is None and launch_mesh.make_case_mesh(1) is None
+    two_here = launch_mesh.CaseMesh(np.array([launch_mesh.CaseDevice(0, "cpu")] * 2, dtype=object))
     with pytest.raises(NotImplementedError, match="one device"):
-        case_topology(object(), 2)
+        case_topology(two_here, 2)
     with pytest.raises(NotImplementedError, match="one device"):
         launch_mesh.make_case_mesh(2)
     with pytest.raises(NotImplementedError, match="one device"):
-        run_campaign(None, _cfg(), _waves(2, 4), device="cpu", device_mesh=object())
+        run_campaign(None, _cfg(), _waves(2, 4), device="cpu", device_mesh=two_here)
 
 
 # ---------------------------------------------------------------------------

@@ -177,11 +177,18 @@ def test_sharded_gc_cleans_shards_commits_and_orphans(tmp_path):
     assert sorted(os.listdir(d)) == ["step_000000003.commit.json", "step_000000003.p00", "step_000000003.p01"]
 
 
-def test_sharded_manager_needs_a_barrier(tmp_path):
-    """One process: a sharded manager without an injected barrier would
-    commit unsynchronised, so it refuses and names the limit."""
-    with pytest.raises(NotImplementedError, match="one process"):
-        CheckpointManager(str(tmp_path / "ckpt"), process_index=0, process_count=2)
+def test_sharded_manager_needs_a_barrier(tmp_path, monkeypatch):
+    """A sharded manager without an injected barrier synchronises through
+    the process group's (``parallel.distributed.barrier``, tag ``ckpt``),
+    once before process 0 commits and once after."""
+    from repro_torch.parallel import distributed as dist
+
+    tags = []
+    monkeypatch.setattr(dist, "barrier", tags.append)
+    mgr = CheckpointManager(str(tmp_path / "ckpt"), process_index=0, process_count=2)
+    mgr.save(1, _state(1.0), meta={"round": 0, "t": 1})
+    assert tags == ["ckpt", "ckpt"]
+    assert os.path.exists(tmp_path / "ckpt" / "step_000000001.commit.json")
     with pytest.raises(ValueError, match="outside"):
         CheckpointManager(str(tmp_path / "ckpt"), process_index=2, process_count=2, barrier=NOOP)
 

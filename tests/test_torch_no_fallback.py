@@ -443,10 +443,15 @@ SWEEP = '{"base": {"n_cases": 2, "nt": 6, "mesh_n": [2, 2, 2]}}'
 
 
 @pytest.mark.parametrize("flags,message", [
-    # the multi-device and multi-process campaign: not ported yet
-    (["--cpu-backend"], "--cpu-backend is not ported yet"), (["--devices", "2"], "--devices 2 is not ported yet"),
+    # the reference launcher's multi-process refusals
+    (["--scenario", "ricker-soft-basin", "--num-processes", "2", "--coordinator", "localhost:1234"],
+     "--scenario/--sweep are single-process for now"),
+    # several devices in one process: not ported yet
+    (["--devices", "2"], "--devices 2 is not ported yet"),
     (["--host-devices", "2"], "--host-devices 2 is not ported yet"),
-    (["--num-processes", "2", "--coordinator", "localhost:1234"], "--num-processes 2 is not ported yet"),
+    (["--devices", "3", "--num-processes", "2", "--coordinator", "localhost:1234"],
+     "a multi-host campaign must use every device on the global case mesh (2)"),
+    (["--cpu-backend", "--device", "cuda"], "--cpu-backend runs on the CPU; drop --device cuda"),
     # the reference launcher's own refusals of its sweep modes
     (["--sweep", SWEEP, "--trajectories"], "--trajectories rides the plain campaign path"),
     (["--scenario", "ricker-soft-basin", "--inject", "nan_at_step=2,case=1"], "--inject rides the plain campaign"),
@@ -467,7 +472,7 @@ def test_unported_campaign_modes_exit_nonzero(flags, message, capsys):
     assert e.value.code not in (0, None)
     assert message in str(e.value.code)
     if "not ported yet" in message:
-        assert "multi-device and multi-process campaign is a later slice" in str(e.value.code)
+        assert "several devices in one process are a later slice" in str(e.value.code)
 
 
 def test_one_process_topology_and_its_limits(monkeypatch):
@@ -483,10 +488,21 @@ def test_one_process_topology_and_its_limits(monkeypatch):
     one = bootstrap.parse_distributed(["--waves", "3"])
     assert one == bootstrap.DistributedArgs() and not one.distributed
     assert bootstrap.distributed_init(one) is one
-    two = bootstrap.parse_distributed(["--num-processes", "2", "--coordinator", "localhost:1", "--process-id", "1"])
-    assert two.distributed and two.process_id == 1
-    with pytest.raises(NotImplementedError, match="one process"):
-        bootstrap.distributed_init(two)
+    two = bootstrap.parse_distributed(["--num-processes", "2", "--coordinator", "localhost:1", "--process-id", "1",
+                                       "--cpu-backend"])
+    assert two.distributed and two.process_id == 1 and two.cpu_backend
+    # several processes join a gloo group at the coordinator (recorded here, not joined)
+    import atexit
+
+    import torch.distributed as torch_dist
+
+    joined, at_exit = [], []
+    monkeypatch.setattr(torch_dist, "init_process_group", lambda backend, **kw: joined.append((backend, kw)))
+    monkeypatch.setattr(atexit, "register", at_exit.append)
+    assert bootstrap.distributed_init(two) is two
+    (backend, kw), = joined
+    assert (backend, kw["init_method"], kw["rank"], kw["world_size"]) == ("gloo", "tcp://localhost:1", 1, 2)
+    assert at_exit == [bootstrap._teardown]
     with pytest.raises(ValueError, match="coordinator"):
         bootstrap.DistributedArgs(num_processes=2)
     monkeypatch.setattr(sys, "argv", ["campaign", "--host-devices", "1"])

@@ -217,9 +217,19 @@ def test_write_manifest_survives_concurrent_writers(tmp_path):
     assert _load(path)["n_scenarios"] == 2 and os.listdir(tmp_path) == ["plan.json"]
 
 
-def test_run_group_refuses_a_device_mesh():
+def test_run_group_refuses_a_device_mesh(tmp_path):
+    """Several devices in one process raise; a process mesh with ``out_dir``
+    is refused (every process would write the same shards)."""
+    from repro_torch.launch.mesh import CaseDevice, CaseMesh
+
+    group = sc.make_plan(_spec(sc)).groups[0]
+    two_here = CaseMesh(np.array([CaseDevice(0, "cpu")] * 2, dtype=object))
     with pytest.raises(NotImplementedError, match="one device"):
-        sc.run_group(sc.make_plan(_spec(sc)).groups[0], device="cpu", device_mesh=object())
+        sc.run_group(group, device="cpu", device_mesh=two_here)
+    two_processes = CaseMesh(np.array([CaseDevice(0, "cpu"), CaseDevice(1, "cpu")], dtype=object))
+    with pytest.raises(ValueError, match="every process would write the same"):
+        sc.run_group(group, device="cpu", device_mesh=two_processes, out_dir=str(tmp_path / "out"))
+    assert not os.path.exists(tmp_path / "out")
 
 
 def test_generate_sweep_pools_like_the_reference(tmp_path):
