@@ -96,18 +96,39 @@ Phases, each followed by a JSON line with its seconds:
                none of the fp32 kernel); the same tokens stepped one at a
                time through both decode steps give bitwise equal logits and
                caches;
-16. serve_check  the serving tier small, card against the port on the CPU:
+16. lm_families_cpu  gemma2-2b at published widths, one pair of layers
+               (window 32 under a prompt of 64), reduced mixtral and
+               deepseek-v2 (capacity factor 8.0), fp32: prefill + 4 decode
+               steps on the card against the CPU, and against ``forward`` on
+               the card (5e-5·max|logits|), greedy tokens and the MoE's aux
+               loss equal; one fp32 flash launch per attention layer in
+               prefill and in ``forward``;
+17. lm_families  bf16 compute: gemma2-2b whole (26 layers, B 2, prompt
+               8,192, 32 new tokens: 26 launches of the bf16 flash kernel's
+               D 256 instance in prefill, 13 windowed and 13 global, none in
+               decode; local caches of 4,096, global of 8,224), mixtral-8x22b
+               at published widths, 2 of 56 layers (B 2, prompt 6,144; its KV
+               offloaded in 2 pinned blocks through ``generate`` and stepped,
+               bitwise the resident decode), deepseek-v2-236b at published
+               widths, 1 dense + 1 MoE layer of 60 (B 1, prompt 2,048; MLA's
+               prefill at dh 192, dv 128; ``tokens_dropped_fraction`` of its
+               prefill's router logits, and the tokens each expert is
+               routed): prefill s, tokens/s, decode tokens/s,
+               peak device bytes, parameters and launches per model;
+18. serve_check  the serving tier small, card against the port on the CPU:
                ``SurrogateEngine`` and ``TrajectoryEngine`` (two members each;
                y within 1e-5·max|y|, score within 1e-5, equal signatures),
                batched ≡ per-request bitwise, ``ShardedEngine`` ≡ its engine
                with its signature, a repeat from the cache with no ``infer``;
                ``DecodeEngine`` on reduced qwen3 (fp32: the fp32 flash kernel)
                with the CPU's tokens, a single prompt padded to its bucket ≡
-               its batched row; ``launch.serve.main`` for all three engines,
+               its batched row, and on reduced gemma2, mixtral and deepseek-v2
+               with the CPU's tokens and signatures; ``launch.serve.main`` for
+               all three engines (decode also as ``--arch gemma2-2b``),
                the surrogate one with a repeat, feedback at threshold 0 and an
                injected failure, its health counts and feedback records the
                CPU run's;
-17. serve_main the servers at full width through ``MicroBatcher`` with a
+19. serve_main the servers at full width through ``MicroBatcher`` with a
                ``ResultCache``: (a) the CNN+LSTM ensemble (surrogate_main's
                trained member and a second from ``init_params``) through
                ``save_surrogate`` → ``SurrogateEngine.from_checkpoint`` on 16
@@ -121,7 +142,7 @@ Phases, each followed by a JSON line with its seconds:
                offloaded KV ≡ resident tokens; then the serve CLI at full
                width.  Per server: requests/s, infer ms a batch, wait ms, cache
                hits, peak device bytes, tokens/s;
-18. plan_check the planning and scheduling layer at crs_check's mesh, 12
+20. plan_check the planning and scheduling layer at crs_check's mesh, 12
                springs, on the card against the port on the CPU: ``run_plan`` of
                a two-group sweep (soil axis, 2 cases a scenario, 6 steps,
                tuned by the model) within 1e-6·max|v| with equal manifests
@@ -133,13 +154,13 @@ Phases, each followed by a JSON line with its seconds:
                --train-while-generating`` (both workers rc 0, the queue
                settled, the trainer's validation MAE); ``--scenarios`` over
                ``serve_check``'s feedback log, its shards read back with CRCs;
-19. kset_main  Proposed 2 as 2SET at main's mesh and 150 springs: two cases,
+21. kset_main  Proposed 2 as 2SET at main's mesh and 150 springs: two cases,
                θ of both resident on the card (2 × 7.08 GB), 4 steps of
                ``run_ensemble``, against each case alone in the same resident
                form (s/step, iterations, parts, peak device memory); one
                k-set multispring launch per step and one k-set EBE launch per
                matvec; lanes ≡ the single runs within 1e-6·max|v|;
-20. campaign_main  the campaign at full width through ``run_campaign(...,
+22. campaign_main  the campaign at full width through ``run_campaign(...,
                device=None)`` (kset_main's 2SET carry parked on the host):
                (a) Proposed 2, kset 2, M 3 (two rounds, the tail padded), 4
                steps, unguarded and guarded — per chunk s/step per case, peak
@@ -149,7 +170,7 @@ Phases, each followed by a JSON line with its seconds:
                is 14.16 GB), stopped after step 2 and resumed, bitwise (a)'s
                guarded round 0, with each checkpoint's bytes and seconds to
                copy, write, CRC and restore, and the free disk before;
-21. campaign_mp  the multi-process campaign through the CLI
+23. campaign_mp  the multi-process campaign through the CLI
                (``python -m repro_torch.launch.campaign``, one process each)
                at main's size: Proposed 2, 150 springs, k 1, 5 waves of 4
                steps, a checkpoint every 2; one process as the reference,
@@ -162,11 +183,18 @@ Phases, each followed by a JSON line with its seconds:
                chunk s/step per case and peak device bytes, checkpoint bytes
                and seconds, cases/s and the pair's summed rate against one
                process's;
-22. timing     each kernel at the shapes its main path gives it, against its
+24. timing     each kernel at the shapes its main path gives it, against its
                plain version, its bound and (flash) SDPA, with flash held in
                fp32 and bf16 there too and timed in both (fp32 against the
                3×TF32 bound and the fp32 cores' bound, also at gemma2-2b's
-               and deepseek-v2's MLA heads); a breakdown of one
+               and deepseek-v2's MLA heads); the bf16 kernel's D 256
+               instance at lm_families' prefill shapes (gemma2-2b local and
+               global, B 2, S 8,192, softcap 50; deepseek-v2's MLA, B 1,
+               128 heads, S 2,048, dh 192, dv 128) and its D 128 instance
+               at mixtral-8x22b's (B 2, Hq 48 over Hkv 8, S 6,144, window
+               4,096), each with its registers and spills, against SDPA for
+               MLA and mixtral (the window as a mask) and, without the
+               softcap, for gemma2 (a comparison only); a breakdown of one
                whole EBE matvec (kernel, slot-table scatter) in both dtypes,
                of one full-size FEM step (with the multispring kernel summed
                over the step's blocks beside the streamed pass and the θ
@@ -178,7 +206,7 @@ Phases, each followed by a JSON line with its seconds:
                ``torch.nn.LSTM`` (cuDNN) at B 4, T 4,000, H 1,024, forward and
                forward + backward, and ``ssm_scan`` against its loop at T ∈
                {256, 1,024, 4,096, 16,000} (``{"outside_pallas": [...]}``);
-23. plan_main  the planning and scheduling layer at main's size, 150 springs,
+25. plan_main  the planning and scheduling layer at main's size, 150 springs,
                with a calibration table written from ``timing``'s own kernel
                times (the multispring block and the fp64 EBE product as
                backend ``cuda``, their plain versions as ``torch``): (a) the
@@ -332,6 +360,31 @@ class Phase:
 def require(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+def cuda_ms(fn, reps):
+    """Device ms of one call of ``fn``: CUDA events around ``reps`` calls after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def nbytes(*xs):
+    return sum(x.numel() * x.element_size() for x in xs if x is not None)
+
+
+def bound(nbytes_, flops, dt):
+    """The least ms the card could take: bytes over its memory rate or operations over its peak rate."""
+    t_bytes, t_ops = nbytes_ / HBM_BYTES_PER_S, flops / PEAK_FLOPS[str(dt)]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 KSET_KERNELS = ("multispring_kset", "ebe_matvec_kset_f64", "ebe_matvec_kset_f32")
@@ -1160,6 +1213,8 @@ SERVE_CLI_SURROGATE = ["--sweep", SERVE_SWEEP, "--max-batch", "8", "--max-wait-m
                        "--breaker-threshold", "2"]
 SERVE_CLI_DECODE = ["--engine", "decode", "--arch", "qwen3-1.7b", "--reduced", "--batch", "4", "--prompt-len", "16",
                     "--new", "8", "--max-batch", "4", "--repeat", "2"]
+SERVE_CLI_GEMMA2 = ["--engine", "decode", "--arch", "gemma2-2b", "--reduced", "--batch", "4", "--prompt-len", "16",
+                    "--new", "8", "--max-batch", "4", "--repeat", "2"]
 HEALTH_KEYS = ("batches", "cache_hits", "engine_failures", "split_retries", "poison_requests", "nonfinite_outputs",
                "deadline_expired", "breaker_trips", "breaker_rejected", "breaker_state")
 # serve_main: 16 requests of one shard wave each through max_batch 8 (two batches), then
@@ -1204,7 +1259,9 @@ def serve_check(root, dev, keep_feedback=None):
     signature, a repeat served from the cache with no ``infer``;
     ``DecodeEngine`` on reduced qwen3 (fp32: the fp32 flash kernel) with the
     CPU's tokens, a single prompt padded to the bucket giving its batched
-    row; and ``launch.serve.main`` for all three engines, the surrogate one
+    row, and on reduced gemma2, mixtral and deepseek-v2 with the CPU's tokens
+    and signatures; ``launch.serve.main`` for all three engines (decode also
+    as ``--arch gemma2-2b``), the surrogate one
     with a repeat, feedback at threshold 0 and an injected failure whose
     split-retry and breaker counts and feedback records are the CPU run's.
     The card's feedback log is copied to ``keep_feedback`` (``plan_check``
@@ -1279,6 +1336,24 @@ def serve_check(root, dev, keep_feedback=None):
     require(one == {"flash_attention_bf16": 0, "flash_attention_f32": cfg.n_layers},
             f"a reduced fp32 decode batch made flash launches {one}")
     del card, host
+    # DecodeEngine on reduced gemma2, mixtral and deepseek-v2 (fp32), card against CPU
+    for name in FAMILY_NAMES:
+        fcfg = ARCHS[name].reduced()
+        fp = T.init_params(fcfg, torch.Generator().manual_seed(0), "cpu")
+        fprompts = rng.integers(0, fcfg.vocab_size, (3, 8)).astype(np.int32)
+        card, host = DecodeEngine(fcfg, fp, device=dev, **kw), DecodeEngine(fcfg, fp, device=cpu, **kw)
+        before = kernels.instance_counts()
+        got = card.infer(fprompts)
+        one = {n: c - before[n] for n, c in kernels.instance_counts().items()}
+        rows[f"decode_{name}"] = {"arch": fcfg.name, "dtype": fcfg.dtype,
+                                  "tokens_equal_cpu": bool(np.array_equal(got.y, host.infer(fprompts).y)),
+                                  "signature_equal": card.signature() == host.signature(),
+                                  "flash_launches_one_batch": one}
+        require(rows[f"decode_{name}"]["tokens_equal_cpu"], f"{name} DecodeEngine's tokens on the card ≠ the CPU's")
+        require(rows[f"decode_{name}"]["signature_equal"], f"{name} DecodeEngine: card and CPU signatures differ")
+        require(one == {"flash_attention_bf16": 0, "flash_attention_f32": fcfg.n_layers},
+                f"a reduced fp32 {name} decode batch made flash launches {one}")
+        del card, host, fp
 
     # the serve CLI in-process, all three engines; the surrogate one also on the CPU
     cli = {}
@@ -1317,6 +1392,16 @@ def serve_check(root, dev, keep_feedback=None):
     require(res["stats"]["cache_hits"] == 4 and cli_launches["flash_attention_f32"] == 2 * cfg.n_layers,
             f"decode CLI: {res['stats']}, launches {cli_launches}")  # warm-up + one batch
     require(res["tokens"].shape == (4, 8), f"decode CLI tokens {res['tokens'].shape}")
+    res = {}
+    before = kernels.instance_counts()
+    lines = _serve_cli(SERVE_CLI_GEMMA2, res)
+    cli_launches = {n: c - before[n] for n, c in kernels.instance_counts().items()}
+    rows["cli_decode_gemma2"] = {"stats": {k: res["stats"][k] for k in HEALTH_KEYS}, "report": lines,
+                                 "flash_launches": cli_launches}
+    g2 = ARCHS["gemma2-2b"].reduced()
+    require(res["stats"]["cache_hits"] == 4 and cli_launches["flash_attention_f32"] == 2 * g2.n_layers,
+            f"gemma2 decode CLI: {res['stats']}, launches {cli_launches}")  # warm-up + one batch
+    require(res["tokens"].shape == (4, 8), f"gemma2 decode CLI tokens {res['tokens'].shape}")
     launches = kernels.instance_counts()
     rows["flash_launches"] = launches
     emit({"serve_check": rows})
@@ -1799,6 +1884,344 @@ def plan_main(root, dev, calibration, mesh):
     require(not any(f.get("kind") == "expired" for f in fails), f"plan_main (b): a lease was taken over: {fails}")
     shutil.rmtree(root, ignore_errors=True)
     return launches
+
+
+# gemma2-2b, mixtral-8x22b and deepseek-v2-236b.  lm_families_cpu: gemma2-2b at its
+# published widths cut to one pair of layers (window 32 under a prompt of 64, so the
+# window acts), mixtral and deepseek-v2 reduced at capacity factor 8.0 (as the
+# reference's own decode test: decode then routes as forward does); fp32
+FAMILY_NAMES = ("gemma2-2b", "mixtral-8x22b", "deepseek-v2-236b")
+FAMILIES_CPU = dict(B=2, prompt=64, new_tokens=4)
+# lm_families: bf16 compute, fp32 parameters, greedy.  gemma2-2b whole (26 layers, its
+# 8,192 context: twice the local window); mixtral 2 of 56 layers (141 G parameters do
+# not fit in 80 GB; the prompt passes its 4,096 window) with the KV offloaded in 2
+# pinned blocks beside; deepseek-v2 1 dense + 1 MoE layer of 60
+FAMILIES_MAIN = {
+    "gemma2-2b": dict(cut={}, B=2, prompt=8192, cache_len=8224, new_tokens=32),
+    "mixtral-8x22b": dict(cut={"n_layers": 2}, B=2, prompt=6144, cache_len=6176, new_tokens=32, kv_npart=2),
+    "deepseek-v2-236b": dict(cut={"n_layers": 2}, B=1, prompt=2048, cache_len=2080, new_tokens=32),
+}
+# timing's bf16 flash rows at the new paths' prefill shapes (the kernel's D 256
+# instance, and its D 128 one at mixtral's windowed GQA shape): (row, the paths
+# whose launches it counts, B, Hq, Hkv, S, dh, dv, window, softcap, scale)
+FAMILY_FLASH = (
+    ("flash_attention_bf16_d256_gemma2_local", ("gemma2-2b local",), 2, 8, 4, 8192, 256, 256, 4096, 50.0, None),
+    ("flash_attention_bf16_d256_gemma2_global", ("gemma2-2b global",), 2, 8, 4, 8192, 256, 256, None, 50.0, None),
+    ("flash_attention_bf16_d256_mla", ("deepseek-v2-236b MLA",), 1, 128, 128, 2048, 192, 128, None, None,
+     192**-0.5),
+    ("flash_attention_bf16_d128_mixtral", ("mixtral-8x22b prefill", "mixtral-8x22b offloaded generate"),
+     2, 48, 8, 6144, 128, 128, 4096, None, None),
+)
+
+
+class Recorded:
+    """Calls to ``module.<name>`` recorded while the block runs (the callee runs
+    as it is): the arguments ``what(*args, **kwargs)`` picks.  Kernel launches
+    are counted by the wrappers' own counters, not here."""
+
+    def __init__(self, module, name, what):
+        self.module, self.name, self.what, self.calls = module, name, what, []
+
+    def __enter__(self):
+        inner = self.inner = getattr(self.module, self.name)
+
+        def recorder(*args, **kwargs):
+            self.calls.append(self.what(*args, **kwargs))
+            return inner(*args, **kwargs)
+
+        setattr(self.module, self.name, recorder)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
+        return False
+
+
+def _flash_call(q, k, v, **kw):
+    return {"dh": q.shape[-1], "dv": v.shape[-1], "window": kw.get("window"), "softcap": kw.get("softcap")}
+
+
+def _call_counts(calls):
+    out = {}
+    for c in calls:
+        key = json.dumps(c, sort_keys=True)
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def _family_cfg_cpu(name):
+    from repro_torch.configs import ARCHS
+
+    if name == "gemma2-2b":
+        return dataclasses.replace(ARCHS[name], n_layers=2, window=32, dtype="float32")
+    return dataclasses.replace(ARCHS[name].reduced(), capacity_factor=8.0)
+
+
+def lm_families_cpu(dev):
+    """gemma2-2b (published widths, one pair of layers, window 32), reduced
+    mixtral and deepseek-v2, fp32: prefill + 4 decode steps on the card against
+    the CPU on the same weights, prefill→decode against ``forward`` on the
+    card (5e-5·max|logits|), greedy tokens equal, the MoE's aux loss card
+    against CPU; exactly one fp32 flash launch per attention layer in prefill
+    and one in ``forward``, none of the bf16 kernel.  Returns the fp32
+    launches by model."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.models import transformer as T
+
+    cpu = torch.device("cpu")
+    B, S0, NEW = FAMILIES_CPU["B"], FAMILIES_CPU["prompt"], FAMILIES_CPU["new_tokens"]
+    rows, launches = {}, {}
+    for name in FAMILY_NAMES:
+        cfg = _family_cfg_cpu(name)
+        p_cpu = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        p_gpu = _tree_to(p_cpu, dev)
+        toks = torch.randint(0, cfg.vocab_size, (B, S0 + NEW), generator=torch.Generator().manual_seed(1))
+        runs = {}
+        for where, params, d in (("cpu", p_cpu, cpu), ("gpu", p_gpu, dev)):
+            kernels.reset_launch_counts()  # the card's run is counted: the fp32 flash kernel's path
+            t = toks.to(d)
+            lg, st = T.prefill(params, cfg, {"tokens": t[:, :S0]}, cache_len=S0 + NEW)
+            out = [lg[:, 0]]
+            for i in range(S0, S0 + NEW):
+                lg, st = T.decode_step(params, cfg, t[:, i:i + 1], st)
+                out.append(lg[:, 0])
+            runs[where] = torch.stack(out, 1).cpu()
+        fwd, aux = T.forward(p_gpu, cfg, {"tokens": toks.to(dev)})
+        fwd = fwd[:, S0 - 1:].cpu()
+        got = kernels.instance_counts()
+        aux_cpu = T.forward(p_cpu, cfg, {"tokens": toks})[1] if cfg.n_experts else aux.cpu()
+        scale = float(runs["cpu"].abs().max())
+        err_cpu = float((runs["gpu"] - runs["cpu"]).abs().max())
+        err_fwd = float((runs["gpu"] - fwd).abs().max())
+        same_tokens = torch.equal(runs["gpu"].argmax(-1), runs["cpu"].argmax(-1))
+        want = {"flash_attention_bf16": 0, "flash_attention_f32": 2 * cfg.n_layers}
+        rows[name] = {"cfg": {k: getattr(cfg, k) for k in ("n_layers", "d_model", "n_heads", "n_kv_heads", "hd",
+                                                            "vocab_size", "window", "capacity_factor")},
+                      "B": B, "prompt": S0, "decode_steps": NEW, "max_abs_err_vs_cpu": err_cpu,
+                      "max_abs_err_vs_forward": err_fwd, "atol": 5e-5 * scale, "greedy_tokens_equal": same_tokens,
+                      "aux": float(aux), "aux_cpu": float(aux_cpu), "flash_launches": got}
+        require(got == want, f"{name}: fp32 prefill + forward made flash launches {got}, not {want}")
+        require(err_cpu <= 5e-5 * scale, f"{name}: logits on the card differ from the CPU: {err_cpu}")
+        require(err_fwd <= 5e-5 * scale, f"{name}: prefill→decode differs from forward on the card: {err_fwd}")
+        require(same_tokens, f"{name}: greedy tokens differ between card and CPU")
+        require(abs(float(aux) - float(aux_cpu)) <= 1e-5 * max(1.0, abs(float(aux_cpu))),
+                f"{name}: aux loss card {float(aux)} ≠ CPU {float(aux_cpu)}")
+        launches[name] = got["flash_attention_f32"]
+        del p_cpu, p_gpu, runs, fwd, st, lg
+    emit({"lm_families_cpu": rows})
+    return launches
+
+
+def lm_families(dev):
+    """The three models on the card, bf16 compute, fp32 parameters, greedy:
+    prefill (the bf16 flash kernel once per attention layer, D 256 instance:
+    gemma2 13 windowed and 13 global sub-layers at dh 256, deepseek-v2's MLA
+    at dh 192, dv 128) and 32 decode steps (no flash launch); mixtral's KV
+    offloaded in 2 pinned blocks, through ``generate`` and stepped beside the
+    resident decode, bitwise; the MoE's ``tokens_dropped_fraction`` over its
+    prefill's router logits, with the tokens each expert is routed (first
+    choice and all top-k).  Prefill s, tokens/s, decode tokens/s, peak
+    device bytes, parameters and launches per model; each model is freed
+    before the next.  Returns the bf16 launches by path."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import hetmem
+    from repro_torch.models import layers as L, moe as M, transformer as T
+    from repro_torch.serving import decode as serve
+
+    def greedy(logits):
+        return logits[:, -1].argmax(-1, keepdim=True)
+
+    rows, by_path = {}, {}
+    for name, spec in FAMILIES_MAIN.items():
+        cfg = dataclasses.replace(ARCHS[name], **spec["cut"])
+        B, S0, NEW, C = spec["B"], spec["prompt"], spec["new_tokens"], spec["cache_len"]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident_before = torch.cuda.memory_allocated()
+        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        n_params = sum(x.numel() for x in _leaves(params))
+        prompt = torch.randint(0, cfg.vocab_size, (B, S0), device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()  # counts of this model's path only
+        with Recorded(L, "flash_attention", _flash_call) as flash, \
+                Recorded(M, "moe", lambda p, x, *a, **kw: (p["router"], x)) as moe_in:
+            t0 = time.perf_counter()
+            logits, state = T.prefill(params, cfg, {"tokens": prompt}, cache_len=C)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+        prefill_by_kernel = kernels.instance_counts()
+        require(bool(torch.isfinite(logits).all()), f"{name}: prefill logits not finite")
+        router_logits = [(x.reshape(-1, cfg.d_model) @ r.to(x.dtype)).float() for r, x in moe_in.calls]
+        dropped = [float(M.tokens_dropped_fraction(lg, cfg)) for lg in router_logits]
+        # tokens per expert: the router's first choice, and all top-k choices (what fills the capacity)
+        expert_counts = [{"first_choice": torch.bincount(lg.argmax(-1), minlength=cfg.n_experts).tolist(),
+                          "top_k": torch.bincount(torch.topk(lg, cfg.top_k, dim=-1).indices.reshape(-1),
+                                                  minlength=cfg.n_experts).tolist()}
+                         for lg in router_logits]
+        del moe_in, router_logits
+        tok, gen, step_logits = greedy(logits), [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(NEW):
+            gen.append(tok)
+            logits, state = T.decode_step(params, cfg, tok, state)
+            step_logits.append(logits)
+            tok = greedy(logits)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = kernels.instance_counts()
+        decode_launches = {k: launches[k] - prefill_by_kernel[k] for k in launches}
+        gen = torch.cat(gen, 1)
+        row = {"arch": cfg.name, "layers": cfg.n_layers, "layers_published": ARCHS[name].n_layers, "params": n_params,
+               "B": B, "prompt": S0, "cache_len": C, "new_tokens": NEW, "prefill_s": prefill_s,
+               "prefill_tokens_per_s": B * S0 / prefill_s, "decode_s": decode_s,
+               "decode_tokens_per_s": B * NEW / decode_s, "peak_device_bytes": peak,
+               "resident_before_bytes": resident_before, "flash_launches_prefill": prefill_by_kernel,
+               "flash_calls_prefill": _call_counts(flash.calls), "flash_launches_decode": decode_launches,
+               "cache_shapes": {k: {n: list(t.shape) for n, t in c.items()} for k, c in state.items() if k != "pos"},
+               "tokens_row0": gen[0, :8].tolist()}
+        n_attn = cfg.n_layers
+        require(prefill_by_kernel == {"flash_attention_bf16": n_attn, "flash_attention_f32": 0},
+                f"{name}: prefill's flash launches {prefill_by_kernel}, not {n_attn} of the wgmma kernel alone")
+        require(all(v == 0 for v in decode_launches.values()), f"{name}: decode launched flash: {decode_launches}")
+        require(bool(torch.isfinite(logits).all()), f"{name}: decode logits not finite")
+        require(tuple(gen.shape) == (B, NEW) and state["pos"] == S0 + NEW, f"{name}: generated {tuple(gen.shape)}")
+        if name == "gemma2-2b":
+            windows = [c["window"] for c in flash.calls]
+            require(all(c["dh"] == c["dv"] == cfg.hd and c["softcap"] == cfg.attn_softcap for c in flash.calls)
+                    and windows == [cfg.window, None] * (n_attn // 2),
+                    f"gemma2's prefill flash calls {_call_counts(flash.calls)}")
+            require(state["local"]["k"].shape[3] == cfg.window and state["global"]["k"].shape[3] == C,
+                    f"gemma2's caches {row['cache_shapes']}")
+            by_path["gemma2-2b local"] = windows.count(cfg.window)
+            by_path["gemma2-2b global"] = windows.count(None)
+        elif name == "deepseek-v2-236b":
+            mla = (cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim, None)  # (192, 128, no window)
+            require(all((c["dh"], c["dv"], c["window"]) == mla for c in flash.calls),
+                    f"MLA's prefill flash calls {_call_counts(flash.calls)}")
+            require(len(dropped) == 1 and 0.0 <= dropped[0] < 1.0, f"tokens_dropped_fraction {dropped}")
+            row["tokens_dropped_fraction_at_capacity_factor"] = {"capacity_factor": cfg.capacity_factor,
+                                                                 "moe_layers": dropped}
+            row["router_tokens_per_expert"] = expert_counts
+            by_path["deepseek-v2-236b MLA"] = len(flash.calls)
+        else:  # mixtral: the KV offloaded in pinned blocks, bitwise the resident decode
+            row["tokens_dropped_fraction_at_capacity_factor"] = {"capacity_factor": cfg.capacity_factor,
+                                                                 "moe_layers": dropped}
+            row["router_tokens_per_expert"] = expert_counts
+            npart = spec["kv_npart"]
+            mixtral_call = {"dh": cfg.hd, "dv": cfg.hd, "window": cfg.window, "softcap": None}
+            require(all(c == mixtral_call for c in flash.calls), f"mixtral's prefill flash calls {flash.calls}")
+            by_path["mixtral-8x22b prefill"] = len(flash.calls)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            off_tok = serve.generate(params, cfg, prompt, NEW, serve.ServeConfig(kv_offload=True, kv_npart=npart),
+                                     kv_schedule="prefetch")
+            torch.cuda.synchronize()
+            off_s = time.perf_counter() - t0
+            off_launches = kernels.instance_counts()
+            blocks = serve.make_kv_blocks(cfg, B, C, npart, dtype=L.dt(cfg), device=dev)
+            host = {n: [x for blk in blocks for x in blk[j]] for j, n in enumerate(("k", "v"))}
+            _, ostate = T.prefill(params, cfg, {"tokens": prompt}, cache_len=C, out=host)
+            ostate, steps_equal = {"pos": ostate["pos"]}, 0
+            for t in range(NEW):
+                olg, ostate, blocks = serve.decode_step_offloaded(params, cfg, gen[:, t:t + 1], ostate, blocks,
+                                                                  schedule="prefetch")
+                steps_equal += int(torch.equal(olg, step_logits[t]))
+            kv_equal = all(torch.equal(torch.cat([blk[i] for blk in blocks]).to(dev), state["layers"][n])
+                           for i, n in enumerate(("k", "v")))
+            pinned = all(hetmem.is_pinned_host(x) for blk in blocks for x in blk)
+            row["offloaded_vs_resident"] = {
+                "kv_npart": npart, "schedule": "prefetch", "generate_s": off_s,
+                "tokens_equal": torch.equal(off_tok[:, S0:], gen), "steps_with_bitwise_logits": steps_equal,
+                "steps": NEW, "kv_bitwise": kv_equal, "kv_blocks_pinned_host": pinned,
+                "generate_flash_launches": off_launches}
+            require(off_launches == {"flash_attention_bf16": n_attn, "flash_attention_f32": 0},
+                    f"mixtral's offloaded generate made flash launches {off_launches}")
+            require(torch.equal(off_tok[:, S0:], gen), "mixtral: offloaded generate's tokens differ from resident")
+            require(steps_equal == NEW and kv_equal and pinned, f"mixtral offload: {row['offloaded_vs_resident']}")
+            by_path["mixtral-8x22b offloaded generate"] = off_launches["flash_attention_bf16"]
+            del blocks, host, ostate, olg
+        emit({"lm_families": row})
+        rows[name] = row
+        del params, state, logits, step_logits, prompt, flash
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def family_flash_rows(dev, sdpa, launches):
+    """timing's rows for the bf16 flash kernel at the new paths' prefill
+    shapes (its D 256 instance for gemma2 and MLA, its D 128 one for
+    mixtral's window of 4,096 at a GQA group of 6), laid out as the layers
+    give them (q and k contiguous, v a transposed view of its projection):
+    each against its plain version (per value: 2 ulp(|o|) + 2^-5 rms of its
+    row), its bound, SDPA where SDPA computes the function (MLA, mixtral:
+    a window as a boolean mask) and, for gemma2, SDPA without the softcap
+    beside the kernel without it (a comparison only: SDPA has no softcap)."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    report = ptxas_report(_build.ptxas_log())
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for name, paths, B, Hq, Hkv, S, dh, dv, window, cap, scale in FAMILY_FLASH:
+        instance = f"flash_wgmma_kernel<bf16, {next(d for d in (64, 128, 256) if max(dh, dv) <= d)}>"
+        regs = {k: v for k, v in report.items() if k == instance}
+        bf = torch.bfloat16
+        q = torch.randn((B, Hq, S, dh), device=dev, generator=g).to(bf)
+        k = torch.randn((B, Hkv, S, dh), device=dev, generator=g).to(bf)
+        v = torch.randn((B, S, Hkv, dv), device=dev, generator=g).to(bf).transpose(1, 2)
+        kw = dict(causal=True, window=window, softcap=cap, scale=scale)
+        out_k, out_p = fa_ops.flash_attention_cuda(q, k, v, **kw), fa_ops.flash_attention_ref(q, k, v, **kw)
+        ref32 = out_p.float()
+        ulp = torch.where(ref32 == 0, 0.0, torch.ldexp(torch.ones_like(ref32), torch.frexp(ref32)[1] - 8))
+        lim = 2 * ulp + 2**-5 * ref32.pow(2).mean(-1, keepdim=True).sqrt()
+        ratio = float(((out_k.float() - ref32).abs() / lim).max())
+        err = float((out_k.float() - ref32).abs().max())
+        require(ratio <= 1.0, f"{name}: the bf16 flash kernel disagrees with its plain version: {ratio} of its limit")
+        del ref32, ulp, lim, out_p
+        w = window or S
+        kept = w * (w + 1) // 2 + (S - w) * w  # (q, k) pairs the causal mask and the window keep
+        flops = 2 * B * Hq * kept * (dh + dv)
+        b_ms, by = bound(nbytes(q, k, v, out_k), flops, bf)
+        ms = cuda_ms(lambda: fa_ops.flash_attention_cuda(q, k, v, **kw), 10)
+        if window is None:
+            lib = lambda: sdpa(q, k, v, is_causal=True, scale=scale, enable_gqa=Hq != Hkv)  # noqa: E731
+        else:
+            i = torch.arange(S, device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+            lib = lambda: sdpa(q, k, v, attn_mask=mask, scale=scale, enable_gqa=Hq != Hkv)  # noqa: E731
+        detail = {"launches_by_path": {p: launches[p] for p in paths}, "B": B, "Hq": Hq, "Hkv": Hkv, "S": S,
+                  "dh": dh, "dv": dv, "window": window,
+                  "softcap": cap, "scale": scale, "causal": True, "v_strided": True, "flops": flops,
+                  "bf16_err_over_limit": ratio, "bf16_limit": "2 ulp(|o|) + 2^-5 rms(o row)",
+                  "tflop_per_s": flops / (ms / 1e3) / 1e12, "share_of_bound": b_ms / ms, "registers_spills": regs}
+        library_ms = None
+        detail["sdpa_form"] = "is_causal" if window is None else "boolean window mask"
+        if cap is None:
+            library_ms = cuda_ms(lib, 10)
+        else:  # a comparison only: both without the softcap
+            plain_kw = dict(kw, softcap=None)
+            detail["comparison_without_softcap"] = {
+                "kernel_ms": cuda_ms(lambda: fa_ops.flash_attention_cuda(q, k, v, **plain_kw), 10),
+                "sdpa_ms": cuda_ms(lib, 3), "note": "SDPA has no softcap: not the path's function"}
+        rows.append({"name": name, "route": "cuda", "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
+                     "replaces": "src/repro/kernels/flash_attention/flash_attention.py:83",
+                     "launches": sum(launches[p] for p in paths), "max_abs_err": err, "ms": ms,
+                     "plain_ms": cuda_ms(lambda: fa_ops.flash_attention_ref(q, k, v, **kw), 1),
+                     "bound_ms": b_ms, "bound_by": by, "library_ms": library_ms, "detail": detail})
+        del q, k, v, out_k, lib
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:
@@ -2444,6 +2867,14 @@ def main() -> int:
         require(pinned, "KV blocks are not pinned host tensors")
         del state, ostate, kv, lg, olg
 
+    with Phase("lm_families_cpu"):
+        families_cpu_launches = lm_families_cpu(dev)
+
+    with Phase("lm_families"):
+        # gemma2-2b whole, mixtral and deepseek-v2 at published widths; lm_main's
+        # qwen3 stays on the card for serve_main
+        families_launches = lm_families(dev)
+
     feedback_log = os.path.join(ROOT, "build", "serve_feedback.jsonl")
     with Phase("serve_check"):
         serve_check_launches = serve_check(os.path.join(ROOT, "build", "serve_check"), dev, keep_feedback=feedback_log)
@@ -2542,24 +2973,6 @@ def main() -> int:
         # with kset_main's carry still on the host
         campaign_mp_launches = campaign_mp(os.path.join(ROOT, "build", "campaign_mp"))
         kset_carry = tree_map(lambda x: x.to(dev), kset_carry)
-
-    def cuda_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(reps):
-            fn()
-        t1.record()
-        torch.cuda.synchronize()
-        return t0.elapsed_time(t1) / reps
-
-    def nbytes(*xs):
-        return sum(x.numel() * x.element_size() for x in xs if x is not None)
-
-    def bound(nbytes_, flops, dt):
-        t_bytes, t_ops = nbytes_ / HBM_BYTES_PER_S, flops / PEAK_FLOPS[str(dt)]
-        return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
     with Phase("timing"):
         ops = methods.FemOperators(mesh, cfg, device=dev)
@@ -2767,7 +3180,8 @@ def main() -> int:
         regs = {key: val for key, val in ptxas_report(_build.ptxas_log()).items() if key.startswith("flash_kernel<")}
         rows.append({"name": "flash_attention_f32", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
                      "replaces": "src/repro/kernels/flash_attention/flash_attention.py:83",
-                     "launches": cpu_path_launches["flash_attention_f32"] + serve_check_launches["flash_attention_f32"],
+                     "launches": (cpu_path_launches["flash_attention_f32"] + sum(families_cpu_launches.values())
+                                  + serve_check_launches["flash_attention_f32"]),
                      **f32,
                      "detail": {"B": Bf, "Hq": Hq, "Hkv": Hkv, "S": S, "dh": dh, "dtype": "torch.float32",
                                 "causal": True, "v_strided": True, "tol": FLASH_TOL["torch.float32"], "flops": flops,
@@ -2776,8 +3190,10 @@ def main() -> int:
                                 "launches_by_path": {
                                     "lm_cpu (fp32 prefill + forward on the card)": cpu_path_launches[
                                         "flash_attention_f32"],
-                                    "serve_check (reduced qwen3 DecodeEngine and serve CLI, fp32)":
-                                        serve_check_launches["flash_attention_f32"]}}})
+                                    **{f"lm_families_cpu {n} (fp32 prefill + forward)": c
+                                       for n, c in families_cpu_launches.items()},
+                                    "serve_check (reduced qwen3, gemma2, mixtral, deepseek-v2 DecodeEngine and "
+                                    "serve CLI, fp32)": serve_check_launches["flash_attention_f32"]}}})
         q, k, v = q.bfloat16(), k.bfloat16(), v_bshd.bfloat16().transpose(1, 2)
         del v_bshd
         out_k, out_p = fa_ops.flash_attention_cuda(q, k, v), fa_ops.flash_attention_ref(q, k, v)
@@ -2812,6 +3228,9 @@ def main() -> int:
                                                      "lm_offload": offload_launches["flash_attention_bf16"],
                                                      **serve_launches}}})
         del q, k, v, out_k, out_p
+        # the D 256 instance at gemma2-2b's (local, global) and deepseek-v2's MLA prefill shapes,
+        # the D 128 one at mixtral's (window 4,096, GQA group 6)
+        rows.extend(family_flash_rows(dev, sdpa, families_launches))
         # breakdown of one prefill at lm_main's shape (CUDA events)
         x = torch.randn((4, S, qwen.d_model), device=dev, generator=g).to(torch.bfloat16)
         lp = T.layer(params["layers"], 0)

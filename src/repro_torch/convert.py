@@ -101,22 +101,37 @@ def _tree(tree: Any, device) -> Any:
 
 def params_from_numpy(tree: dict[str, Any], cfg, device) -> dict[str, Any]:
     """The port's parameters for ``cfg`` from the JAX ``init_params`` tree
-    (leaves as numpy arrays; same keys, stacked ``[L,…]`` layer tensors)."""
+    (leaves as numpy arrays; the same keys and stacked layer tensors: ``[L,…]``,
+    gemma2's pairs ``[L/2, 2, …]``, or the MoE family's ``dense_layers`` and
+    ``layers``)."""
     transformer.check_supported(cfg)
-    expected = {"embed", "layers", "final_norm"} | ({"lm_head"} if not cfg.tie_embeddings else set())
+    stacks = transformer.stack_shapes(cfg)
+    expected = {"embed", "final_norm", *stacks} | ({"lm_head"} if not cfg.tie_embeddings else set())
     if set(tree) != expected:
         raise ValueError(f"parameter tree has keys {sorted(tree)}, expected {sorted(expected)}")
     params = _tree(tree, device)
-    if transformer.n_stacked(params["layers"]) != cfg.n_layers:
-        raise ValueError(f"layer stack of {transformer.n_stacked(params['layers'])}, cfg has {cfg.n_layers}")
+    for name, lead in stacks.items():
+        got = {tuple(t.shape[:len(lead)]) for t in tree_leaves(params[name])}
+        if got != {lead}:
+            raise ValueError(f"{name}: layer stacks of {sorted(got)}, cfg {cfg.name} has {lead}")
     return params
 
 
+def _keys(tree: Any) -> Any:
+    return {k: _keys(v) for k, v in tree.items()} if isinstance(tree, dict) else None
+
+
 def decode_state_from_numpy(state: dict[str, Any], cfg, device) -> dict[str, Any]:
-    """The port's decode state from the JAX one (``{"pos", "layers": {"k",
-    "v"}}``, numpy leaves), e.g. the state a JAX ``prefill`` returned."""
+    """The port's decode state from the JAX one (``pos`` and each stack's
+    caches, numpy leaves: ``layers``; gemma2's ``local`` and ``global``; the
+    MoE family's ``dense_layers`` beside ``layers``; MLA's ``c_kv`` and
+    ``k_rope``), e.g. the state a JAX ``prefill`` returned."""
     transformer.check_supported(cfg)
-    return {"pos": int(np.asarray(state["pos"])), "layers": _tree(state["layers"], device)}
+    want = _keys(transformer.init_decode_state(cfg, 1, 1, device="meta"))
+    if _keys(state) != want:
+        raise ValueError(f"decode state has keys {_keys(state)}, {cfg.name} expects {want}")
+    return {"pos": int(np.asarray(state["pos"])),
+            **{k: _tree(v, device) for k, v in state.items() if k != "pos"}}
 
 
 _SURROGATE_KEYS = ({"enc", "lstm", "dec", "heads"}, {"enc", "layers", "out"})  # CNN+LSTM, trajectory

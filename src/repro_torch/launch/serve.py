@@ -14,6 +14,8 @@ cache + active-learning feedback)::
         --ckpt ckpt/trajectory --scenario ricker-soft-basin --repeat 2
 
     # decode: batched LM generation, resident or host-offloaded KV
+    # (--arch: the dense stacks, gemma2-2b, mixtral-8x22b, deepseek-v2-236b;
+    # --offload-kv takes a uniform stack of GQA layers: dense, or mixtral)
     PYTHONPATH=src python -m repro_torch.launch.serve --engine decode \\
         --arch qwen3-1.7b --reduced --batch 4 --new 16 \\
         [--offload-kv --npart 4] [--temperature 0.8]
@@ -220,6 +222,11 @@ def _serve_decode(args, device, result) -> int:
     if args.reduced:
         cfg = cfg.reduced()
     T.check_supported(cfg)
+    if args.offload_kv:  # refused before the weights are made (DecodeEngine refuses too, after)
+        try:
+            T.check_offload_scope(cfg)
+        except ValueError as e:
+            raise SystemExit(f"{TAG} --offload-kv: {e}") from None
     scfg = ServeConfig(kv_offload=args.offload_kv, kv_npart=args.npart, temperature=args.temperature,
                        seed=args.seed)
     params = T.init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)

@@ -1,4 +1,4 @@
-"""Core layers in PyTorch: norms, rotary, attention (GQA), MLP.
+"""Core layers in PyTorch: norms, rotary, attention (GQA and MLA), MLP.
 
 The JAX package's ``models/layers.py`` with the same public names, layouts
 and rounding points:
@@ -13,7 +13,8 @@ and rounding points:
   over the cache.
 
 There is no sharding on one card, so ``proj`` is a plain matmul.  MLA
-(DeepSeek-V2) is not ported yet.
+(DeepSeek-V2) prefills through the same flash kernel (dh = nq + nr, dv)
+and decodes in the absorbed form over its latent cache.
 """
 from __future__ import annotations
 
@@ -198,12 +199,87 @@ def attention(
     return out, new_cache
 
 
-def init_mla(*args, **kwargs):
-    raise NotImplementedError(f"MLA attention {_LATER}")
+# ---------------------------------------------------------------------------
+# MLA attention (DeepSeek-V2): latent-compressed KV
+# ---------------------------------------------------------------------------
 
 
-def mla_attention(*args, **kwargs):
-    raise NotImplementedError(f"MLA attention {_LATER}")
+def init_mla(generator, cfg: ModelConfig, stack: tuple = (), *, device) -> dict:
+    D, H = cfg.d_model, cfg.n_heads
+    nq, nr, dv, r_kv, r_q = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, cfg.kv_lora_rank, cfg.q_lora_rank
+    pt = pdt(cfg)
+    return {
+        "wq_a": normal(generator, stack + (D, r_q), pt, device),
+        "q_norm": ones(stack + (r_q,), pt, device),
+        "wq_b": normal(generator, stack + (r_q, H, nq + nr), pt, device),
+        "wkv_a": normal(generator, stack + (D, r_kv + nr), pt, device),
+        "kv_norm": ones(stack + (r_kv,), pt, device),
+        "wk_b": normal(generator, stack + (r_kv, H, nq), pt, device),
+        "wv_b": normal(generator, stack + (r_kv, H, dv), pt, device),
+        "wo": normal(generator, stack + (H, dv, D), pt, device, scale=0.02 / max(1, cfg.n_layers) ** 0.5),
+    }
+
+
+def mla_attention(
+    params: dict,
+    x: torch.Tensor,            # [B,S,D]
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,    # [S]
+    cache: dict | None = None,  # decode: {"c_kv" [B,C,r_kv], "k_rope" [B,C,nr], "pos" int}
+    return_kv: bool = False,    # prefill: emit (c_kv [B,S,r_kv], k_rope [B,S,nr])
+):
+    """→ ``(out [B,S,D], new_cache)``.
+
+    Prefill expands the latents into per-head keys and values and sends
+    ``[q_nope, q_rope]`` (dh = nq + nr) and ``v`` (dv) through the flash
+    kernel, with ``k_rope`` shared by the heads.  Decode is the absorbed
+    form: scores against the latent cache (``q_nope·wk_b`` against ``c_kv``
+    plus ``q_rope`` against ``k_rope``), softmax and the latent output in
+    plain PyTorch, then ``wv_b``.  The decode cache is no ring: the new
+    latent goes to slot ``pos`` in place, which must lie inside the cache.
+    """
+    adt = x.dtype
+    H, nq, nr, r = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
+    scale = (nq + nr) ** -0.5
+
+    qa = rmsnorm(x @ params["wq_a"].to(adt), params["q_norm"], cfg.norm_eps)
+    q = proj(qa, params["wq_b"].to(adt)).transpose(1, 2)  # [B,H,S,nq+nr]
+    q_nope = q[..., :nq]
+    q_rope = rope(q[..., nq:], positions, cfg.rope_theta)
+
+    kv = x @ params["wkv_a"].to(adt)  # [B,S,r+nr]
+    c_kv = rmsnorm(kv[..., :r], params["kv_norm"], cfg.norm_eps)
+    k_rope = rope(kv[..., None, r:].transpose(1, 2), positions, cfg.rope_theta)  # [B,1,S,nr]
+
+    if cache is None:
+        B, _, S, _ = q.shape
+        k_nope = proj(c_kv, params["wk_b"].to(adt)).transpose(1, 2)  # [B,H,S,nq]
+        v = proj(c_kv, params["wv_b"].to(adt)).transpose(1, 2)  # a strided view: the kernel reads its strides
+        k = torch.cat([k_nope, k_rope.expand(B, H, S, nr)], dim=-1)  # contiguous, k_rope copied per head
+        o = flash_attention(torch.cat([q_nope, q_rope], dim=-1), k, v, causal=True, scale=scale)
+        new_cache = (c_kv, k_rope[:, 0]) if return_kv else None
+    else:
+        ck, kr, pos = cache["c_kv"], cache["k_rope"], cache["pos"]
+        if not 0 <= pos < ck.shape[1]:
+            raise ValueError(f"MLA decode at position {pos} outside its cache of {ck.shape[1]}: the latent "
+                             f"cache is no ring, so cache_len must cover every position")
+        ck[:, pos] = c_kv[:, 0]
+        kr[:, pos] = k_rope[:, 0, 0]
+        q_c = torch.einsum("bhsk,rhk->bhsr", q_nope, params["wk_b"].to(adt))  # [B,H,1,r]
+        s_c = torch.einsum("bhsr,btr->bhst", q_c, ck)
+        s_r = torch.einsum("bhsk,btk->bhst", q_rope, kr)
+        s = (s_c + s_r).float() * scale
+        valid = torch.arange(ck.shape[1], device=x.device) <= pos
+        s = torch.where(valid, s, NEG)
+        p = torch.softmax(s, dim=-1).to(adt)
+        o_lat = torch.einsum("bhst,btr->bhsr", p, ck)
+        o = torch.einsum("bhsr,rhk->bhsk", o_lat, params["wv_b"].to(adt))
+        new_cache = {"c_kv": ck, "k_rope": kr, "pos": pos + 1}
+
+    B, H, S, dv = o.shape
+    out = o.to(adt).transpose(1, 2).reshape(B, S, H * dv) @ params["wo"].to(adt).reshape(H * dv, -1)
+    return out, new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,9 @@ depth) is on the card at a time.
 
 The layer computations are those of ``models/transformer.decode_step``, in
 the same order, so offloaded decode is bitwise equal to resident decode.
+Offloading takes a uniform stack of GQA layers, dense or MoE (mixtral), as
+the reference does; gemma2's pair stack, MLA and a first dense stack
+decode resident (``transformer.check_offload_scope`` refuses them).
 
 :func:`generate` prefills the prompt in one pass (``transformer.prefill``:
 the flash kernel once per layer) and then decodes token by token.  With
@@ -49,7 +52,7 @@ def make_kv_blocks(cfg: ModelConfig, B: int, cache_len: int, npart: int, dtype=t
     """Per-group KV blocks ``[k, v]``, each ``[L/npart, B, Hkv, C, hd]``, in
     pinned host memory for decode on ``device`` (``None`` → the card; plain
     CPU tensors when ``device`` is the CPU)."""
-    T.check_supported(cfg)
+    T.check_offload_scope(cfg)
     dev = resolve_device(device)
     if cfg.n_layers % npart:
         raise ValueError(f"layers {cfg.n_layers} not divisible by npart={npart}")
@@ -72,9 +75,10 @@ def decode_step_offloaded(params, cfg: ModelConfig, tokens: torch.Tensor, state:
     The hidden state ``x`` is the StreamEngine's carry: it threads through
     the layer-group blocks in order while their caches round-trip
     host↔device.  Prefetching block ``j+k`` is legal because the copies
-    depend only on host state, not on the carry.
+    depend only on host state, not on the carry.  Each layer is
+    ``transformer.decode_step``'s (an MoE layer routes dropless, as there).
     """
-    T.check_supported(cfg)
+    T.check_offload_scope(cfg)
     pos = state["pos"]
     x = T._embed(params, cfg, tokens)
     positions = torch.arange(pos, pos + 1, device=x.device)  # no host→device copy: no sync
@@ -84,18 +88,19 @@ def decode_step_offloaded(params, cfg: ModelConfig, tokens: torch.Tensor, state:
         raise ValueError(f"layers {n} not divisible by {npart} KV blocks")
     g = n // npart
     pgroups = [T.layer_slice(params["layers"], j * g, (j + 1) * g) for j in range(npart)]
+    slots = T.layout(cfg)
+    sgroups = [slots[j * g:(j + 1) * g] for j in range(npart)]
 
-    def group_fn(blk, h, lp):
+    def group_fn(blk, h, lp, group_slots):
         k, v = blk
-        for i in range(g):
+        for i, slot in enumerate(group_slots):
             c = {"k": k[i], "v": v[i], "pos": pos}  # views: written in place
-            h, _ = T._apply_attn_block(T.layer(lp, i), h, cfg, positions=positions,
-                                       window=cfg.window, cache=c)
+            h, _, _ = T._block(T.layer(lp, i), h, cfg, slot, "decode", positions, cache=c)
         return [k, v], h
 
     plan = StreamPlan(npart=npart, schedule=schedule, prefetch=prefetch, device=x.device)
     res = StreamEngine(plan).run(group_fn, hetmem.PartitionedState(blocks=list(kv_blocks)),
-                                 per_block=(pgroups,), carry=x)
+                                 per_block=(pgroups, sgroups), carry=x)
     return T._unembed(params, cfg, res.carry), {**state, "pos": pos + 1}, res.state.blocks
 
 

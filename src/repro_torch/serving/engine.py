@@ -284,16 +284,18 @@ class DecodeEngine:
 
     def __init__(self, cfg, params, *, n_new: int = 8, prompt_len: int = 8, serve=None,
                  buckets: Sequence[int] = (4,), kv_schedule: str = "serial", kv_prefetch: int = 1, device=None):
-        from repro_torch.models.transformer import check_supported
+        from repro_torch.models.transformer import check_offload_scope, check_supported
         from repro_torch.serving.decode import ServeConfig
 
         check_supported(cfg)
+        self.serve = serve if serve is not None else ServeConfig()
+        if self.serve.kv_offload:
+            check_offload_scope(cfg)
         self.cfg = cfg
         self.device = _engine_device(device)
         self.params = tree_map(lambda t: t.to(self.device), params)
         self.n_new = int(n_new)
         self.prompt_len = int(prompt_len)
-        self.serve = serve if serve is not None else ServeConfig()
         self.buckets = tuple(sorted(int(b) for b in buckets))
         self.kv_schedule = kv_schedule
         self.kv_prefetch = int(kv_prefetch)

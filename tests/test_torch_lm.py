@@ -1,11 +1,18 @@
-"""The LM serving slice as a whole: qwen3-1.7b and granite-8b (reduced, fp32)
-in the port against the JAX package, with the JAX ``init_params`` weights
-carried across by ``convert.params_from_numpy``.
+"""The LM serving slice as a whole: qwen3-1.7b and granite-8b, gemma2-2b's
+local/global pair stack, mixtral-8x22b's MoE and deepseek-v2-236b's MLA with
+its first dense stack (reduced, fp32) in the port against the JAX package,
+with the JAX ``init_params`` weights carried across by
+``convert.params_from_numpy``.
 
 Tolerances: logits within 5e-5·max|logits| (tests/test_models.py:141, the
 reference's prefill→decode bound), the windowed ring buffer within
-1e-4·max|logits| (tests/test_models.py:160); greedy tokens equal; offloaded
-decode bitwise equal to resident decode.
+1e-4·max|logits| (tests/test_models.py:160); the MoE's aux loss within 1e-6
+relative (fp32 sums of the same terms in another order); greedy tokens
+equal; offloaded decode bitwise equal to resident decode; ``DecodeEngine``
+batched ≡ per-request bitwise.  Where decode must reproduce ``forward``, the
+MoE runs at capacity factor 8.0, as the reference's own test does
+(tests/test_models.py:121-122): its forward routes at the capacity factor,
+its prefill dropless.
 """
 import dataclasses
 
@@ -22,9 +29,10 @@ from repro_torch import convert
 from repro_torch.configs import ARCHS
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.serving import DecodeEngine
 from repro_torch.serving import decode as D
 
-NAMES = ["qwen3-1.7b", "granite-8b"]
+NAMES = ["qwen3-1.7b", "granite-8b", "gemma2-2b", "mixtral-8x22b", "deepseek-v2-236b"]
 
 
 def _setup(name, **replace):
@@ -40,20 +48,30 @@ def _tokens(cfg, B, S, seed=1):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
 
 
+def _dropless(name):
+    return {"capacity_factor": 8.0} if REF_ARCHS[name].n_experts else {}
+
+
 @pytest.mark.parametrize("name", NAMES)
 def test_forward_matches_reference(name):
     ref_cfg, ref_params, cfg, params = _setup(name)
     toks = _tokens(cfg, 2, 16)
-    ref, _ = RT.forward(ref_params, ref_cfg, {"tokens": jnp.asarray(toks)}, remat=False)
+    ref, ref_aux = RT.forward(ref_params, ref_cfg, {"tokens": jnp.asarray(toks)}, remat=False)
     out, aux = T.forward(params, cfg, {"tokens": torch.tensor(toks, dtype=torch.long)})
     ref = np.asarray(ref)
-    assert out.dtype == torch.float32 and float(aux) == 0.0
+    assert out.dtype == torch.float32 and tuple(out.shape) == ref.shape
     np.testing.assert_allclose(out.numpy(), ref, atol=5e-5 * np.abs(ref).max())
+    # the MoE routes at the configs' own capacity factor and drops what the reference drops
+    np.testing.assert_allclose(float(aux), float(ref_aux), rtol=1e-6)
+    assert (float(aux) > 0) == bool(cfg.n_experts)
 
 
 @pytest.mark.parametrize("name", NAMES)
 def test_prefill_then_decode_matches_reference_and_forward(name):
-    ref_cfg, ref_params, cfg, params = _setup(name)
+    """Every stack's caches (``layers``; gemma2's ``local``/``global``; MLA's
+    latents beside the first dense stack's) equal the JAX prefill's, and
+    decode follows from the port's prefill and from the JAX one's state."""
+    ref_cfg, ref_params, cfg, params = _setup(name, **_dropless(name))
     B, S0, NEW = 2, 8, 4
     toks = _tokens(cfg, B, S0 + NEW)
     fwd, _ = RT.forward(ref_params, ref_cfg, {"tokens": jnp.asarray(toks)}, remat=False)
@@ -61,15 +79,23 @@ def test_prefill_then_decode_matches_reference_and_forward(name):
     scale = np.abs(fwd).max()
     rlg, rstate = RT.prefill(ref_params, ref_cfg, {"tokens": jnp.asarray(toks[:, :S0])}, cache_len=S0 + NEW)
     lg, state = T.prefill(params, cfg, {"tokens": torch.tensor(toks[:, :S0], dtype=torch.long)}, S0 + NEW)
-    assert state["pos"] == S0 and tuple(state["layers"]["k"].shape) == tuple(rstate["layers"]["k"].shape)
-    np.testing.assert_allclose(state["layers"]["k"].numpy(), np.asarray(rstate["layers"]["k"]), atol=1e-5)
+    rnp = jax.tree_util.tree_map(np.asarray, rstate)
+    assert state["pos"] == S0 and set(state) == set(rnp)
+    for key in set(state) - {"pos"}:
+        for leaf, want in rnp[key].items():
+            assert tuple(state[key][leaf].shape) == want.shape, (key, leaf)
+            np.testing.assert_allclose(state[key][leaf].numpy(), want, atol=1e-5)
+    from_ref = convert.decode_state_from_numpy(rnp, cfg, "cpu")
     for t in range(S0, S0 + NEW + 1):
         np.testing.assert_allclose(lg[:, 0].numpy(), np.asarray(rlg[:, 0]), atol=5e-5 * scale)
         np.testing.assert_allclose(lg[:, 0].numpy(), fwd[:, t - 1], atol=5e-5 * scale)
         if t == S0 + NEW:
             break
+        tok = torch.tensor(toks[:, t:t + 1], dtype=torch.long)
         rlg, rstate = RT.decode_step(ref_params, ref_cfg, jnp.asarray(toks[:, t:t + 1]), rstate)
-        lg, state = T.decode_step(params, cfg, torch.tensor(toks[:, t:t + 1], dtype=torch.long), state)
+        lg, state = T.decode_step(params, cfg, tok, state)
+        lg2, from_ref = T.decode_step(params, cfg, tok, from_ref)
+        np.testing.assert_allclose(lg2[:, 0].numpy(), fwd[:, t], atol=5e-5 * scale)
 
 
 @pytest.mark.parametrize("S0", [3, 9])
@@ -100,11 +126,49 @@ def test_window_ring_buffer(S0):
 @pytest.mark.parametrize("name", NAMES)
 def test_greedy_generate_matches_reference(name):
     ref_cfg, ref_params, cfg, params = _setup(name)
-    prompt = _tokens(cfg, 2, 5, seed=4)
+    # deepseek-v2 generates one sequence: the reference prefills by decode, whose
+    # MLA MoE routes at the capacity factor, and one token at a time never
+    # overflows (its top-k experts are distinct); the port's one-pass prefill is
+    # dropless.  At B 2 the reference's prefill may drop a token that the port's
+    # keeps (test_torch_mla.py shows the reference's capacity-limited decode).
+    B = 1 if cfg.attn_type == "mla" else 2
+    prompt = _tokens(cfg, B, 5, seed=4)
     ref = np.asarray(RD.greedy_generate(ref_params, ref_cfg, jnp.asarray(prompt), 6))
     out = D.greedy_generate(params, cfg, torch.tensor(prompt, dtype=torch.long), 6)
-    assert out.shape == (2, 11)
+    assert out.shape == (B, 11)
     np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("name", ["gemma2-2b", "mixtral-8x22b"])
+def test_decode_engine_batched_equals_per_request(name):
+    """A prompt served alone (padded to the bucket) gives its batched row
+    bitwise; the tokens and the signature are the JAX engine's."""
+    from repro.serving.engine import DecodeEngine as RefEngine
+
+    ref_cfg, ref_params, cfg, params = _setup(name)
+    prompts = _tokens(cfg, 3, 8, seed=7)
+    eng = DecodeEngine(cfg, params, n_new=5, prompt_len=8, buckets=(4,), device="cpu")
+    batched = eng.infer(prompts).y
+    assert batched.shape == (3, 5)
+    for i in range(3):
+        np.testing.assert_array_equal(eng.infer(prompts[i:i + 1]).y[0], batched[i])
+    ref = RefEngine(ref_cfg, ref_params, n_new=5, prompt_len=8, buckets=(4,))
+    np.testing.assert_array_equal(ref.infer(prompts).y, batched)
+    assert eng.signature() == ref.signature()
+
+
+@pytest.mark.parametrize("name", ["gemma2-2b", "mixtral-8x22b", "deepseek-v2-236b"])
+def test_convert_refuses_a_foreign_layout(name):
+    _, ref_params, cfg, _ = _setup(name)
+    tree = jax.tree_util.tree_map(np.asarray, ref_params)
+    with pytest.raises(ValueError, match="layer stacks"):
+        convert.params_from_numpy(tree, dataclasses.replace(cfg, n_layers=cfg.n_layers + 2), "cpu")
+    with pytest.raises(ValueError, match="keys"):
+        convert.params_from_numpy({k: v for k, v in tree.items() if k != "final_norm"}, cfg, "cpu")
+    foreign = REF_ARCHS["qwen3-1.7b" if name == "gemma2-2b" else "gemma2-2b"].reduced()
+    state = jax.tree_util.tree_map(np.asarray, RT.init_decode_state(foreign, 1, 4))
+    with pytest.raises(ValueError, match="decode state"):
+        convert.decode_state_from_numpy(state, cfg, "cpu")
 
 
 @pytest.mark.parametrize("schedule", ["serial", "prefetch"])
@@ -139,8 +203,7 @@ def test_sampling_is_seeded_and_greedy_is_exact():
         D.ServeConfig(temperature=-1.0)
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x22b", "deepseek-v2-236b", "mamba2-780m", "zamba2-7b",
-                                  "whisper-small", "internvl2-1b", "gemma2-2b"])
+@pytest.mark.parametrize("name", ["mamba2-780m", "zamba2-7b", "whisper-small", "internvl2-1b"])
 def test_families_not_ported_raise(name):
     cfg = ARCHS[name].reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -164,8 +227,9 @@ def test_init_params_tree_matches_reference():
         mine = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
         ref_shapes = jax.tree_util.tree_map(lambda a: (tuple(a.shape), str(a.dtype)), ref_params)
         my_shapes = jax.tree_util.tree_map(lambda a: (tuple(a.shape), str(a.dtype).split(".")[1]), mine)
-        assert my_shapes == ref_shapes
-        std = float(mine["layers"]["attn"]["wq"].std())
+        assert my_shapes == ref_shapes, name
+        attn = mine["layers"]["attn"]
+        std = float(attn["wq" if "wq" in attn else "wq_b"].std())
         assert 0.018 < std < 0.022
 
 

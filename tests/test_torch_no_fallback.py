@@ -40,6 +40,7 @@ def test_port_imports_neither_jax_nor_reference():
     assert len(files) > 20
     scanned = {os.path.relpath(os.path.dirname(p), os.path.join(REPO, "src", "repro_torch")) for p in files}
     assert {"campaign", "training", "parallel", "launch", "scenario", "surrogate"} <= scanned
+    assert os.path.join(REPO, "src", "repro_torch", "models", "moe.py") in files
     for path in files:
         with open(path) as f:
             src = f.read()
@@ -71,7 +72,9 @@ def test_no_port_file_calls_a_library_attention():
     use of cuDNN in the port is the surrogate's convolutions (the
     reference's XLA convolutions, no TPU kernel) held to full fp32 and
     deterministic algorithms, by exactly this call."""
-    for path in _port_files():
+    files = _port_files()
+    assert os.path.join(REPO, "src", "repro_torch", "models", "moe.py") in files
+    for path in files:
         if path.endswith("chip_smoke.py"):
             continue
         with open(path) as f:
@@ -299,6 +302,29 @@ def test_lm_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         D.make_kv_blocks(cfg, 1, 8, 2)
     assert T.init_decode_state(cfg, 1, 8, device="cpu")["layers"]["k"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", ["gemma2-2b", "mixtral-8x22b", "deepseek-v2-236b"])
+def test_family_entry_points_raise_without_a_card(name):
+    """gemma2's pair stack, the MoE and MLA default to the card like the dense
+    stack, and raise without one; mixtral's offloaded KV blocks too."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    cfg = ARCHS[name].reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_decode_state(cfg, 1, 8)
+    if name == "mixtral-8x22b":
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            D.make_kv_blocks(cfg, 1, 8, 2)
+    from repro_torch.serving import DecodeEngine
+
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DecodeEngine(cfg, params)
+    state = T.init_decode_state(cfg, 1, 8, device="cpu")
+    assert all(t.device.type == "cpu" for k, c in state.items() if k != "pos" for t in c.values())
 
 
 def _kset_ebe_args(k=2, E=3, N=5, dt=torch.float64):
