@@ -9,7 +9,10 @@ Phases, each followed by a JSON line with its seconds:
 
 1.  device     the card's name and power limit, as ``nvidia-smi`` reports them;
 2.  build      the CUDA kernels from ``src/repro_torch/csrc`` (registers and
-               spills of every kernel instance);
+               spills of every kernel instance, and whether ptxas serialised
+               a bf16 flash instance's wgmma; static SASS counts of the fp64
+               FEM kernels and of the bf16 flash instances' local-memory
+               traffic);
 3.  kernels    each kernel against its plain PyTorch version on the card:
                multispring in both dtypes, P ragged, flags exact, at the
                default and a non-default tangent floor; the EBE product
@@ -20,7 +23,11 @@ Phases, each followed by a JSON line with its seconds:
                (wgmma/TMA kernel) over GQA, ragged, Sq < Skv, window, softcap,
                non-causal, Sq × Skv, dh ∈ {128, 256, 192 with dv 128}, dh and
                dv not multiples of 8 (the padding step) and Sq 1 against
-               4,096 keys; the k-set entries (k members in one launch):
+               4,096 keys; the bf16 kernel's large-head instances at their
+               edges (``FLASH_EDGE_CASES``: dh 160, dv 96 zero-filled inside
+               the (192, 128) instance, softcapped scores far past the cap
+               at D 256, MLA's heads with Sq < Skv) per value against the
+               plain version; the k-set entries (k members in one launch):
                EBE for k ∈ {1, 2, 3} in both dtypes (E 997 puts members off
                the bulk copies' 16-byte alignment) and multispring for k 2,
                each against its plain version and bitwise against k
@@ -105,13 +112,14 @@ Phases, each followed by a JSON line with its seconds:
                prefill and in ``forward``;
 17. lm_families  bf16 compute: gemma2-2b whole (26 layers, B 2, prompt
                8,192, 32 new tokens: 26 launches of the bf16 flash kernel's
-               D 256 instance in prefill, 13 windowed and 13 global, none in
+               (256, 256) instance in prefill, 13 windowed and 13 global, none in
                decode; local caches of 4,096, global of 8,224), mixtral-8x22b
                at published widths, 2 of 56 layers (B 2, prompt 6,144; its KV
                offloaded in 2 pinned blocks through ``generate`` and stepped,
                bitwise the resident decode), deepseek-v2-236b at published
                widths, 1 dense + 1 MoE layer of 60 (B 1, prompt 2,048; MLA's
-               prefill at dh 192, dv 128; ``tokens_dropped_fraction`` of its
+               prefill at dh 192, dv 128, the (192, 128) instance;
+               ``tokens_dropped_fraction`` of its
                prefill's router logits, and the tokens each expert is
                routed): prefill s, tokens/s, decode tokens/s,
                peak device bytes, parameters and launches per model;
@@ -187,12 +195,12 @@ Phases, each followed by a JSON line with its seconds:
                plain version, its bound and (flash) SDPA, with flash held in
                fp32 and bf16 there too and timed in both (fp32 against the
                3×TF32 bound and the fp32 cores' bound, also at gemma2-2b's
-               and deepseek-v2's MLA heads); the bf16 kernel's D 256
-               instance at lm_families' prefill shapes (gemma2-2b local and
-               global, B 2, S 8,192, softcap 50; deepseek-v2's MLA, B 1,
-               128 heads, S 2,048, dh 192, dv 128) and its D 128 instance
-               at mixtral-8x22b's (B 2, Hq 48 over Hkv 8, S 6,144, window
-               4,096), each with its registers and spills, against SDPA for
+               and deepseek-v2's MLA heads); the bf16 kernel's (256, 256)
+               instance at gemma2-2b's prefill shapes (local and global, B 2,
+               S 8,192, softcap 50), its (192, 128) one at deepseek-v2's MLA
+               (B 1, 128 heads, S 2,048, dh 192, dv 128) and its (128, 128)
+               one at mixtral-8x22b's (B 2, Hq 48 over Hkv 8, S 6,144, window
+               4,096), each with its instance, registers and spills, against SDPA for
                MLA and mixtral (the window as a mask) and, without the
                softcap, for gemma2 (a comparison only); a breakdown of one
                whole EBE matvec (kernel, slot-table scatter) in both dtypes,
@@ -263,6 +271,28 @@ FLASH_CASES = [
     (1, 4, 2, 1, 4096, 128, 128, True, None, None, False),  # one query row against a long cache
 ]
 FLASH_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
+# the bf16 kernel's large-head instances at their edges, held per value (2 ulp(|o|)
+# + 2^-5 of the row's rms): (B, Hq, Hkv, Sq, Skv, dh, dv, window, softcap, scale, q scale), causal
+FLASH_EDGE_CASES = [
+    (1, 4, 2, 100, 150, 160, 96, None, None, None, 1.0),      # (192, 128) instance, TMA zero-fills dh, dv
+    (1, 4, 2, 100, 150, 256, 256, 64, 50.0, None, 1000.0),    # |s·scale| ≫ softcap: tanh.approx saturates
+    (1, 4, 4, 70, 200, 192, 128, None, None, 192**-0.5, 1.0),  # MLA's heads, Sq < Skv
+]
+
+
+def wgmma_name(dk, dv):
+    """The bf16 flash kernel's instance (DK, DV) as ``ptxas_report`` names it."""
+    return f"flash_wgmma_kernel<bf16, {dk}, {dv}>"
+
+
+def bf16_limit(ref32):
+    """Per value: 2 ulps of |o| plus 2^-5 of its row's rms (p rounds to bf16 at
+    different running maxima in the kernel and the plain version, an error of
+    ~0.3% of the row's rms with no floor at o ≈ 0)."""
+    import torch
+
+    ulp = torch.where(ref32 == 0, 0.0, torch.ldexp(torch.ones_like(ref32), torch.frexp(ref32)[1] - 8))
+    return 2 * ulp + 2**-5 * ref32.pow(2).mean(-1, keepdim=True).sqrt()
 
 
 def _leaves(tree):
@@ -279,25 +309,41 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
+def wgmma_serialized(log):
+    """From an ``-Xptxas -v`` log: why ptxas serialised the wgmma of each
+    function whose wgmma it serialised, by mangled name."""
+    # "(C75xx) Potential Performance Loss: wgmma.mma_async instructions are serialized due to <why> ... '<name>'"
+    return {name: why for why, name in re.findall(r"wgmma\.mma_async instructions are serialized due to "
+                                                   r"([^']*?) (?:for|in) the function '([^']*)'", log)}
+
+
 def ptxas_report(log):
-    """Registers and spill bytes of every kernel instance, from ``-Xptxas -v``."""
+    """Registers and spill bytes of every kernel instance, from ``-Xptxas -v``;
+    for the bf16 flash kernel's instances (DK, DV) also why ptxas serialised
+    their wgmma, if it did (None: it did not)."""
     kinds = {"d": "double", "f": "float"}
+    serialized = wgmma_serialized(log)
     out = {}
     for chunk in log.split("Compiling entry function '")[1:]:
         mangled = chunk.split("'", 1)[0]
         m = re.search(r"(ms_update_kernel|ebe_kernel)I(d|f)(Lb[01]E)?E", mangled)
-        fa = re.search(r"(flash_kernel|flash_wgmma_kernel)ILi(\d+)E", mangled)
+        fa = re.search(r"flash_kernelILi(\d+)E", mangled)  # the fp32 3×TF32 mma.sync kernel
+        wg = re.search(r"flash_wgmma_kernelILi(\d+)ELi(\d+)E", mangled)  # the bf16 one
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
-        if (m or fa) and regs:
-            if fa:  # flash_kernel is the fp32 3×TF32 mma.sync kernel, flash_wgmma_kernel the bf16 one
-                name = f"{fa.group(1)}<{'bf16' if 'wgmma' in fa.group(1) else 'float'}, {fa.group(2)}>"
+        if (m or fa or wg) and regs:
+            if wg:
+                name = wgmma_name(int(wg.group(1)), int(wg.group(2)))
+            elif fa:
+                name = f"flash_kernel<float, {fa.group(1)}>"
             else:  # the EBE kernel has a one-member and a k-set instance
                 kset = {"Lb0E": ", one member", "Lb1E": ", k-set"}.get(m.group(3), "")
                 name = f"{m.group(1)}<{kinds[m.group(2)]}{kset}>"
             out[name] = {"registers": int(regs.group(1)),
                          "spill_store_bytes": int(spill.group(1)) if spill else None,
                          "spill_load_bytes": int(spill.group(2)) if spill else None}
+            if wg:
+                out[name]["wgmma_serialized"] = serialized.get(mangled)
     return out
 
 
@@ -313,10 +359,16 @@ extern "C" __global__ void probe_division(const double* x, const double* b, doub
 FP64_OPS = ("DFMA", "DADD", "DMUL", "DSETP", "DMNMX")
 
 
+def _sass_ops(chunk):
+    return re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", chunk, re.M)
+
+
 def sass_fp64_counts(lib, nvcc):
     """Static fp64 instructions (and all instructions) of the FEM kernels'
     fp64 instances in the built library, and of one power and one division
-    (``SASS_PROBE``), from ``cuobjdump -sass``."""
+    (``SASS_PROBE``), from ``cuobjdump -sass``; and of each bf16 flash
+    instance the local-memory loads and stores (``LDL``, ``STL``: spills),
+    its wgmma (``HGMMA``) and SFU (``MUFU``) instructions."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     build_dir = os.path.dirname(lib)
     probe_src, probe_bin = os.path.join(build_dir, "sass_probe.cu"), os.path.join(build_dir, "sass_probe.cubin")
@@ -329,11 +381,18 @@ def sass_fp64_counts(lib, nvcc):
         text = subprocess.run([tool, "-sass", path], capture_output=True, text=True, check=True).stdout
         for chunk in re.split(r"\n\s+Function : ", text)[1:]:
             name = chunk.split("\n", 1)[0].strip()
+            wg = re.search(r"flash_wgmma_kernelILi(\d+)ELi(\d+)E", name)
+            if wg:
+                ops = _sass_ops(chunk)
+                out[wgmma_name(int(wg.group(1)), int(wg.group(2)))] = {
+                    "instructions": len(ops), "LDL": ops.count("LDL"), "STL": ops.count("STL"),
+                    "HGMMA": ops.count("HGMMA"), "MUFU": ops.count("MUFU")}
+                continue
             key = next((k for k in ("ms_update_kernelIdE", "ebe_kernelIdLb0EE", "ebe_kernelIdLb1EE", "probe_power",
                                     "probe_division") if k in name), None)
             if key is None:
                 continue
-            ops = re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", chunk, re.M)
+            ops = _sass_ops(chunk)
             out[key] = {"instructions": len(ops), "fp64": sum(op in FP64_OPS for op in ops),
                         "mufu": ops.count("MUFU")}
     return out
@@ -1901,13 +1960,14 @@ FAMILIES_MAIN = {
     "mixtral-8x22b": dict(cut={"n_layers": 2}, B=2, prompt=6144, cache_len=6176, new_tokens=32, kv_npart=2),
     "deepseek-v2-236b": dict(cut={"n_layers": 2}, B=1, prompt=2048, cache_len=2080, new_tokens=32),
 }
-# timing's bf16 flash rows at the new paths' prefill shapes (the kernel's D 256
-# instance, and its D 128 one at mixtral's windowed GQA shape): (row, the paths
-# whose launches it counts, B, Hq, Hkv, S, dh, dv, window, softcap, scale)
+# timing's bf16 flash rows at the families' prefill shapes (the kernel's (256, 256)
+# instance for gemma2, (192, 128) for MLA, (128, 128) at mixtral's windowed GQA
+# shape): (row, the paths whose launches it counts, B, Hq, Hkv, S, dh, dv, window,
+# softcap, scale)
 FAMILY_FLASH = (
     ("flash_attention_bf16_d256_gemma2_local", ("gemma2-2b local",), 2, 8, 4, 8192, 256, 256, 4096, 50.0, None),
     ("flash_attention_bf16_d256_gemma2_global", ("gemma2-2b global",), 2, 8, 4, 8192, 256, 256, None, 50.0, None),
-    ("flash_attention_bf16_d256_mla", ("deepseek-v2-236b MLA",), 1, 128, 128, 2048, 192, 128, None, None,
+    ("flash_attention_bf16_d192_mla", ("deepseek-v2-236b MLA",), 1, 128, 128, 2048, 192, 128, None, None,
      192**-0.5),
     ("flash_attention_bf16_d128_mixtral", ("mixtral-8x22b prefill", "mixtral-8x22b offloaded generate"),
      2, 48, 8, 6144, 128, 128, 4096, None, None),
@@ -1939,6 +1999,14 @@ class Recorded:
 
 def _flash_call(q, k, v, **kw):
     return {"dh": q.shape[-1], "dv": v.shape[-1], "window": kw.get("window"), "softcap": kw.get("softcap")}
+
+
+def _by_instance():
+    """The bf16 flash kernel's launches since the last reset by the instance
+    its wrapper passed to the C entry, ``{"DKxDV": n}`` (instances that ran)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    return {f"{dk}x{dv}": n for (dk, dv), n in fa_ops.wgmma_launch_counts().items() if n}
 
 
 def _call_counts(calls):
@@ -2016,14 +2084,15 @@ def lm_families_cpu(dev):
 
 def lm_families(dev):
     """The three models on the card, bf16 compute, fp32 parameters, greedy:
-    prefill (the bf16 flash kernel once per attention layer, D 256 instance:
-    gemma2 13 windowed and 13 global sub-layers at dh 256, deepseek-v2's MLA
-    at dh 192, dv 128) and 32 decode steps (no flash launch); mixtral's KV
+    prefill (the bf16 flash kernel once per attention layer: gemma2 13
+    windowed and 13 global sub-layers at dh 256, the (256, 256) instance;
+    deepseek-v2's MLA at dh 192, dv 128, the (192, 128) one) and 32 decode steps (no flash launch); mixtral's KV
     offloaded in 2 pinned blocks, through ``generate`` and stepped beside the
     resident decode, bitwise; the MoE's ``tokens_dropped_fraction`` over its
     prefill's router logits, with the tokens each expert is routed (first
-    choice and all top-k).  Prefill s, tokens/s, decode tokens/s, peak
-    device bytes, parameters and launches per model; each model is freed
+    choice and all top-k).  Prefill s (the first call, then 3 warm ones),
+    tokens/s, decode tokens/s, peak device bytes, parameters and launches
+    (of the bf16 kernel also by instance) per model; each model is freed
     before the next.  Returns the bf16 launches by path."""
     import torch
 
@@ -2056,7 +2125,7 @@ def lm_families(dev):
             logits, state = T.prefill(params, cfg, {"tokens": prompt}, cache_len=C)
             torch.cuda.synchronize()
             prefill_s = time.perf_counter() - t0
-        prefill_by_kernel = kernels.instance_counts()
+        prefill_by_kernel, prefill_by_instance = kernels.instance_counts(), _by_instance()
         require(bool(torch.isfinite(logits).all()), f"{name}: prefill logits not finite")
         router_logits = [(x.reshape(-1, cfg.d_model) @ r.to(x.dtype)).float() for r, x in moe_in.calls]
         dropped = [float(M.tokens_dropped_fraction(lg, cfg)) for lg in router_logits]
@@ -2079,18 +2148,31 @@ def lm_families(dev):
         peak = torch.cuda.max_memory_allocated()
         launches = kernels.instance_counts()
         decode_launches = {k: launches[k] - prefill_by_kernel[k] for k in launches}
+        prefill_warm_s = []  # the first prefill above also pays first-call costs (allocations, library plans)
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = T.prefill(params, cfg, {"tokens": prompt}, cache_len=C)
+            torch.cuda.synchronize()
+            prefill_warm_s.append(time.perf_counter() - t0)
+            del again
         gen = torch.cat(gen, 1)
         row = {"arch": cfg.name, "layers": cfg.n_layers, "layers_published": ARCHS[name].n_layers, "params": n_params,
                "B": B, "prompt": S0, "cache_len": C, "new_tokens": NEW, "prefill_s": prefill_s,
-               "prefill_tokens_per_s": B * S0 / prefill_s, "decode_s": decode_s,
+               "prefill_tokens_per_s": B * S0 / prefill_s, "prefill_warm_s": prefill_warm_s, "decode_s": decode_s,
                "decode_tokens_per_s": B * NEW / decode_s, "peak_device_bytes": peak,
                "resident_before_bytes": resident_before, "flash_launches_prefill": prefill_by_kernel,
-               "flash_calls_prefill": _call_counts(flash.calls), "flash_launches_decode": decode_launches,
+               "flash_launches_prefill_by_instance": prefill_by_instance, "flash_calls_prefill": _call_counts(flash.calls), "flash_launches_decode": decode_launches,
                "cache_shapes": {k: {n: list(t.shape) for n, t in c.items()} for k, c in state.items() if k != "pos"},
                "tokens_row0": gen[0, :8].tolist()}
         n_attn = cfg.n_layers
         require(prefill_by_kernel == {"flash_attention_bf16": n_attn, "flash_attention_f32": 0},
                 f"{name}: prefill's flash launches {prefill_by_kernel}, not {n_attn} of the wgmma kernel alone")
+        # the instance that launched, as the wrapper counted it at the C entry
+        want_instance = {"gemma2-2b": "256x256", "deepseek-v2-236b": "192x128"}.get(name, "128x128")
+        require(prefill_by_instance == {want_instance: n_attn},
+                f"{name}: prefill's bf16 flash launches by instance {prefill_by_instance}, not {n_attn} of "
+                f"{want_instance}")
         require(all(v == 0 for v in decode_launches.values()), f"{name}: decode launched flash: {decode_launches}")
         require(bool(torch.isfinite(logits).all()), f"{name}: decode logits not finite")
         require(tuple(gen.shape) == (B, NEW) and state["pos"] == S0 + NEW, f"{name}: generated {tuple(gen.shape)}")
@@ -2126,7 +2208,7 @@ def lm_families(dev):
                                      kv_schedule="prefetch")
             torch.cuda.synchronize()
             off_s = time.perf_counter() - t0
-            off_launches = kernels.instance_counts()
+            off_launches, off_by_instance = kernels.instance_counts(), _by_instance()
             blocks = serve.make_kv_blocks(cfg, B, C, npart, dtype=L.dt(cfg), device=dev)
             host = {n: [x for blk in blocks for x in blk[j]] for j, n in enumerate(("k", "v"))}
             _, ostate = T.prefill(params, cfg, {"tokens": prompt}, cache_len=C, out=host)
@@ -2142,9 +2224,10 @@ def lm_families(dev):
                 "kv_npart": npart, "schedule": "prefetch", "generate_s": off_s,
                 "tokens_equal": torch.equal(off_tok[:, S0:], gen), "steps_with_bitwise_logits": steps_equal,
                 "steps": NEW, "kv_bitwise": kv_equal, "kv_blocks_pinned_host": pinned,
-                "generate_flash_launches": off_launches}
-            require(off_launches == {"flash_attention_bf16": n_attn, "flash_attention_f32": 0},
-                    f"mixtral's offloaded generate made flash launches {off_launches}")
+                "generate_flash_launches": off_launches, "generate_flash_launches_by_instance": off_by_instance}
+            require(off_launches == {"flash_attention_bf16": n_attn, "flash_attention_f32": 0}
+                    and off_by_instance == {"128x128": n_attn},
+                    f"mixtral's offloaded generate made flash launches {off_launches}, {off_by_instance}")
             require(torch.equal(off_tok[:, S0:], gen), "mixtral: offloaded generate's tokens differ from resident")
             require(steps_equal == NEW and kv_equal and pinned, f"mixtral offload: {row['offloaded_vs_resident']}")
             by_path["mixtral-8x22b offloaded generate"] = off_launches["flash_attention_bf16"]
@@ -2156,15 +2239,44 @@ def lm_families(dev):
     return by_path
 
 
+def flex_mods(window, cap):
+    """``flex_attention``'s score_mod (the softcap on the scaled score) and
+    mask_mod (causal, and the window) of a softcapped row, Sq = Skv."""
+    import torch
+
+    def score_mod(s, b, h, qi, ki):
+        return cap * torch.tanh(s / cap)
+
+    def mask_mod(b, h, qi, ki):
+        return (ki <= qi) if window is None else (ki <= qi) & (qi - ki < window)
+
+    return score_mod, mask_mod
+
+
+def flex_softcap(dev, S, window, cap, scale):
+    """One PyTorch call of a softcapped row's whole function: ``flex_attention``
+    compiled with ``flex_mods``, the mask as a block mask, GQA by
+    ``enable_gqa``.  A yardstick only: the port never calls it."""
+    import torch
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    score_mod, mask_mod = flex_mods(window, cap)
+    block_mask = create_block_mask(mask_mod, None, None, S, S, device=dev)
+    flex = torch.compile(flex_attention, dynamic=False)
+    return lambda q, k, v: flex(q, k, v, score_mod=score_mod, block_mask=block_mask, scale=scale, enable_gqa=True)
+
+
 def family_flash_rows(dev, sdpa, launches):
-    """timing's rows for the bf16 flash kernel at the new paths' prefill
-    shapes (its D 256 instance for gemma2 and MLA, its D 128 one for
-    mixtral's window of 4,096 at a GQA group of 6), laid out as the layers
+    """timing's rows for the bf16 flash kernel at the families' prefill
+    shapes (the instance ``wgmma_instance`` picks: (256, 256) for gemma2,
+    (192, 128) for MLA, (128, 128) for mixtral's window of 4,096 at a GQA
+    group of 6), laid out as the layers
     give them (q and k contiguous, v a transposed view of its projection):
     each against its plain version (per value: 2 ulp(|o|) + 2^-5 rms of its
-    row), its bound, SDPA where SDPA computes the function (MLA, mixtral:
-    a window as a boolean mask) and, for gemma2, SDPA without the softcap
-    beside the kernel without it (a comparison only: SDPA has no softcap)."""
+    row), its bound, and the library call that computes the function: SDPA
+    for MLA and mixtral (a window as a boolean mask), ``flex_softcap`` for
+    gemma2 (held to the same limit), beside which gemma2's rows also give
+    SDPA without the softcap and the kernel without it."""
     import torch
 
     from repro_torch.kernels import _build
@@ -2174,7 +2286,7 @@ def family_flash_rows(dev, sdpa, launches):
     g = torch.Generator(device=dev).manual_seed(5)
     rows = []
     for name, paths, B, Hq, Hkv, S, dh, dv, window, cap, scale in FAMILY_FLASH:
-        instance = f"flash_wgmma_kernel<bf16, {next(d for d in (64, 128, 256) if max(dh, dv) <= d)}>"
+        instance = wgmma_name(*fa_ops.wgmma_instance(dh, dv))
         regs = {k: v for k, v in report.items() if k == instance}
         bf = torch.bfloat16
         q = torch.randn((B, Hq, S, dh), device=dev, generator=g).to(bf)
@@ -2183,12 +2295,19 @@ def family_flash_rows(dev, sdpa, launches):
         kw = dict(causal=True, window=window, softcap=cap, scale=scale)
         out_k, out_p = fa_ops.flash_attention_cuda(q, k, v, **kw), fa_ops.flash_attention_ref(q, k, v, **kw)
         ref32 = out_p.float()
-        ulp = torch.where(ref32 == 0, 0.0, torch.ldexp(torch.ones_like(ref32), torch.frexp(ref32)[1] - 8))
-        lim = 2 * ulp + 2**-5 * ref32.pow(2).mean(-1, keepdim=True).sqrt()
-        ratio = float(((out_k.float() - ref32).abs() / lim).max())
+        ratio = float(((out_k.float() - ref32).abs() / bf16_limit(ref32)).max())
         err = float((out_k.float() - ref32).abs().max())
         require(ratio <= 1.0, f"{name}: the bf16 flash kernel disagrees with its plain version: {ratio} of its limit")
-        del ref32, ulp, lim, out_p
+        if cap is not None:
+            t0 = time.perf_counter()
+            flex = flex_softcap(dev, S, window, cap, scale)
+            out_l = flex(q, k, v)
+            torch.cuda.synchronize()
+            flex_s = time.perf_counter() - t0
+            flex_ratio = float(((out_l.float() - ref32).abs() / bf16_limit(ref32)).max())
+            require(flex_ratio <= 1.0, f"{name}: flex_attention disagrees with the plain version: {flex_ratio}")
+            del out_l
+        del ref32, out_p
         w = window or S
         kept = w * (w + 1) // 2 + (S - w) * w  # (q, k) pairs the causal mask and the window keep
         flops = 2 * B * Hq * kept * (dh + dv)
@@ -2200,17 +2319,20 @@ def family_flash_rows(dev, sdpa, launches):
             i = torch.arange(S, device=dev)
             mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
             lib = lambda: sdpa(q, k, v, attn_mask=mask, scale=scale, enable_gqa=Hq != Hkv)  # noqa: E731
-        detail = {"launches_by_path": {p: launches[p] for p in paths}, "B": B, "Hq": Hq, "Hkv": Hkv, "S": S,
+        detail = {"launches_by_path": {p: launches[p] for p in paths}, "instance": instance, "B": B, "Hq": Hq,
+                  "Hkv": Hkv, "S": S,
                   "dh": dh, "dv": dv, "window": window,
                   "softcap": cap, "scale": scale, "causal": True, "v_strided": True, "flops": flops,
                   "bf16_err_over_limit": ratio, "bf16_limit": "2 ulp(|o|) + 2^-5 rms(o row)",
                   "tflop_per_s": flops / (ms / 1e3) / 1e12, "share_of_bound": b_ms / ms, "registers_spills": regs}
-        library_ms = None
         detail["sdpa_form"] = "is_causal" if window is None else "boolean window mask"
         if cap is None:
             library_ms = cuda_ms(lib, 10)
-        else:  # a comparison only: both without the softcap
-            plain_kw = dict(kw, softcap=None)
+        else:
+            library_ms = cuda_ms(lambda: flex(q, k, v), 10)
+            detail["library"] = {"call": "flex_attention, compiled: softcap score_mod, causal/window block mask",
+                                 "err_over_limit": flex_ratio, "build_and_first_call_s": flex_s}
+            plain_kw = dict(kw, softcap=None)  # a comparison only: both without the softcap
             detail["comparison_without_softcap"] = {
                 "kernel_ms": cuda_ms(lambda: fa_ops.flash_attention_cuda(q, k, v, **plain_kw), 10),
                 "sdpa_ms": cuda_ms(lib, 3), "note": "SDPA has no softcap: not the path's function"}
@@ -2397,6 +2519,26 @@ def main() -> int:
                       "tol": tol})
                 require(out_k.dtype == dt and tuple(out_k.shape) == (B, Hq, Sq, dv), "flash output shape/dtype")
                 require(err <= tol, f"flash_attention disagrees: {err} > {tol} at {case} ({dt})")
+        for case in FLASH_EDGE_CASES:
+            B, Hq, Hkv, Sq, Skv, dh, dv, window, cap, scale, q_scale = case
+            g = torch.Generator(device=dev).manual_seed(Sq * 1000 + Skv)
+            q = (q_scale * torch.randn((B, Hq, Sq, dh), device=dev, generator=g)).bfloat16()
+            k = torch.randn((B, Hkv, Skv, dh), device=dev, generator=g).bfloat16()
+            v = torch.randn((B, Skv, Hkv, dv), device=dev, generator=g).bfloat16().transpose(1, 2)
+            kw = dict(causal=True, window=window, softcap=cap, scale=scale)
+            before = fa_ops.wgmma_launch_counts()
+            out_k = fa_ops.flash_attention_cuda(q, k, v, **kw)
+            ran = [inst for inst, n in fa_ops.wgmma_launch_counts().items() if n != before[inst]]
+            require(ran == [fa_ops.wgmma_instance(dh, dv)], f"flash bf16 at {case} launched the instances {ran}")
+            ref32 = fa_ops.flash_attention_ref(q, k, v, **kw).float()
+            torch.cuda.synchronize()
+            ratio = float(((out_k.float() - ref32).abs() / bf16_limit(ref32)).max())
+            emit({"check": "flash_attention_edge", "dtype": "torch.bfloat16", "case": case,
+                  "instance": wgmma_name(*ran[0]),
+                  "max_abs_err": float((out_k.float() - ref32).abs().max()), "err_over_limit": ratio,
+                  "limit": "2 ulp(|o|) + 2^-5 rms(o row)"})
+            require(tuple(out_k.shape) == (B, Hq, Sq, dv), "flash output shape")
+            require(ratio <= 1.0, f"flash_attention bf16 disagrees at {case}: {ratio} of its limit")
 
     def wave_for(nt, dt):
         t = np.arange(nt) * dt
@@ -3198,17 +3340,14 @@ def main() -> int:
         del v_bshd
         out_k, out_p = fa_ops.flash_attention_cuda(q, k, v), fa_ops.flash_attention_ref(q, k, v)
         err = float((out_k.float() - out_p.float()).abs().max())
-        # bf16 relative to each value: 2 ulps of |o| plus 2^-5 of its row's rms
-        # (p rounds to bf16 at different running maxima in the two versions,
-        # an error of ~0.3% of the row's rms with no floor at o ≈ 0)
+        # bf16 relative to each value (bf16_limit)
         ref32 = out_p.float()
-        ulp = torch.where(ref32 == 0, 0.0, torch.ldexp(torch.ones_like(ref32), torch.frexp(ref32)[1] - 8))
-        lim = 2 * ulp + 2**-5 * ref32.pow(2).mean(-1, keepdim=True).sqrt()
+        lim = bf16_limit(ref32)
         ratio = float(((out_k.float() - ref32).abs() / lim).max())
         require(ratio <= 1.0, f"flash_attention bf16 disagrees at the main path's shape: {ratio} of its limit")
         lib = sdpa(q, k, v, is_causal=True, enable_gqa=True).float()
         lib_err, lib_ratio = float((lib - ref32).abs().max()), float(((lib - ref32).abs() / lim).max())
-        del ref32, ulp, lim, lib
+        del ref32, lim, lib
         b_fa, by = bound(nbytes(q, k, v, out_k), flops, torch.bfloat16)
         fa_ms = cuda_ms(lambda: fa_ops.flash_attention_cuda(q, k, v), 20)
         rows.append({"name": "flash_attention_bf16", "route": "cuda",
@@ -3221,6 +3360,9 @@ def main() -> int:
                      "bound_ms": b_fa, "bound_by": by,
                      "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 20),
                      "detail": {"B": Bf, "Hq": Hq, "Hkv": Hkv, "S": S, "dh": dh, "dtype": "torch.bfloat16",
+                                "instance": wgmma_name(*fa_ops.wgmma_instance(dh, dh)),
+                                "registers_spills": {k: v for k, v in ptxas_report(_build.ptxas_log()).items()
+                                                     if k == wgmma_name(*fa_ops.wgmma_instance(dh, dh))},
                                 "causal": True, "v_strided": True, "bf16_err_over_limit": ratio,
                                 "bf16_limit": "2 ulp(|o|) + 2^-5 rms(o row)", "sdpa_max_abs_err": lib_err,
                                 "sdpa_err_over_limit": lib_ratio, "tflop_per_s": flops / (fa_ms / 1e3) / 1e12,
@@ -3228,8 +3370,8 @@ def main() -> int:
                                                      "lm_offload": offload_launches["flash_attention_bf16"],
                                                      **serve_launches}}})
         del q, k, v, out_k, out_p
-        # the D 256 instance at gemma2-2b's (local, global) and deepseek-v2's MLA prefill shapes,
-        # the D 128 one at mixtral's (window 4,096, GQA group 6)
+        # the (256, 256) instance at gemma2-2b's (local, global) prefill shapes, (192, 128) at
+        # deepseek-v2's MLA, (128, 128) at mixtral's (window 4,096, GQA group 6)
         rows.extend(family_flash_rows(dev, sdpa, families_launches))
         # breakdown of one prefill at lm_main's shape (CUDA events)
         x = torch.randn((4, S, qwen.d_model), device=dev, generator=g).to(torch.bfloat16)

@@ -86,6 +86,7 @@ _L = ctypes.c_longlong
 _D = ctypes.c_double
 
 _FLASH_ARGS = [_P] * 4 + [_I] * 7 + [_L] * 9 + [_D, _I, _I, _D, _P]
+_WGMMA_ARGS = [_P] * 4 + [_I] * 9 + [_L] * 9 + [_D, _I, _I, _D, _P]  # and the instance's (DK, DV) after dh, dv
 
 # C entry points ``<base>_<suffix>``, one per dtype suffix, with their
 # signatures: every pointer and the stream are c_void_p, sizes are c_int,
@@ -99,7 +100,7 @@ _ENTRY_POINTS = {
     # q, k, v, out, B, Hq, Hkv, Sq, Skv, dh, dv, q/k/v strides (batch, head, row),
     # scale, causal, window (0: none), softcap (0: none), stream
     "flash_attention": (("f32",), _FLASH_ARGS),  # tensor cores, 3×TF32 mma.sync
-    "flash_attention_wgmma": (("bf16",), _FLASH_ARGS),  # tensor cores, TMA
+    "flash_attention_wgmma": (("bf16",), _WGMMA_ARGS),  # tensor cores, TMA
 }
 
 

@@ -3,7 +3,8 @@
 The dtype alone chooses the kernel, and both are hand-written:
 
 * bfloat16 → ``csrc/flash_attention_wgmma.cu``: wgmma on the tensor cores,
-  q, k and v brought in by TMA through a ring of shared-memory stages;
+  q, k and v brought in by TMA through a ring of shared-memory stages, in
+  one of four instances by head dims (:func:`wgmma_instance`);
 * float32 → ``csrc/flash_attention.cu``: mma.sync on the tensor cores in
   3×TF32 (each operand split into a TF32 high part and the rest, three
   products), which holds the reference's fp32 tolerance where one TF32
@@ -24,16 +25,34 @@ import torch
 from repro_torch.kernels import LaunchCounter
 
 MAX_HEAD_DIM = 256
+# the wgmma kernel's instances, (DK, DV): Q·Kᵀ's depth and P·V's width
+WGMMA_INSTANCES = ((64, 64), (128, 128), (192, 128), (256, 256))
 TMA_ELEMS = 8  # 16 bytes of bf16: TMA's unit of address, stride and row
 # C entry point of each dtype's kernel
 ENTRY = {torch.bfloat16: "flash_attention_wgmma_bf16", torch.float32: "flash_attention_f32"}
 counter = LaunchCounter("flash_attention")  # every flash launch, of either kernel
 COUNTERS = {torch.bfloat16: LaunchCounter("flash_attention_bf16", parent=counter),
             torch.float32: LaunchCounter("flash_attention_f32", parent=counter)}
+# the bf16 kernel's launches by the instance (DK, DV) passed to its C entry
+WGMMA_COUNTERS = {(dk, dv): LaunchCounter(f"flash_attention_bf16_{dk}x{dv}", parent=COUNTERS[torch.bfloat16])
+                  for dk, dv in WGMMA_INSTANCES}
 
 
 def _fail(msg: str):
     raise ValueError(f"flash_attention: {msg}")
+
+
+def wgmma_instance(dh: int, dv: int) -> tuple[int, int]:
+    """The wgmma kernel's instance for head dims ``dh`` (q, k) and ``dv`` (v):
+    (192, 128) for 128 < dh ≤ 192 with dv ≤ 128 (MLA's heads), else the
+    smallest (D, D) with D ≥ max(dh, dv).  TMA zero-fills the columns past
+    dh or dv inside the instance.  The only place that picks one."""
+    if not (1 <= dh <= MAX_HEAD_DIM and 1 <= dv <= MAX_HEAD_DIM):
+        _fail(f"head dims dh={dh}, dv={dv} must be in [1, {MAX_HEAD_DIM}]")
+    if 128 < dh <= 192 and dv <= 128:
+        return 192, 128
+    d = max(dh, dv)
+    return next((D, D) for D in (64, 128, 256) if d <= D)
 
 
 def tma_strides(x: torch.Tensor) -> tuple[int, int, int]:
@@ -113,11 +132,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, c
     if dt == torch.bfloat16:
         q, k, v = pad_for_tma(q, k, v)
     out = torch.empty((B, Hq, Sq, v.shape[3]), dtype=dt, device=dev)
+    inst = wgmma_instance(q.shape[3], v.shape[3]) if dt == torch.bfloat16 else None
+    dims = (q.shape[3], v.shape[3], *inst) if inst else (dh, dv)
     err = getattr(_build.library(), ENTRY[dt])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, Hkv, Sq, Skv, q.shape[3], v.shape[3],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, Hkv, Sq, Skv, *dims,
         *tma_strides(q), *tma_strides(k), *tma_strides(v),
         scale, int(causal), int(window or 0), float(softcap or 0.0), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "flash_attention")
-    COUNTERS[dt].add()
+    (WGMMA_COUNTERS[inst] if inst else COUNTERS[dt]).add()
     return out if out.shape[3] == dv else out[..., :dv].contiguous()

@@ -8,9 +8,15 @@ raises.  There is no fallback from one to the other.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.flash_attention.flash_attention import (COUNTERS, ENTRY, counter, flash_attention_cuda,
-                                                                  pad_for_tma, tma_ready, tma_strides)
+from repro_torch.kernels.flash_attention.flash_attention import (COUNTERS, ENTRY, WGMMA_COUNTERS, WGMMA_INSTANCES,
+                                                                  counter, flash_attention_cuda, pad_for_tma,
+                                                                  tma_ready, tma_strides, wgmma_instance)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+
+def wgmma_launch_counts() -> dict[tuple[int, int], int]:
+    """The bf16 kernel's launches by instance (DK, DV) since the counts were last reset."""
+    return {inst: c.n for inst, c in WGMMA_COUNTERS.items()}
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
@@ -22,4 +28,4 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
 
 
 __all__ = ["flash_attention", "flash_attention_cuda", "flash_attention_ref", "pad_for_tma", "tma_ready", "tma_strides",
-           "counter", "COUNTERS", "ENTRY"]
+           "wgmma_instance", "wgmma_launch_counts", "WGMMA_INSTANCES", "WGMMA_COUNTERS", "counter", "COUNTERS", "ENTRY"]

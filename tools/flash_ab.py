@@ -1,23 +1,47 @@
 #!/usr/bin/env python3
-"""Time the port's fp32 flash attention kernel of one source tree on one CUDA card.
+"""Time the port's flash attention kernel of one source tree on one CUDA card.
 
     python3 tools/flash_ab.py TREE [--mma-peak]
+    python3 tools/flash_ab.py TREE --dtype bf16 [--build-only]
+    python3 tools/flash_ab.py --tanh-error
 
 ``TREE`` is the root of a checkout (``.`` for this one, or another commit
 unpacked with ``git archive <commit> | tar -x -C build/other``); its
 ``src/repro_torch`` is imported and its kernels are built into its own
 ``build/``.  Comparing two trees: run them one after the other on one card, in
-turns (other, this, this, other), one process each.  Prints one JSON line:
-the fp32 kernel's ms (CUDA events, 5 launches after a warm-up) and its
-largest difference from the plain version at three causal prefill shapes,
-S 4,096, v a transposed view as the attention layer gives it: qwen3-1.7b's
-heads (B 4, Hq 16, Hkv 8, dh 128), gemma2-2b's (B 2, Hq 8, Hkv 4, dh 256,
-window 4,096, softcap 50) and deepseek-v2's MLA heads (B 1, Hq = Hkv 16,
-dh 192, dv 128); each instance's registers and spill bytes.  With
-``--mma-peak`` it also measures the rate of ``mma.sync.m16n8k8`` with TF32
-operands and fp32 accumulators on this card: a loop of independent products
-in registers, at 4, 8 and 16 warps an SM and 4, 8 and 16 products in flight
-a warp.  Inputs come from fixed seeds.
+turns (other, this, this, other), one process each.  Inputs come from fixed
+seeds; q and k are contiguous and v a transposed view, as the attention layer
+gives them.  Prints one JSON line.
+
+fp32 (the default): the 3×TF32 kernel's ms (CUDA events, 5 launches after a
+warm-up) and its largest difference from the plain version at three causal
+prefill shapes, S 4,096: qwen3-1.7b's heads (B 4, Hq 16, Hkv 8, dh 128),
+gemma2-2b's (B 2, Hq 8, Hkv 4, dh 256, window 4,096, softcap 50) and
+deepseek-v2's MLA heads (B 1, Hq = Hkv 16, dh 192, dv 128); each instance's
+registers and spill bytes.  With ``--mma-peak`` it also measures the rate of
+``mma.sync.m16n8k8`` with TF32 operands and fp32 accumulators on this card: a
+loop of independent products in registers, at 4, 8 and 16 warps an SM and 4,
+8 and 16 products in flight a warp.
+
+``--dtype bf16``: the wgmma kernel (only its source is built) at the causal
+prefill shapes of the paths that run it: qwen3-1.7b (B 4 × 4,096, dh 128),
+mixtral-8x22b (B 2 × 6,144, Hq 48 over Hkv 8, window 4,096), gemma2-2b's
+local and global layers (B 2 × 8,192, Hq 8 over Hkv 4, dh 256, softcap 50,
+window 4,096 on the local one) and deepseek-v2's MLA (B 1 × 2,048, Hq = Hkv
+128, dh 192, dv 128, scale 192^-½): per shape the ms (10 launches after a
+warm-up), the softcapped shapes' ms without the softcap, and the largest
+error over its limit against the plain version (2 ulp(|o|) + 2^-5 of the
+row's rms, as ``chip_smoke.py`` holds it); per instance the registers, spill
+bytes and why ptxas serialised its wgmma, if it did, and from ``cuobjdump
+-sass`` its instructions, ``HGMMA`` (wgmma), ``WARPGROUP`` (arrive and wait:
+two a group when pipelined, two a wgmma when serialised), ``LDL``/``STL``
+(spills) and ``MUFU``.  ``--build-only``
+builds and reports the instances without timing.
+
+``--tanh-error``: the relative error of ``tanh.approx.f32`` (the bf16
+kernel's softcap) on this card against tanh in double, over every fp32 x in
+[2^-20, 20], by band of x: the largest, its log2 and the mean, and the share
+of results that are exactly 1; whether it is odd (tanh(−x) = −tanh(x)).
 """
 import ctypes
 import json
@@ -28,7 +52,18 @@ import sys
 
 import torch
 
-SHAPES = {  # B, Hq, Hkv, dh, dv, window, softcap
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+from chip_smoke import _sass_ops, bf16_limit, wgmma_serialized  # noqa: E402  (this checkout's script)
+
+BF16_SHAPES = {  # B, Hq, Hkv, S, dh, dv, window, softcap, scale
+    "qwen3-1.7b": (4, 16, 8, 4096, 128, 128, None, None, None),
+    "mixtral-8x22b": (2, 48, 8, 6144, 128, 128, 4096, None, None),
+    "gemma2-2b local": (2, 8, 4, 8192, 256, 256, 4096, 50.0, None),
+    "gemma2-2b global": (2, 8, 4, 8192, 256, 256, None, 50.0, None),
+    "deepseek-v2 MLA": (1, 128, 128, 2048, 192, 128, None, None, 192**-0.5),
+}
+SHAPES = {  # fp32: B, Hq, Hkv, dh, dv, window, softcap
     "qwen3-1.7b": (4, 16, 8, 128, 128, None, None),
     "gemma2-2b": (2, 8, 4, 256, 256, 4096, 50.0),
     "deepseek-v2 MLA": (1, 16, 16, 192, 128, None, None),
@@ -61,6 +96,19 @@ extern "C" int mma_peak(float* out, int blocks, int iters, int n, void* stream) 
   if (n == 4) mma_loop<4><<<blocks, 128, 0, st>>>(out, iters);
   if (n == 8) mma_loop<8><<<blocks, 128, 0, st>>>(out, iters);
   if (n == 16) mma_loop<16><<<blocks, 128, 0, st>>>(out, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+TANH_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void tanh_approx(const float* x, float* y, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) asm("tanh.approx.f32 %0, %1;\n" : "=f"(y[i]) : "f"(x[i]));
+}
+extern "C" int run_tanh(const float* x, float* y, int n, void* stream) {
+  tanh_approx<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(x, y, n);
   return static_cast<int>(cudaGetLastError());
 }
 """
@@ -106,14 +154,110 @@ def mma_peak(tree, nvcc, arch):
     return rates
 
 
-def main(tree: str, peak: bool) -> None:
+def tanh_error(nvcc, arch):
+    """tanh.approx.f32 against tanh in double, by band of x."""
+    import numpy as np
+
+    out_dir = os.path.join(ROOT, "build", "flash_ab")
+    os.makedirs(out_dir, exist_ok=True)
+    src, lib_path = os.path.join(out_dir, "tanh_approx.cu"), os.path.join(out_dir, "libtanh_approx.so")
+    with open(src, "w") as f:
+        f.write(TANH_SRC)
+    subprocess.run([nvcc, *arch, "-O3", "-Xcompiler", "-fPIC", "-shared", "-o", lib_path, src], check=True)
+    lib = ctypes.CDLL(lib_path)
+    lib.run_tanh.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+
+    def run(xs):
+        x = torch.tensor(xs, device="cuda")
+        y = torch.empty_like(x)
+        if lib.run_tanh(x.data_ptr(), y.data_ptr(), x.numel(), torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("tanh_approx: launch failed")
+        return y.cpu().numpy()
+
+    bits = np.arange(np.float32(2**-20).view(np.int32), np.float32(20.0).view(np.int32) + 1, dtype=np.int32)
+    xs = bits.view(np.float32)
+    ya = run(xs).astype(np.float64)
+    yt = np.tanh(xs.astype(np.float64))
+    rel = np.abs(ya - yt) / yt
+    out = {}
+    for lo, hi in ((0, 0.5), (0.5, 1), (1, 2), (2, 3), (3, 4), (4, 5), (5, 9.01), (9.01, 20.0001)):
+        m = (xs >= lo) & (xs < hi)
+        out[f"[{lo}, {hi})"] = {"max_rel": float(rel[m].max()), "log2_max_rel": float(np.log2(rel[m].max())),
+                                "mean_rel": float(rel[m].mean()), "share_exactly_one": float((ya[m] == 1.0).mean())}
+    out["all"] = {"max_rel": float(rel.max()), "log2_max_rel": float(np.log2(rel.max())),
+                  "at_x": float(xs[rel.argmax()])}
+    out["odd"] = bool(np.array_equal(run(-xs[::97]), -ya[::97].astype(np.float32)))
+    return out
+
+
+def wgmma_report(log):
+    """Registers, spill bytes and wgmma serialisation of each bf16 instance,
+    from ``-Xptxas -v``: one template argument (D) in older trees, two (DK, DV) in newer."""
+    out = {}
+    serialized = wgmma_serialized(log)
+    for chunk in log.split("Compiling entry function '")[1:]:
+        mangled = chunk.split("'", 1)[0]
+        fa = re.search(r"flash_wgmma_kernelILi(\d+)E(?:Li(\d+)E)?", mangled)
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+        if fa and regs:
+            dims = ", ".join(g for g in fa.groups() if g)
+            out[f"flash_wgmma_kernel<bf16, {dims}>"] = {
+                "registers": int(regs.group(1)), "spill_store_bytes": int(spill.group(1)) if spill else None,
+                "spill_load_bytes": int(spill.group(2)) if spill else None, "wgmma_serialized": serialized.get(mangled)}
+    return out
+
+
+def bf16_main(tree, out, build_only):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    # only the wgmma kernel's source: the other kernels are not timed here
+    _build.SOURCES = ("flash_attention_wgmma.cu",)
+    _build._ENTRY_POINTS = {"flash_attention_wgmma": _build._ENTRY_POINTS["flash_attention_wgmma"]}
+    _build.library()
+    out["instances"] = wgmma_report(_build.ptxas_log())
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.build())], capture_output=True, text=True, check=True).stdout
+    for chunk in re.split(r"\n\s+Function : ", sass)[1:]:
+        fa = re.search(r"flash_wgmma_kernelILi(\d+)E(?:Li(\d+)E)?", chunk.split("\n", 1)[0])
+        if fa:
+            ops = _sass_ops(chunk)
+            name = f"flash_wgmma_kernel<bf16, {', '.join(g for g in fa.groups() if g)}>"
+            out["instances"].setdefault(name, {})["sass"] = {
+                "instructions": len(ops), **{op: ops.count(op) for op in ("HGMMA", "WARPGROUP", "LDL", "STL", "MUFU")}}
+    if build_only:
+        return
+    dev = torch.device("cuda")
+    for name, (B, Hq, Hkv, S_, dh, dv, window, cap, scale) in BF16_SHAPES.items():
+        g = torch.Generator(device=dev).manual_seed(5)
+        q = torch.randn((B, Hq, S_, dh), device=dev, generator=g).to(torch.bfloat16)
+        k = torch.randn((B, Hkv, S_, dh), device=dev, generator=g).to(torch.bfloat16)
+        v = torch.randn((B, S_, Hkv, dv), device=dev, generator=g).to(torch.bfloat16).transpose(1, 2)
+        kw = dict(causal=True, window=window, softcap=cap, scale=scale)
+        ref = fa_ops.flash_attention_ref(q, k, v, **kw).float()
+        ratio = float(((fa_ops.flash_attention_cuda(q, k, v, **kw).float() - ref).abs() / bf16_limit(ref)).max())
+        del ref
+        row = {"ms": cuda_ms(lambda: fa_ops.flash_attention_cuda(q, k, v, **kw), 10), "err_over_limit": ratio}
+        if cap is not None:
+            row["ms_without_softcap"] = cuda_ms(lambda: fa_ops.flash_attention_cuda(q, k, v, **dict(kw, softcap=None)),
+                                                10)
+        out[name] = row
+        del q, k, v
+
+
+def main(tree: str, peak: bool, dtype: str, build_only: bool) -> None:
     sys.path.insert(0, os.path.join(tree, "src"))
+    out = {"tree": tree, "device": torch.cuda.get_device_name(0), "dtype": dtype}
+    if dtype == "bf16":
+        bf16_main(tree, out, build_only)
+        print(json.dumps(out), flush=True)
+        return
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
     dev = torch.device("cuda")
     _build.library()
-    out = {"tree": tree, "device": torch.cuda.get_device_name(0)}
     for name, (B, Hq, Hkv, dh, dv, window, cap) in SHAPES.items():
         g = torch.Generator(device=dev).manual_seed(3)
         q = torch.randn((B, Hq, S, dh), device=dev, generator=g)
@@ -137,4 +281,15 @@ def main(tree: str, peak: bool) -> None:
 
 if __name__ == "__main__":
     args = sys.argv[1:]
-    main(next(a for a in args if not a.startswith("--")), "--mma-peak" in args)
+    if "--tanh-error" in args:
+        sys.path.insert(0, os.path.join(ROOT, "src"))
+        from repro_torch.kernels import _build
+
+        print(json.dumps({"device": torch.cuda.get_device_name(0),
+                          "tanh_approx_f32": tanh_error(_build._nvcc(), _build.ARCH)}), flush=True)
+        sys.exit(0)
+    dtype = args[args.index("--dtype") + 1] if "--dtype" in args else "fp32"
+    if dtype not in ("fp32", "bf16"):
+        sys.exit(f"flash_ab: --dtype {dtype}: fp32 or bf16")
+    tree = next(a for i, a in enumerate(args) if not a.startswith("--") and (i == 0 or args[i - 1] != "--dtype"))
+    main(tree, "--mma-peak" in args, dtype, "--build-only" in args)
