@@ -23,8 +23,11 @@ Phases, each followed by a JSON line with its seconds:
                (wgmma/TMA kernel) over GQA, ragged, Sq < Skv, window, softcap,
                non-causal, Sq × Skv, dh ∈ {128, 256, 192 with dv 128}, dh and
                dv not multiples of 8 (the padding step) and Sq 1 against
-               4,096 keys; the bf16 kernel's large-head instances at their
-               edges (``FLASH_EDGE_CASES``: dh 160, dv 96 zero-filled inside
+               4,096 keys, and the new families' shapes
+               (``FLASH_FAMILY_CASES``: non-causal over 1,500 keys, a ragged
+               tail of 64-key tiles, with Sq 1,500, 100, 1 and Sq 200 > Skv
+               150; GQA at a group of 7; dh 112 inside (128, 128)); the
+               bf16 kernel's large-head instances at their edges (``FLASH_EDGE_CASES``: dh 160, dv 96 zero-filled inside
                the (192, 128) instance, softcapped scores far past the cap
                at D 256, MLA's heads with Sq < Skv) per value against the
                plain version; the k-set entries (k members in one launch):
@@ -105,10 +108,14 @@ Phases, each followed by a JSON line with its seconds:
                caches;
 16. lm_families_cpu  gemma2-2b at published widths, one pair of layers
                (window 32 under a prompt of 64), reduced mixtral and
-               deepseek-v2 (capacity factor 8.0), fp32: prefill + 4 decode
-               steps on the card against the CPU, and against ``forward`` on
-               the card (5e-5·max|logits|), greedy tokens and the MoE's aux
-               loss equal; one fp32 flash launch per attention layer in
+               deepseek-v2 (capacity factor 8.0), and at published widths
+               mamba2-780m (2 layers), zamba2-7b (7: a group of 6 and a
+               remainder of 1), whisper-small (2 + 2 layers, 1,500 frames)
+               and internvl2-1b (2 layers, 256 patches), fp32: prefill + 4
+               decode steps on the card against the CPU, and against
+               ``forward`` on the card (5e-5·max|logits|), greedy tokens and
+               the MoE's aux loss equal; one fp32 flash launch per attention
+               layer (whisper: and per cross attention and encoder layer) in
                prefill and in ``forward``;
 17. lm_families  bf16 compute: gemma2-2b whole (26 layers, B 2, prompt
                8,192, 32 new tokens: 26 launches of the bf16 flash kernel's
@@ -121,7 +128,14 @@ Phases, each followed by a JSON line with its seconds:
                prefill at dh 192, dv 128, the (192, 128) instance;
                ``tokens_dropped_fraction`` of its
                prefill's router logits, and the tokens each expert is
-               routed): prefill s, tokens/s, decode tokens/s,
+               routed); mamba2-780m whole (48 layers, B 4 × 4,096: no flash
+               launch), zamba2-7b whole (81 layers, B 2 × 4,096: 13 launches
+               of (128, 128) at dh 112, its shared block), whisper-small
+               whole (12 + 12 layers, B 8 × 1,500 frames, prompt 128: 36 of
+               (64, 64), 12 encoder and 12 cross non-causal, 12 decoder
+               causal), internvl2-1b whole (24 layers, B 4 × 256 patches +
+               3,840 tokens: 24 of (64, 64)); 32 new tokens each: prefill s
+               (first and warm), tokens/s, decode tokens/s,
                peak device bytes, parameters and launches per model;
 18. serve_check  the serving tier small, card against the port on the CPU:
                ``SurrogateEngine`` and ``TrajectoryEngine`` (two members each;
@@ -132,7 +146,8 @@ Phases, each followed by a JSON line with its seconds:
                with the CPU's tokens, a single prompt padded to its bucket ≡
                its batched row, and on reduced gemma2, mixtral and deepseek-v2
                with the CPU's tokens and signatures; ``launch.serve.main`` for
-               all three engines (decode also as ``--arch gemma2-2b``),
+               all three engines (decode also as ``--arch gemma2-2b`` and
+               ``--arch mamba2-780m``; ``--arch whisper-small`` exits 2),
                the surrogate one with a repeat, feedback at threshold 0 and an
                injected failure, its health counts and feedback records the
                CPU run's;
@@ -200,9 +215,14 @@ Phases, each followed by a JSON line with its seconds:
                S 8,192, softcap 50), its (192, 128) one at deepseek-v2's MLA
                (B 1, 128 heads, S 2,048, dh 192, dv 128) and its (128, 128)
                one at mixtral-8x22b's (B 2, Hq 48 over Hkv 8, S 6,144, window
-               4,096), each with its instance, registers and spills, against SDPA for
-               MLA and mixtral (the window as a mask) and, without the
-               softcap, for gemma2 (a comparison only); a breakdown of one
+               4,096) and at zamba2's (B 2, 32 heads, S 4,096, dh 112), its
+               (64, 64) one at internvl2's (B 4, Hq 14 over Hkv 2, S 4,096)
+               and whisper's (B 8, 12 heads: the encoder's 1,500 × 1,500 and
+               the cross attention's 128 × 1,500, non-causal; the decoder's
+               128 causal), each with its instance, registers and spills,
+               against SDPA for the rows without a softcap (a window as a
+               mask) and, without the softcap, for gemma2 (a comparison
+               only); a breakdown of one
                whole EBE matvec (kernel, slot-table scatter) in both dtypes,
                of one full-size FEM step (with the multispring kernel summed
                over the step's blocks beside the streamed pass and the θ
@@ -270,6 +290,19 @@ FLASH_CASES = [
     (1, 2, 1, 50, 90, 36, 20, True, None, None, True),     # dh, dv not multiples of 8: bf16 pads for TMA
     (1, 4, 2, 1, 4096, 128, 128, True, None, None, False),  # one query row against a long cache
 ]
+# the shapes the SSM, hybrid, encoder-decoder and VLM families give the kernel: non-causal
+# with a ragged tail over many key tiles (whisper's encoder, S 1,500), Sq < Skv (its cross
+# attention), Sq > Skv and Sq 1; GQA at a group of 7 (internvl2); dh 112 zero-filled
+# inside the (128, 128) instance (zamba2)
+FLASH_FAMILY_CASES = [
+    (1, 12, 12, 1500, 1500, 64, 64, False, None, None, True),
+    (1, 4, 4, 100, 1500, 64, 64, False, None, None, True),
+    (1, 4, 4, 200, 150, 64, 64, False, None, None, False),
+    (1, 4, 4, 1, 1500, 64, 64, False, None, None, False),
+    (1, 14, 2, 300, 300, 64, 64, True, None, None, True),
+    (1, 4, 4, 300, 300, 112, 112, True, None, None, True),
+]
+FLASH_CASES += FLASH_FAMILY_CASES
 FLASH_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
 # the bf16 kernel's large-head instances at their edges, held per value (2 ulp(|o|)
 # + 2^-5 of the row's rms): (B, Hq, Hkv, Sq, Skv, dh, dv, window, softcap, scale, q scale), causal
@@ -1274,6 +1307,8 @@ SERVE_CLI_DECODE = ["--engine", "decode", "--arch", "qwen3-1.7b", "--reduced", "
                     "--new", "8", "--max-batch", "4", "--repeat", "2"]
 SERVE_CLI_GEMMA2 = ["--engine", "decode", "--arch", "gemma2-2b", "--reduced", "--batch", "4", "--prompt-len", "16",
                     "--new", "8", "--max-batch", "4", "--repeat", "2"]
+SERVE_CLI_MAMBA2 = ["--engine", "decode", "--arch", "mamba2-780m", "--reduced", "--batch", "4", "--prompt-len", "16",
+                    "--new", "8", "--max-batch", "4", "--repeat", "2"]
 HEALTH_KEYS = ("batches", "cache_hits", "engine_failures", "split_retries", "poison_requests", "nonfinite_outputs",
                "deadline_expired", "breaker_trips", "breaker_rejected", "breaker_state")
 # serve_main: 16 requests of one shard wave each through max_batch 8 (two batches), then
@@ -1320,11 +1355,14 @@ def serve_check(root, dev, keep_feedback=None):
     CPU's tokens, a single prompt padded to the bucket giving its batched
     row, and on reduced gemma2, mixtral and deepseek-v2 with the CPU's tokens
     and signatures; ``launch.serve.main`` for all three engines (decode also
-    as ``--arch gemma2-2b``), the surrogate one
+    as ``--arch gemma2-2b`` and ``--arch mamba2-780m``; ``--arch
+    whisper-small`` exits 2, naming the frames it needs), the surrogate one
     with a repeat, feedback at threshold 0 and an injected failure whose
     split-retry and breaker counts and feedback records are the CPU run's.
     The card's feedback log is copied to ``keep_feedback`` (``plan_check``
     sweeps it).  Returns the phase's flash launches by kernel."""
+    import contextlib
+    import io
     import shutil
 
     import numpy as np
@@ -1332,6 +1370,7 @@ def serve_check(root, dev, keep_feedback=None):
 
     from repro_torch import kernels
     from repro_torch.configs import ARCHS
+    from repro_torch.launch import serve as serve_cli
     from repro_torch.models import transformer as T
     from repro_torch.serving import (DecodeEngine, MicroBatcher, ResultCache, ShardedEngine, SurrogateEngine,
                                      TrajectoryEngine)
@@ -1461,6 +1500,21 @@ def serve_check(root, dev, keep_feedback=None):
     require(res["stats"]["cache_hits"] == 4 and cli_launches["flash_attention_f32"] == 2 * g2.n_layers,
             f"gemma2 decode CLI: {res['stats']}, launches {cli_launches}")  # warm-up + one batch
     require(res["tokens"].shape == (4, 8), f"gemma2 decode CLI tokens {res['tokens'].shape}")
+    res = {}
+    before = kernels.instance_counts()
+    lines = _serve_cli(SERVE_CLI_MAMBA2, res)
+    cli_launches = {n: c - before[n] for n, c in kernels.instance_counts().items()}
+    rows["cli_decode_mamba2"] = {"stats": {k: res["stats"][k] for k in HEALTH_KEYS}, "report": lines,
+                                 "flash_launches": cli_launches}
+    require(res["stats"]["cache_hits"] == 4 and not any(cli_launches.values()),
+            f"mamba2 decode CLI: {res['stats']}, launches {cli_launches}")  # no attention: no flash launch
+    require(res["tokens"].shape == (4, 8), f"mamba2 decode CLI tokens {res['tokens'].shape}")
+    # whisper needs frames beside its tokens: the decode CLI refuses it with exit 2, naming why
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(io.StringIO()):
+        rc = serve_cli.main([*SERVE_CLI_MAMBA2[:3], "whisper-small", *SERVE_CLI_MAMBA2[4:]], {})
+    rows["cli_decode_whisper"] = {"exit": rc, "stderr": err.getvalue().strip()}
+    require(rc == 2 and "frames" in err.getvalue(), f"the decode CLI on whisper-small: {rows['cli_decode_whisper']}")
     launches = kernels.instance_counts()
     rows["flash_launches"] = launches
     emit({"serve_check": rows})
@@ -1951,26 +2005,52 @@ def plan_main(root, dev, calibration, mesh):
 # reference's own decode test: decode then routes as forward does); fp32
 FAMILY_NAMES = ("gemma2-2b", "mixtral-8x22b", "deepseek-v2-236b")
 FAMILIES_CPU = dict(B=2, prompt=64, new_tokens=4)
+# the SSM, hybrid, encoder-decoder and VLM families at their published widths, few layers:
+# zamba2 one group of 6 Mamba blocks and the shared attention block, then a remainder of 1
+SSM_FAMILY_CPU_CUTS = {"mamba2-780m": {"n_layers": 2}, "zamba2-7b": {"n_layers": 7},
+                       "whisper-small": {"n_layers": 2, "encoder_layers": 2}, "internvl2-1b": {"n_layers": 2}}
+# the stub frontends' outputs [B, n, d_model], seeded random: whisper's frames, internvl2's patches
+FRONTEND = {"whisper-small": ("frames", 1500), "internvl2-1b": ("patches", 256)}
 # lm_families: bf16 compute, fp32 parameters, greedy.  gemma2-2b whole (26 layers, its
 # 8,192 context: twice the local window); mixtral 2 of 56 layers (141 G parameters do
 # not fit in 80 GB; the prompt passes its 4,096 window) with the KV offloaded in 2
-# pinned blocks beside; deepseek-v2 1 dense + 1 MoE layer of 60
+# pinned blocks beside; deepseek-v2 1 dense + 1 MoE layer of 60; mamba2-780m, zamba2-7b
+# (6.7 G parameters, 27 GB in fp32), whisper-small and internvl2-1b whole, at 4,096
+# decoder positions (internvl2: 256 patches and 3,840 tokens; whisper: 1,500 frames
+# and a prompt of 128)
 FAMILIES_MAIN = {
     "gemma2-2b": dict(cut={}, B=2, prompt=8192, cache_len=8224, new_tokens=32),
     "mixtral-8x22b": dict(cut={"n_layers": 2}, B=2, prompt=6144, cache_len=6176, new_tokens=32, kv_npart=2),
     "deepseek-v2-236b": dict(cut={"n_layers": 2}, B=1, prompt=2048, cache_len=2080, new_tokens=32),
+    "mamba2-780m": dict(cut={}, B=4, prompt=4096, cache_len=4128, new_tokens=32),
+    "zamba2-7b": dict(cut={}, B=2, prompt=4096, cache_len=4128, new_tokens=32),
+    "whisper-small": dict(cut={}, B=8, prompt=128, cache_len=160, new_tokens=32, frontend=1500),
+    "internvl2-1b": dict(cut={}, B=4, prompt=3840, cache_len=4128, new_tokens=32, frontend=256),
 }
 # timing's bf16 flash rows at the families' prefill shapes (the kernel's (256, 256)
-# instance for gemma2, (192, 128) for MLA, (128, 128) at mixtral's windowed GQA
-# shape): (row, the paths whose launches it counts, B, Hq, Hkv, S, dh, dv, window,
-# softcap, scale)
+# instance for gemma2, (192, 128) for MLA, (128, 128) at mixtral's windowed GQA shape and
+# at zamba2's dh 112, (64, 64) at internvl2's GQA group of 7 and at whisper's encoder,
+# cross attention and decoder): (row, the paths whose launches it counts, B, Hq, Hkv, Sq,
+# Skv, dh, dv, causal, window, softcap, scale)
 FAMILY_FLASH = (
-    ("flash_attention_bf16_d256_gemma2_local", ("gemma2-2b local",), 2, 8, 4, 8192, 256, 256, 4096, 50.0, None),
-    ("flash_attention_bf16_d256_gemma2_global", ("gemma2-2b global",), 2, 8, 4, 8192, 256, 256, None, 50.0, None),
-    ("flash_attention_bf16_d192_mla", ("deepseek-v2-236b MLA",), 1, 128, 128, 2048, 192, 128, None, None,
-     192**-0.5),
+    ("flash_attention_bf16_d256_gemma2_local", ("gemma2-2b local",), 2, 8, 4, 8192, 8192, 256, 256, True, 4096,
+     50.0, None),
+    ("flash_attention_bf16_d256_gemma2_global", ("gemma2-2b global",), 2, 8, 4, 8192, 8192, 256, 256, True, None,
+     50.0, None),
+    ("flash_attention_bf16_d192_mla", ("deepseek-v2-236b MLA",), 1, 128, 128, 2048, 2048, 192, 128, True, None,
+     None, 192**-0.5),
     ("flash_attention_bf16_d128_mixtral", ("mixtral-8x22b prefill", "mixtral-8x22b offloaded generate"),
-     2, 48, 8, 6144, 128, 128, 4096, None, None),
+     2, 48, 8, 6144, 6144, 128, 128, True, 4096, None, None),
+    ("flash_attention_bf16_d112_zamba2", ("zamba2-7b shared attention",), 2, 32, 32, 4096, 4096, 112, 112, True,
+     None, None, None),
+    ("flash_attention_bf16_d64_internvl2", ("internvl2-1b prefill",), 4, 14, 2, 4096, 4096, 64, 64, True, None,
+     None, None),
+    ("flash_attention_bf16_d64_whisper_encoder", ("whisper-small encoder",), 8, 12, 12, 1500, 1500, 64, 64, False,
+     None, None, None),
+    ("flash_attention_bf16_d64_whisper_cross", ("whisper-small cross",), 8, 12, 12, 128, 1500, 64, 64, False, None,
+     None, None),
+    ("flash_attention_bf16_d64_whisper_decoder", ("whisper-small decoder",), 8, 12, 12, 128, 128, 64, 64, True,
+     None, None, None),
 )
 
 
@@ -1998,7 +2078,34 @@ class Recorded:
 
 
 def _flash_call(q, k, v, **kw):
-    return {"dh": q.shape[-1], "dv": v.shape[-1], "window": kw.get("window"), "softcap": kw.get("softcap")}
+    return {"dh": q.shape[-1], "dv": v.shape[-1], "window": kw.get("window"), "softcap": kw.get("softcap"),
+            "causal": kw.get("causal", True), "sq": q.shape[2], "skv": k.shape[2]}
+
+
+def flash_per_pass(cfg):
+    """Flash launches in one prefill or ``forward`` of ``cfg``: one per
+    attention layer of the decoder (zamba2: per application of its shared
+    block), one more per whisper decoder block (its cross attention) and one
+    per encoder layer."""
+    from repro_torch.models import transformer as T
+
+    slots = T.layout(cfg)
+    return sum(s.kind != "mamba" for s in slots) + sum(s.kind == "cross" for s in slots) + cfg.encoder_layers
+
+
+def frontend_inputs(name, cfg, B, n, generator, device):
+    """``{"frames" | "patches": [B, n, d_model]}`` seeded random for whisper
+    and internvl2 (the reference's stub frontends), else nothing."""
+    import torch
+
+    if name not in FRONTEND:
+        return {}
+    return {FRONTEND[name][0]: torch.randn((B, n, cfg.d_model), generator=generator, device=device)}
+
+
+def wgmma_key(dk, dv):
+    """The bf16 flash kernel's instance (DK, DV) as ``_by_instance`` keys it."""
+    return f"{dk}x{dv}"
 
 
 def _by_instance():
@@ -2006,7 +2113,7 @@ def _by_instance():
     its wrapper passed to the C entry, ``{"DKxDV": n}`` (instances that ran)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
-    return {f"{dk}x{dv}": n for (dk, dv), n in fa_ops.wgmma_launch_counts().items() if n}
+    return {wgmma_key(dk, dv): n for (dk, dv), n in fa_ops.wgmma_launch_counts().items() if n}
 
 
 def _call_counts(calls):
@@ -2022,17 +2129,22 @@ def _family_cfg_cpu(name):
 
     if name == "gemma2-2b":
         return dataclasses.replace(ARCHS[name], n_layers=2, window=32, dtype="float32")
+    if name in SSM_FAMILY_CPU_CUTS:
+        return dataclasses.replace(ARCHS[name], dtype="float32", **SSM_FAMILY_CPU_CUTS[name])
     return dataclasses.replace(ARCHS[name].reduced(), capacity_factor=8.0)
 
 
 def lm_families_cpu(dev):
     """gemma2-2b (published widths, one pair of layers, window 32), reduced
-    mixtral and deepseek-v2, fp32: prefill + 4 decode steps on the card against
-    the CPU on the same weights, prefill→decode against ``forward`` on the
-    card (5e-5·max|logits|), greedy tokens equal, the MoE's aux loss card
-    against CPU; exactly one fp32 flash launch per attention layer in prefill
-    and one in ``forward``, none of the bf16 kernel.  Returns the fp32
-    launches by model."""
+    mixtral and deepseek-v2, and mamba2-780m, zamba2-7b, whisper-small and
+    internvl2-1b at their published widths with few layers
+    (``SSM_FAMILY_CPU_CUTS``; whisper on 1,500 frames, internvl2 on 256
+    patches), fp32: prefill + 4 decode steps on the card against the CPU on
+    the same weights, prefill→decode against ``forward`` on the card
+    (5e-5·max|logits|), greedy tokens equal, the MoE's aux loss card against
+    CPU; exactly ``flash_per_pass`` fp32 flash launches in prefill and as many
+    in ``forward`` (none for mamba2), none of the bf16 kernel.  Returns the
+    fp32 launches by model."""
     import torch
 
     from repro_torch import kernels
@@ -2041,35 +2153,42 @@ def lm_families_cpu(dev):
     cpu = torch.device("cpu")
     B, S0, NEW = FAMILIES_CPU["B"], FAMILIES_CPU["prompt"], FAMILIES_CPU["new_tokens"]
     rows, launches = {}, {}
-    for name in FAMILY_NAMES:
+    for name in FAMILY_NAMES + tuple(SSM_FAMILY_CPU_CUTS):
         cfg = _family_cfg_cpu(name)
         p_cpu = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
         p_gpu = _tree_to(p_cpu, dev)
         toks = torch.randint(0, cfg.vocab_size, (B, S0 + NEW), generator=torch.Generator().manual_seed(1))
+        front = frontend_inputs(name, cfg, B, FRONTEND.get(name, (None, 0))[1], torch.Generator().manual_seed(2), cpu)
+        P = front["patches"].shape[1] if "patches" in front else 0  # decoder positions before the tokens
         runs = {}
         for where, params, d in (("cpu", p_cpu, cpu), ("gpu", p_gpu, dev)):
             kernels.reset_launch_counts()  # the card's run is counted: the fp32 flash kernel's path
             t = toks.to(d)
-            lg, st = T.prefill(params, cfg, {"tokens": t[:, :S0]}, cache_len=S0 + NEW)
+            extra = {k: x.to(d) for k, x in front.items()}
+            lg, st = T.prefill(params, cfg, {"tokens": t[:, :S0], **extra}, cache_len=P + S0 + NEW)
             out = [lg[:, 0]]
             for i in range(S0, S0 + NEW):
                 lg, st = T.decode_step(params, cfg, t[:, i:i + 1], st)
                 out.append(lg[:, 0])
             runs[where] = torch.stack(out, 1).cpu()
-        fwd, aux = T.forward(p_gpu, cfg, {"tokens": toks.to(dev)})
-        fwd = fwd[:, S0 - 1:].cpu()
+        fwd, aux = T.forward(p_gpu, cfg, {"tokens": toks.to(dev), **{k: x.to(dev) for k, x in front.items()}})
+        fwd = fwd[:, P + S0 - 1:].cpu()
         got = kernels.instance_counts()
         aux_cpu = T.forward(p_cpu, cfg, {"tokens": toks})[1] if cfg.n_experts else aux.cpu()
         scale = float(runs["cpu"].abs().max())
         err_cpu = float((runs["gpu"] - runs["cpu"]).abs().max())
         err_fwd = float((runs["gpu"] - fwd).abs().max())
         same_tokens = torch.equal(runs["gpu"].argmax(-1), runs["cpu"].argmax(-1))
-        want = {"flash_attention_bf16": 0, "flash_attention_f32": 2 * cfg.n_layers}
-        rows[name] = {"cfg": {k: getattr(cfg, k) for k in ("n_layers", "d_model", "n_heads", "n_kv_heads", "hd",
-                                                            "vocab_size", "window", "capacity_factor")},
-                      "B": B, "prompt": S0, "decode_steps": NEW, "max_abs_err_vs_cpu": err_cpu,
+        want = {"flash_attention_bf16": 0, "flash_attention_f32": 2 * flash_per_pass(cfg)}
+        rows[name] = {"cfg": {k: getattr(cfg, k) for k in ("family", "n_layers", "encoder_layers", "d_model",
+                                                            "n_heads", "n_kv_heads", "vocab_size", "window",
+                                                            "capacity_factor", "ssm_state", "attn_every")},
+                      "hd": cfg.hd if cfg.n_heads else None, "B": B, "prompt": S0, "decode_steps": NEW,
+                      "frontend": {k: list(x.shape) for k, x in front.items()}, "max_abs_err_vs_cpu": err_cpu,
                       "max_abs_err_vs_forward": err_fwd, "atol": 5e-5 * scale, "greedy_tokens_equal": same_tokens,
-                      "aux": float(aux), "aux_cpu": float(aux_cpu), "flash_launches": got}
+                      "aux": float(aux), "aux_cpu": float(aux_cpu), "flash_launches": got,
+                      "state_shapes": {k: {n: list(x.shape) for n, x in c.items()}
+                                       for k, c in st.items() if k != "pos"}}
         require(got == want, f"{name}: fp32 prefill + forward made flash launches {got}, not {want}")
         require(err_cpu <= 5e-5 * scale, f"{name}: logits on the card differ from the CPU: {err_cpu}")
         require(err_fwd <= 5e-5 * scale, f"{name}: prefill→decode differs from forward on the card: {err_fwd}")
@@ -2077,16 +2196,20 @@ def lm_families_cpu(dev):
         require(abs(float(aux) - float(aux_cpu)) <= 1e-5 * max(1.0, abs(float(aux_cpu))),
                 f"{name}: aux loss card {float(aux)} ≠ CPU {float(aux_cpu)}")
         launches[name] = got["flash_attention_f32"]
-        del p_cpu, p_gpu, runs, fwd, st, lg
+        del p_cpu, p_gpu, runs, fwd, st, lg, front
     emit({"lm_families_cpu": rows})
     return launches
 
 
 def lm_families(dev):
-    """The three models on the card, bf16 compute, fp32 parameters, greedy:
-    prefill (the bf16 flash kernel once per attention layer: gemma2 13
+    """The seven models on the card, bf16 compute, fp32 parameters, greedy:
+    prefill (the bf16 flash kernel ``flash_per_pass`` times: gemma2 13
     windowed and 13 global sub-layers at dh 256, the (256, 256) instance;
-    deepseek-v2's MLA at dh 192, dv 128, the (192, 128) one) and 32 decode steps (no flash launch); mixtral's KV
+    deepseek-v2's MLA at dh 192, dv 128, the (192, 128) one; mamba2 never;
+    zamba2's shared block 13 times at dh 112, the (128, 128) one; whisper's 12
+    encoder layers (non-causal), 12 decoder self attentions (causal) and 12
+    cross attentions (non-causal, 128 × 1,500) and internvl2's 24 layers, the
+    (64, 64) one) and 32 decode steps (no flash launch); mixtral's KV
     offloaded in 2 pinned blocks, through ``generate`` and stepped beside the
     resident decode, bitwise; the MoE's ``tokens_dropped_fraction`` over its
     prefill's router logits, with the tokens each expert is routed (first
@@ -2099,6 +2222,7 @@ def lm_families(dev):
     from repro_torch import kernels
     from repro_torch.configs import ARCHS
     from repro_torch.core import hetmem
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import layers as L, moe as M, transformer as T
     from repro_torch.serving import decode as serve
 
@@ -2116,13 +2240,16 @@ def lm_families(dev):
         n_params = sum(x.numel() for x in _leaves(params))
         prompt = torch.randint(0, cfg.vocab_size, (B, S0), device=dev,
                                generator=torch.Generator(device=dev).manual_seed(1))
+        batch = {"tokens": prompt, **frontend_inputs(name, cfg, B, spec.get("frontend", 0),
+                                                     torch.Generator(device=dev).manual_seed(2), dev)}
+        positions = S0 + (batch["patches"].shape[1] if "patches" in batch else 0)  # the decoder's
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()  # counts of this model's path only
         with Recorded(L, "flash_attention", _flash_call) as flash, \
                 Recorded(M, "moe", lambda p, x, *a, **kw: (p["router"], x)) as moe_in:
             t0 = time.perf_counter()
-            logits, state = T.prefill(params, cfg, {"tokens": prompt}, cache_len=C)
+            logits, state = T.prefill(params, cfg, batch, cache_len=C)
             torch.cuda.synchronize()
             prefill_s = time.perf_counter() - t0
         prefill_by_kernel, prefill_by_instance = kernels.instance_counts(), _by_instance()
@@ -2152,31 +2279,59 @@ def lm_families(dev):
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            again = T.prefill(params, cfg, {"tokens": prompt}, cache_len=C)
+            again = T.prefill(params, cfg, batch, cache_len=C)
             torch.cuda.synchronize()
             prefill_warm_s.append(time.perf_counter() - t0)
             del again
         gen = torch.cat(gen, 1)
         row = {"arch": cfg.name, "layers": cfg.n_layers, "layers_published": ARCHS[name].n_layers, "params": n_params,
-               "B": B, "prompt": S0, "cache_len": C, "new_tokens": NEW, "prefill_s": prefill_s,
-               "prefill_tokens_per_s": B * S0 / prefill_s, "prefill_warm_s": prefill_warm_s, "decode_s": decode_s,
+               "B": B, "prompt": S0, "frontend": {k: list(x.shape) for k, x in batch.items() if k != "tokens"},
+               "cache_len": C, "new_tokens": NEW, "prefill_s": prefill_s,
+               "prefill_tokens_per_s": B * positions / prefill_s, "prefill_warm_s": prefill_warm_s,
+               "prefill_warm_tokens_per_s": B * positions / min(prefill_warm_s), "decode_s": decode_s,
                "decode_tokens_per_s": B * NEW / decode_s, "peak_device_bytes": peak,
                "resident_before_bytes": resident_before, "flash_launches_prefill": prefill_by_kernel,
                "flash_launches_prefill_by_instance": prefill_by_instance, "flash_calls_prefill": _call_counts(flash.calls), "flash_launches_decode": decode_launches,
                "cache_shapes": {k: {n: list(t.shape) for n, t in c.items()} for k, c in state.items() if k != "pos"},
                "tokens_row0": gen[0, :8].tolist()}
-        n_attn = cfg.n_layers
+        n_attn = flash_per_pass(cfg)
         require(prefill_by_kernel == {"flash_attention_bf16": n_attn, "flash_attention_f32": 0},
                 f"{name}: prefill's flash launches {prefill_by_kernel}, not {n_attn} of the wgmma kernel alone")
         # the instance that launched, as the wrapper counted it at the C entry
-        want_instance = {"gemma2-2b": "256x256", "deepseek-v2-236b": "192x128"}.get(name, "128x128")
-        require(prefill_by_instance == {want_instance: n_attn},
-                f"{name}: prefill's bf16 flash launches by instance {prefill_by_instance}, not {n_attn} of "
-                f"{want_instance}")
+        heads = ((cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim) if cfg.attn_type == "mla"
+                 else (cfg.hd, cfg.hd) if cfg.n_heads else None)
+        want_instance = {wgmma_key(*fa_ops.wgmma_instance(*heads)): n_attn} if n_attn else {}
+        require(prefill_by_instance == want_instance,
+                f"{name}: prefill's bf16 flash launches by instance {prefill_by_instance}, not {want_instance}")
         require(all(v == 0 for v in decode_launches.values()), f"{name}: decode launched flash: {decode_launches}")
         require(bool(torch.isfinite(logits).all()), f"{name}: decode logits not finite")
-        require(tuple(gen.shape) == (B, NEW) and state["pos"] == S0 + NEW, f"{name}: generated {tuple(gen.shape)}")
-        if name == "gemma2-2b":
+        require(tuple(gen.shape) == (B, NEW) and state["pos"] == positions + NEW,
+                f"{name}: generated {tuple(gen.shape)} to position {state['pos']}")
+        hd = cfg.hd if cfg.n_heads else None  # mamba2 has no attention
+        calls = {"dh": hd, "dv": hd, "window": cfg.window, "softcap": cfg.attn_softcap, "causal": True,
+                 "sq": positions, "skv": positions}  # a causal self attention over the decoder's positions
+        if name == "mamba2-780m":
+            require(not flash.calls and set(state) == {"pos", "layers"}, f"mamba2's prefill: {row['cache_shapes']}")
+        elif name == "zamba2-7b":
+            require(flash.calls == [calls] * n_attn == [calls] * 13, f"zamba2's prefill flash calls {flash.calls}")
+            require(tuple(state["shared_attn"]["k"].shape[:1]) == (13,) and tuple(state["groups"]["ssm"].shape[:2])
+                    == (13, 6) and tuple(state["remainder"]["ssm"].shape[:1]) == (3,),
+                    f"zamba2's caches {row['cache_shapes']}")
+            by_path["zamba2-7b shared attention"] = len(flash.calls)
+        elif name == "whisper-small":
+            Sf = spec["frontend"]
+            kinds = {"encoder": dict(calls, causal=False, sq=Sf, skv=Sf), "decoder": calls,
+                     "cross": dict(calls, causal=False, skv=Sf)}
+            want = [kinds["encoder"]] * cfg.encoder_layers + [kinds["decoder"], kinds["cross"]] * cfg.n_layers
+            require(flash.calls == want, f"whisper's prefill flash calls {_call_counts(flash.calls)}")
+            require(tuple(state["enc_kv"]["k"].shape) == (cfg.n_layers, B, cfg.n_kv_heads, Sf, cfg.hd),
+                    f"whisper's caches {row['cache_shapes']}")
+            for kind, c in kinds.items():
+                by_path[f"whisper-small {kind}"] = flash.calls.count(c)
+        elif name == "internvl2-1b":
+            require(flash.calls == [calls] * cfg.n_layers, f"internvl2's prefill flash calls {flash.calls}")
+            by_path["internvl2-1b prefill"] = len(flash.calls)
+        elif name == "gemma2-2b":
             windows = [c["window"] for c in flash.calls]
             require(all(c["dh"] == c["dv"] == cfg.hd and c["softcap"] == cfg.attn_softcap for c in flash.calls)
                     and windows == [cfg.window, None] * (n_attn // 2),
@@ -2199,8 +2354,7 @@ def lm_families(dev):
                                                                  "moe_layers": dropped}
             row["router_tokens_per_expert"] = expert_counts
             npart = spec["kv_npart"]
-            mixtral_call = {"dh": cfg.hd, "dv": cfg.hd, "window": cfg.window, "softcap": None}
-            require(all(c == mixtral_call for c in flash.calls), f"mixtral's prefill flash calls {flash.calls}")
+            require(all(c == calls for c in flash.calls), f"mixtral's prefill flash calls {flash.calls}")
             by_path["mixtral-8x22b prefill"] = len(flash.calls)
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
@@ -2226,7 +2380,7 @@ def lm_families(dev):
                 "steps": NEW, "kv_bitwise": kv_equal, "kv_blocks_pinned_host": pinned,
                 "generate_flash_launches": off_launches, "generate_flash_launches_by_instance": off_by_instance}
             require(off_launches == {"flash_attention_bf16": n_attn, "flash_attention_f32": 0}
-                    and off_by_instance == {"128x128": n_attn},
+                    and off_by_instance == want_instance,
                     f"mixtral's offloaded generate made flash launches {off_launches}, {off_by_instance}")
             require(torch.equal(off_tok[:, S0:], gen), "mixtral: offloaded generate's tokens differ from resident")
             require(steps_equal == NEW and kv_equal and pinned, f"mixtral offload: {row['offloaded_vs_resident']}")
@@ -2234,7 +2388,7 @@ def lm_families(dev):
             del blocks, host, ostate, olg
         emit({"lm_families": row})
         rows[name] = row
-        del params, state, logits, step_logits, prompt, flash
+        del params, state, logits, step_logits, prompt, batch, flash
     torch.cuda.empty_cache()
     return by_path
 
@@ -2266,17 +2420,31 @@ def flex_softcap(dev, S, window, cap, scale):
     return lambda q, k, v: flex(q, k, v, score_mod=score_mod, block_mask=block_mask, scale=scale, enable_gqa=True)
 
 
+def kept_pairs(Sq, Skv, causal, window):
+    """(query, key) pairs that the causal mask (aligned at Skv − Sq) and the
+    window keep."""
+    off, kept = Skv - Sq, 0
+    for i in range(Sq):
+        hi = min(Skv, i + off + 1) if causal else Skv
+        lo = max(0, i + off - window + 1) if window else 0
+        kept += max(0, hi - lo)
+    return kept
+
+
 def family_flash_rows(dev, sdpa, launches):
     """timing's rows for the bf16 flash kernel at the families' prefill
     shapes (the instance ``wgmma_instance`` picks: (256, 256) for gemma2,
     (192, 128) for MLA, (128, 128) for mixtral's window of 4,096 at a GQA
-    group of 6), laid out as the layers
+    group of 6 and for zamba2's dh 112, (64, 64) for internvl2's GQA group of
+    7 and whisper's non-causal encoder and cross attention and its causal
+    decoder), laid out as the layers
     give them (q and k contiguous, v a transposed view of its projection):
     each against its plain version (per value: 2 ulp(|o|) + 2^-5 rms of its
     row), its bound, and the library call that computes the function: SDPA
-    for MLA and mixtral (a window as a boolean mask), ``flex_softcap`` for
-    gemma2 (held to the same limit), beside which gemma2's rows also give
-    SDPA without the softcap and the kernel without it."""
+    for the rows without a softcap (a window as a boolean mask, GQA by
+    ``enable_gqa``), ``flex_softcap`` for gemma2 (held to the same limit),
+    beside which gemma2's rows also give SDPA without the softcap and the
+    kernel without it."""
     import torch
 
     from repro_torch.kernels import _build
@@ -2285,14 +2453,14 @@ def family_flash_rows(dev, sdpa, launches):
     report = ptxas_report(_build.ptxas_log())
     g = torch.Generator(device=dev).manual_seed(5)
     rows = []
-    for name, paths, B, Hq, Hkv, S, dh, dv, window, cap, scale in FAMILY_FLASH:
+    for name, paths, B, Hq, Hkv, Sq, S, dh, dv, causal, window, cap, scale in FAMILY_FLASH:
         instance = wgmma_name(*fa_ops.wgmma_instance(dh, dv))
         regs = {k: v for k, v in report.items() if k == instance}
         bf = torch.bfloat16
-        q = torch.randn((B, Hq, S, dh), device=dev, generator=g).to(bf)
+        q = torch.randn((B, Hq, Sq, dh), device=dev, generator=g).to(bf)
         k = torch.randn((B, Hkv, S, dh), device=dev, generator=g).to(bf)
         v = torch.randn((B, S, Hkv, dv), device=dev, generator=g).to(bf).transpose(1, 2)
-        kw = dict(causal=True, window=window, softcap=cap, scale=scale)
+        kw = dict(causal=causal, window=window, softcap=cap, scale=scale)
         out_k, out_p = fa_ops.flash_attention_cuda(q, k, v, **kw), fa_ops.flash_attention_ref(q, k, v, **kw)
         ref32 = out_p.float()
         ratio = float(((out_k.float() - ref32).abs() / bf16_limit(ref32)).max())
@@ -2308,24 +2476,22 @@ def family_flash_rows(dev, sdpa, launches):
             require(flex_ratio <= 1.0, f"{name}: flex_attention disagrees with the plain version: {flex_ratio}")
             del out_l
         del ref32, out_p
-        w = window or S
-        kept = w * (w + 1) // 2 + (S - w) * w  # (q, k) pairs the causal mask and the window keep
-        flops = 2 * B * Hq * kept * (dh + dv)
+        flops = 2 * B * Hq * kept_pairs(Sq, S, causal, window) * (dh + dv)
         b_ms, by = bound(nbytes(q, k, v, out_k), flops, bf)
         ms = cuda_ms(lambda: fa_ops.flash_attention_cuda(q, k, v, **kw), 10)
         if window is None:
-            lib = lambda: sdpa(q, k, v, is_causal=True, scale=scale, enable_gqa=Hq != Hkv)  # noqa: E731
+            lib = lambda: sdpa(q, k, v, is_causal=causal, scale=scale, enable_gqa=Hq != Hkv)  # noqa: E731
         else:
-            i = torch.arange(S, device=dev)
-            mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+            i, j = torch.arange(S - Sq, S, device=dev)[:, None], torch.arange(S, device=dev)[None, :]
+            mask = (j <= i) & (i - j < window)
             lib = lambda: sdpa(q, k, v, attn_mask=mask, scale=scale, enable_gqa=Hq != Hkv)  # noqa: E731
         detail = {"launches_by_path": {p: launches[p] for p in paths}, "instance": instance, "B": B, "Hq": Hq,
-                  "Hkv": Hkv, "S": S,
-                  "dh": dh, "dv": dv, "window": window,
-                  "softcap": cap, "scale": scale, "causal": True, "v_strided": True, "flops": flops,
+                  "Hkv": Hkv, "Sq": Sq, "Skv": S, "dh": dh, "dv": dv, "window": window,
+                  "softcap": cap, "scale": scale, "causal": causal, "v_strided": True, "flops": flops,
                   "bf16_err_over_limit": ratio, "bf16_limit": "2 ulp(|o|) + 2^-5 rms(o row)",
                   "tflop_per_s": flops / (ms / 1e3) / 1e12, "share_of_bound": b_ms / ms, "registers_spills": regs}
-        detail["sdpa_form"] = "is_causal" if window is None else "boolean window mask"
+        detail["sdpa_form"] = ("boolean window mask" if window is not None else "is_causal" if causal
+                               else "no mask")
         if cap is None:
             library_ms = cuda_ms(lib, 10)
         else:
@@ -3013,8 +3179,9 @@ def main() -> int:
         families_cpu_launches = lm_families_cpu(dev)
 
     with Phase("lm_families"):
-        # gemma2-2b whole, mixtral and deepseek-v2 at published widths; lm_main's
-        # qwen3 stays on the card for serve_main
+        # gemma2-2b, mamba2-780m, zamba2-7b, whisper-small and internvl2-1b whole,
+        # mixtral and deepseek-v2 at published widths; lm_main's qwen3 stays on the
+        # card for serve_main
         families_launches = lm_families(dev)
 
     feedback_log = os.path.join(ROOT, "build", "serve_feedback.jsonl")

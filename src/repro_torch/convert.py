@@ -101,20 +101,27 @@ def _tree(tree: Any, device) -> Any:
 
 def params_from_numpy(tree: dict[str, Any], cfg, device) -> dict[str, Any]:
     """The port's parameters for ``cfg`` from the JAX ``init_params`` tree
-    (leaves as numpy arrays; the same keys and stacked layer tensors: ``[L,…]``,
-    gemma2's pairs ``[L/2, 2, …]``, or the MoE family's ``dense_layers`` and
-    ``layers``)."""
-    transformer.check_supported(cfg)
+    (leaves as numpy arrays; the same keys and stacked block tensors:
+    ``[L,…]``, gemma2's pairs ``[L/2, 2, …]``, the MoE family's
+    ``dense_layers`` and ``layers``, zamba2's ``groups [G, every, …]``,
+    unstacked ``shared_attn`` and ``remainder``, whisper's ``encoder`` and
+    ``enc_norm``, a VLM's ``patch_proj``)."""
     stacks = transformer.stack_shapes(cfg)
-    expected = {"embed", "final_norm", *stacks} | ({"lm_head"} if not cfg.tie_embeddings else set())
+    expected = ({"embed", "final_norm", *stacks} | ({"lm_head"} if not cfg.tie_embeddings else set())
+                | ({"enc_norm"} if cfg.family == "encdec" else set())
+                | ({"patch_proj"} if cfg.family == "vlm" else set()))
     if set(tree) != expected:
         raise ValueError(f"parameter tree has keys {sorted(tree)}, expected {sorted(expected)}")
     params = _tree(tree, device)
     for name, lead in stacks.items():
-        got = {tuple(t.shape[:len(lead)]) for t in tree_leaves(params[name])}
-        if got != {lead}:
-            raise ValueError(f"{name}: layer stacks of {sorted(got)}, cfg {cfg.name} has {lead}")
+        _check_stack(params[name], lead, name, cfg)
     return params
+
+
+def _check_stack(tree: Any, lead: tuple[int, ...], name: str, cfg) -> None:
+    got = {tuple(t.shape[:len(lead)]) for t in tree_leaves(tree)}
+    if got != {lead}:
+        raise ValueError(f"{name}: layer stacks of {sorted(got)}, cfg {cfg.name} has {lead}")
 
 
 def _keys(tree: Any) -> Any:
@@ -122,16 +129,20 @@ def _keys(tree: Any) -> Any:
 
 
 def decode_state_from_numpy(state: dict[str, Any], cfg, device) -> dict[str, Any]:
-    """The port's decode state from the JAX one (``pos`` and each stack's
-    caches, numpy leaves: ``layers``; gemma2's ``local`` and ``global``; the
-    MoE family's ``dense_layers`` beside ``layers``; MLA's ``c_kv`` and
-    ``k_rope``), e.g. the state a JAX ``prefill`` returned."""
-    transformer.check_supported(cfg)
+    """The port's decode state from the JAX one (``pos`` and each cache,
+    numpy leaves: ``layers``; gemma2's ``local`` and ``global``; the MoE
+    family's ``dense_layers`` beside ``layers``; MLA's ``c_kv`` and
+    ``k_rope``; the Mamba blocks' ``ssm`` and ``conv``, zamba2's nested
+    ``groups [G, every, …]``, ``shared_attn`` and ``remainder``; whisper's
+    ``enc_kv``), e.g. the state a JAX ``prefill`` returned.  Each cache's
+    stack dimensions are checked against ``cfg``."""
     want = _keys(transformer.init_decode_state(cfg, 1, 1, device="meta"))
     if _keys(state) != want:
         raise ValueError(f"decode state has keys {_keys(state)}, {cfg.name} expects {want}")
-    return {"pos": int(np.asarray(state["pos"])),
-            **{k: _tree(v, device) for k, v in state.items() if k != "pos"}}
+    out = {"pos": int(np.asarray(state["pos"])), **{k: _tree(v, device) for k, v in state.items() if k != "pos"}}
+    for key, lead in transformer.cache_stacks(cfg).items():
+        _check_stack(out[key], lead, key, cfg)
+    return out
 
 
 _SURROGATE_KEYS = ({"enc", "lstm", "dec", "heads"}, {"enc", "layers", "out"})  # CNN+LSTM, trajectory

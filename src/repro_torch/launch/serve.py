@@ -14,8 +14,10 @@ cache + active-learning feedback)::
         --ckpt ckpt/trajectory --scenario ricker-soft-basin --repeat 2
 
     # decode: batched LM generation, resident or host-offloaded KV
-    # (--arch: the dense stacks, gemma2-2b, mixtral-8x22b, deepseek-v2-236b;
-    # --offload-kv takes a uniform stack of GQA layers: dense, or mixtral)
+    # (--arch: every family whose prompts are tokens alone: the dense stacks,
+    # gemma2-2b, mixtral-8x22b, deepseek-v2-236b, mamba2-780m, zamba2-7b,
+    # internvl2-1b (text-only); --offload-kv takes a uniform stack of GQA
+    # layers: dense, mixtral or internvl2; whisper-small exits 2)
     PYTHONPATH=src python -m repro_torch.launch.serve --engine decode \\
         --arch qwen3-1.7b --reduced --batch 4 --new 16 \\
         [--offload-kv --npart 4] [--temperature 0.8]
@@ -217,11 +219,16 @@ def _serve_decode(args, device, result) -> int:
     from repro_torch.configs import ARCHS
     from repro_torch.models import transformer as T
     from repro_torch.serving import DecodeEngine, ServeConfig
+    from repro_torch.serving.decode import check_generate_scope
 
     cfg = ARCHS[args.arch]
     if args.reduced:
         cfg = cfg.reduced()
-    T.check_supported(cfg)
+    try:
+        check_generate_scope(cfg)
+    except ValueError as e:
+        print(f"{TAG} --arch {args.arch}: {e}", file=sys.stderr)
+        return 2
     if args.offload_kv:  # refused before the weights are made (DecodeEngine refuses too, after)
         try:
             T.check_offload_scope(cfg)

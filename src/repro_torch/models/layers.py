@@ -24,7 +24,6 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import NEG
-_LATER = "is not ported yet (ROADMAP.md, 'Modules still to port')"
 
 
 def dt(cfg: ModelConfig) -> torch.dtype:

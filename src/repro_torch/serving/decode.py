@@ -11,15 +11,18 @@ depth) is on the card at a time.
 
 The layer computations are those of ``models/transformer.decode_step``, in
 the same order, so offloaded decode is bitwise equal to resident decode.
-Offloading takes a uniform stack of GQA layers, dense or MoE (mixtral), as
-the reference does; gemma2's pair stack, MLA and a first dense stack
-decode resident (``transformer.check_offload_scope`` refuses them).
+Offloading takes a uniform stack of GQA layers, dense, MoE (mixtral) or
+VLM (internvl2, text-only), as the reference does; gemma2's pair stack, MLA,
+a first dense stack and the Mamba families decode resident
+(``transformer.check_offload_scope`` refuses the rest).
 
 :func:`generate` prefills the prompt in one pass (``transformer.prefill``:
 the flash kernel once per layer) and then decodes token by token.  With
 the KV cache offloaded, the same prefill writes each layer's cache straight
 into its host block, so both paths decode from bitwise the same caches.
-(The JAX package prefills by decode, one step per prompt token.)
+(The JAX package prefills by decode, one step per prompt token.)  It serves
+every family whose requests are tokens alone; whisper's also carry frames,
+so :func:`check_generate_scope` refuses it.
 """
 from __future__ import annotations
 
@@ -45,6 +48,16 @@ class ServeConfig:
     def __post_init__(self):
         if self.temperature < 0.0:
             raise ValueError(f"temperature must be ≥ 0, got {self.temperature}")
+
+
+def check_generate_scope(cfg: ModelConfig) -> None:
+    """``generate`` takes a prompt of tokens alone: raise ``ValueError`` for
+    the encoder-decoder family, whose prefill needs the frames beside them
+    (the reference's ``generate`` decodes whisper from an empty cross cache
+    and fails)."""
+    if cfg.family == "encdec":
+        raise ValueError(f"{cfg.name}: generate takes tokens alone, and the encoder-decoder family needs frames "
+                         f"beside them: serve it by transformer.prefill({{'tokens', 'frames'}}) then decode_step")
 
 
 def make_kv_blocks(cfg: ModelConfig, B: int, cache_len: int, npart: int, dtype=torch.bfloat16,
@@ -127,6 +140,7 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, n_new: int, scfg: S
     layer into the host blocks), then each new token is one decode step.
     Returns ``[B, S0 + n_new]`` (prompt + generated).
     """
+    check_generate_scope(cfg)
     B, S0 = prompt.shape
     cache_len = cache_len or S0 + n_new
     dev = params["embed"].device

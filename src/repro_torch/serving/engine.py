@@ -284,10 +284,10 @@ class DecodeEngine:
 
     def __init__(self, cfg, params, *, n_new: int = 8, prompt_len: int = 8, serve=None,
                  buckets: Sequence[int] = (4,), kv_schedule: str = "serial", kv_prefetch: int = 1, device=None):
-        from repro_torch.models.transformer import check_offload_scope, check_supported
-        from repro_torch.serving.decode import ServeConfig
+        from repro_torch.models.transformer import check_offload_scope
+        from repro_torch.serving.decode import ServeConfig, check_generate_scope
 
-        check_supported(cfg)
+        check_generate_scope(cfg)
         self.serve = serve if serve is not None else ServeConfig()
         if self.serve.kv_offload:
             check_offload_scope(cfg)

@@ -267,5 +267,7 @@ def test_serve_cli_refusals(tmp_path, capsys):
     two_nts = json.dumps({"base": {"n_cases": 1}, "axes": {"nt": [8, 16]}})
     assert serve.main(["--device", "cpu", "--ckpt", ckpt, "--sweep", two_nts]) == 2
     assert "disagree on nt" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="mamba2"):
-        serve.main(["--device", "cpu", "--engine", "decode", "--arch", "mamba2-780m"])
+    # whisper needs frames beside its tokens: the decode engine refuses it, naming why
+    assert serve.main(["--device", "cpu", "--engine", "decode", "--arch", "whisper-small"]) == 2
+    err = capsys.readouterr().err
+    assert "--arch whisper-small" in err and "frames" in err and "decode_step" in err

@@ -46,8 +46,8 @@ from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from chip_smoke import (FLASH_CASES, FLASH_EDGE_CASES, _by_instance, flex_mods,  # noqa: E402  (the root's script)
-                        ptxas_report)
+from chip_smoke import (FLASH_CASES, FLASH_EDGE_CASES, FLASH_FAMILY_CASES,  # noqa: E402  (the root's script)
+                        _by_instance, flex_mods, ptxas_report)
 
 CASES = [
     (1, 2, 2, 64, 64, 32, True, None, None),
@@ -111,6 +111,36 @@ def test_ragged_sq_skv(sq, skv):
     np.testing.assert_allclose(_port(q, k, v, causal=True), ref, atol=3e-5)
     small = flash_attention_ref(*(torch.tensor(x) for x in (q, k, v)), causal=True, block_q=32, block_k=48)
     np.testing.assert_allclose(small.numpy(), ref, atol=3e-5)
+
+
+def _cpu_sized(case):
+    """A case as the CPU runs it: every head is computed alone (in the kernels,
+    the plain version and the oracle), so a case of more than 2^20 (q, k)
+    pairs a head keeps two of its query heads (and their KV heads) here."""
+    B, Hq, Hkv, Sq, Skv = case[:5]
+    if Sq * Skv < 2**20:
+        return case
+    return (B, 2, 2 * Hkv // Hq if Hq > Hkv else 2, *case[3:])
+
+
+@pytest.mark.parametrize("case", [_cpu_sized(c) for c in FLASH_FAMILY_CASES], ids=lambda c: "x".join(map(str, c[:10])))
+def test_family_cases_match_the_oracle(case):
+    """The shapes the SSM, hybrid, encoder-decoder and VLM families give the
+    kernel (whisper's non-causal encoder and cross attention, Sq > Skv, Sq 1;
+    internvl2's GQA group of 7; zamba2's dh 112): the plain version, also in
+    small blocks with ragged edges, against the oracle in fp32, and in bf16
+    on the same bf16 values (the Pallas kernel on these cases:
+    ``test_tf32x3_model_holds_the_fp32_tolerance``)."""
+    B, Hq, Hkv, Sq, Skv, dh, dv, causal, window, cap, _ = case
+    q, k, v = _inputs(Sq * 1000 + Skv, B, Hq, Hkv, Sq, Skv, dh, dv=dv)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    ref = np.asarray(attention_ref(*(jnp.asarray(x) for x in (q, k, v)), **kw))
+    np.testing.assert_allclose(_port(q, k, v, **kw), ref, rtol=0, atol=2e-5)
+    small = flash_attention_ref(*(torch.tensor(x) for x in (q, k, v)), block_q=320, block_k=448, **kw)
+    np.testing.assert_allclose(small.numpy(), ref, rtol=0, atol=2e-5)
+    qb, kb, vb = (_bf16(x).numpy() for x in (q, k, v))
+    ref16 = np.asarray(attention_ref(*(jnp.asarray(x) for x in (qb, kb, vb)), **kw))
+    np.testing.assert_allclose(_port(qb, kb, vb, torch.bfloat16, **kw), ref16, rtol=0, atol=2e-2)
 
 
 def test_head_dims_differ():
@@ -251,8 +281,9 @@ def test_flex_yardstick_computes_the_softcapped_function(window):
 # ---------------------------------------------------------------------------
 
 # (B, Hq, Hkv, Sq, Skv, dh, dv, causal, window, softcap): the cases chip_smoke.py
-# holds the fp32 kernel to on the card, their layout flag dropped
-KERNEL_CASES = [case[:10] for case in FLASH_CASES]
+# holds the fp32 kernel to on the card, their layout flag dropped (heads cut as
+# ``_cpu_sized`` cuts them)
+KERNEL_CASES = [_cpu_sized(case)[:10] for case in FLASH_CASES]
 
 
 def _tf32(x):
@@ -349,7 +380,8 @@ def test_tf32_rounding_and_split():
                          ids=lambda c: "x".join(map(str, c)))
 def test_tf32x3_model_holds_the_fp32_tolerance(case, one_thread):
     """The 3×TF32 arithmetic of the fp32 kernel within the reference's fp32
-    atol 2e-5 of the oracle and the Pallas kernel (interpret mode)."""
+    atol 2e-5 of the oracle and the Pallas kernel (interpret mode), and the
+    plain version beside it."""
     B, Hq, Hkv, Sq, Skv, dh, dv, causal, window, cap = case
     q, k, v = _inputs(Sq * 1000 + Skv, B, Hq, Hkv, Sq, Skv, dh, dv=dv)
     kw = dict(causal=causal, window=window, softcap=cap)
@@ -360,6 +392,7 @@ def test_tf32x3_model_holds_the_fp32_tolerance(case, one_thread):
     model = _tf32x3_flash(*(torch.tensor(x) for x in (q, k, v)), **kw).numpy()
     np.testing.assert_allclose(model, ref, rtol=0, atol=2e-5)
     np.testing.assert_allclose(model, pal, rtol=0, atol=2e-5)
+    np.testing.assert_allclose(_port(q, k, v, **kw), pal, rtol=0, atol=2e-5)
 
 
 def test_one_tf32_pass_misses_the_fp32_tolerance(monkeypatch, one_thread):

@@ -205,11 +205,26 @@ def test_sampling_is_seeded_and_greedy_is_exact():
 
 @pytest.mark.parametrize("name", ["mamba2-780m", "zamba2-7b", "whisper-small", "internvl2-1b"])
 def test_families_not_ported_raise(name):
-    cfg = ARCHS[name].reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_decode_state(cfg, 1, 8, device="cpu")
+    """The four families once refused are ported: ``init_params`` and
+    ``init_decode_state`` give the JAX package's trees, key for key, with
+    its shapes and dtypes (the reference's side abstract: shapes only)."""
+    from repro.models import layers as RL
+
+    ref_cfg, cfg = REF_ARCHS[name].reduced(), ARCHS[name].reduced()
+
+    def tree(t, shape):
+        return jax.tree_util.tree_map(lambda a: (tuple(a.shape), str(a.dtype).removeprefix("torch.")) if shape
+                                      else None, t)
+
+    with RL.abstract_params():
+        ref_params, _ = RT.init_params(ref_cfg, jax.random.key(0))
+    mine = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert tree(mine, True) == tree(ref_params, True)
+    ref_state = jax.eval_shape(lambda: RT.init_decode_state(ref_cfg, 2, 12, jnp.float32, enc_len=5))
+    state = T.init_decode_state(cfg, 2, 12, torch.float32, "cpu", enc_len=5)
+    assert state["pos"] == 0
+    del ref_state["pos"], state["pos"]
+    assert tree(state, True) == tree(ref_state, True)
 
 
 def test_configs_are_the_reference_configs():
@@ -235,8 +250,8 @@ def test_init_params_tree_matches_reference():
 
 def test_layers_match_reference():
     """Each layer function against its JAX counterpart on the same numpy
-    inputs, fp32, atol 1e-5 (the gelu MLP and layernorm included, which no
-    ported family reaches yet)."""
+    inputs, fp32, atol 1e-5 (the gelu MLP and layernorm included, which
+    whisper runs)."""
     from repro.models import layers as RL
     from repro_torch.models import layers as PL
 

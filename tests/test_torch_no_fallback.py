@@ -330,6 +330,35 @@ def test_family_entry_points_raise_without_a_card(name):
     assert all(t.device.type == "cpu" for k, c in state.items() if k != "pos" for t in c.values())
 
 
+@pytest.mark.parametrize("name", ["mamba2-780m", "zamba2-7b", "whisper-small", "internvl2-1b"])
+def test_ssm_hybrid_encdec_vlm_entry_points_raise_without_a_card(name):
+    """The SSM, hybrid, encoder-decoder and VLM families default to the card
+    too and raise without one; the CPU runs them only when asked for.  The
+    decode engine serves three of them (and internvl2's offloaded KV blocks
+    need the card too); whisper it refuses before any device, for the frames
+    its requests would need."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from repro_torch.serving import DecodeEngine
+
+    cfg = ARCHS[name].reduced()
+    calls = [lambda: T.init_params(cfg, torch.Generator().manual_seed(0)), lambda: T.init_decode_state(cfg, 1, 8)]
+    if name == "internvl2-1b":
+        calls.append(lambda: D.make_kv_blocks(cfg, 1, 8, 2))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    if name == "whisper-small":
+        with pytest.raises(ValueError, match="frames"):
+            DecodeEngine(cfg, params)
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            DecodeEngine(cfg, params)
+    state = T.init_decode_state(cfg, 1, 8, device="cpu", enc_len=3)
+    assert all(t.device.type == "cpu" for k, c in state.items() if k != "pos" for t in c.values())
+
+
 def _kset_ebe_args(k=2, E=3, N=5, dt=torch.float64):
     return (torch.zeros(k, N, 3, dtype=dt), torch.zeros(E, 10, dtype=torch.int32),
             torch.zeros(k, E, 4, 6, 6, dtype=dt), torch.zeros(E, 3, 3, dtype=dt), torch.zeros(E, 4, dtype=dt),

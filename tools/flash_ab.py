@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's flash attention kernel of one source tree on one CUDA card.
 
-    python3 tools/flash_ab.py TREE [--mma-peak]
+    python3 tools/flash_ab.py TREE [--mma-peak] [--flex]
     python3 tools/flash_ab.py TREE --dtype bf16 [--build-only]
     python3 tools/flash_ab.py --tanh-error
 
@@ -18,7 +18,12 @@ warm-up) and its largest difference from the plain version at three causal
 prefill shapes, S 4,096: qwen3-1.7b's heads (B 4, Hq 16, Hkv 8, dh 128),
 gemma2-2b's (B 2, Hq 8, Hkv 4, dh 256, window 4,096, softcap 50) and
 deepseek-v2's MLA heads (B 1, Hq = Hkv 16, dh 192, dv 128); each instance's
-registers and spill bytes.  With ``--mma-peak`` it also measures the rate of
+registers and spill bytes.  With ``--flex``, each softcapped shape (gemma2-2b)
+also times the one PyTorch call that computes its function in fp32,
+``flex_attention`` compiled with the softcap as its score_mod and the causal
+window as its block mask (``chip_smoke.flex_softcap``; full fp32 products,
+TF32 off), with its seconds to compile and its largest difference from the
+plain version.  With ``--mma-peak`` it also measures the rate of
 ``mma.sync.m16n8k8`` with TF32 operands and fp32 accumulators on this card: a
 loop of independent products in registers, at 4, 8 and 16 warps an SM and 4,
 8 and 16 products in flight a warp.
@@ -49,12 +54,13 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-from chip_smoke import _sass_ops, bf16_limit, wgmma_serialized  # noqa: E402  (this checkout's script)
+from chip_smoke import _sass_ops, bf16_limit, flex_softcap, wgmma_serialized  # noqa: E402  (this checkout's script)
 
 BF16_SHAPES = {  # B, Hq, Hkv, S, dh, dv, window, softcap, scale
     "qwen3-1.7b": (4, 16, 8, 4096, 128, 128, None, None, None),
@@ -246,7 +252,7 @@ def bf16_main(tree, out, build_only):
         del q, k, v
 
 
-def main(tree: str, peak: bool, dtype: str, build_only: bool) -> None:
+def main(tree: str, peak: bool, dtype: str, build_only: bool, flex: bool = False) -> None:
     sys.path.insert(0, os.path.join(tree, "src"))
     out = {"tree": tree, "device": torch.cuda.get_device_name(0), "dtype": dtype}
     if dtype == "bf16":
@@ -257,6 +263,7 @@ def main(tree: str, peak: bool, dtype: str, build_only: bool) -> None:
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version and flex_attention in full fp32
     _build.library()
     for name, (B, Hq, Hkv, dh, dv, window, cap) in SHAPES.items():
         g = torch.Generator(device=dev).manual_seed(3)
@@ -264,8 +271,19 @@ def main(tree: str, peak: bool, dtype: str, build_only: bool) -> None:
         k = torch.randn((B, Hkv, S, dh), device=dev, generator=g)
         v = torch.randn((B, S, Hkv, dv), device=dev, generator=g).transpose(1, 2)
         kw = dict(causal=True, window=window, softcap=cap)
-        err = float((fa_ops.flash_attention_cuda(q, k, v, **kw) - fa_ops.flash_attention_ref(q, k, v, **kw)).abs().max())
+        ref = fa_ops.flash_attention_ref(q, k, v, **kw)
+        err = float((fa_ops.flash_attention_cuda(q, k, v, **kw) - ref).abs().max())
         out[name] = {"ms": cuda_ms(lambda: fa_ops.flash_attention_cuda(q, k, v, **kw), 5), "max_abs_err": err}
+        if flex and cap is not None:
+            t0 = time.perf_counter()
+            lib = flex_softcap(dev, S, window, cap, None)
+            got = lib(q, k, v)
+            torch.cuda.synchronize()
+            out[name]["flex_attention"] = {"ms": cuda_ms(lambda: lib(q, k, v), 5),
+                                           "max_abs_err": float((got - ref).abs().max()),
+                                           "compile_and_first_call_s": time.perf_counter() - t0}
+            del got, lib
+        del ref
         del q, k, v
     for chunk in _build.ptxas_log().split("Compiling entry function '")[1:]:
         fa = re.search(r"flash_kernelILi(\d+)E", chunk.split("'", 1)[0])
@@ -292,4 +310,4 @@ if __name__ == "__main__":
     if dtype not in ("fp32", "bf16"):
         sys.exit(f"flash_ab: --dtype {dtype}: fp32 or bf16")
     tree = next(a for i, a in enumerate(args) if not a.startswith("--") and (i == 0 or args[i - 1] != "--dtype"))
-    main(tree, "--mma-peak" in args, dtype, "--build-only" in args)
+    main(tree, "--mma-peak" in args, dtype, "--build-only" in args, "--flex" in args)
