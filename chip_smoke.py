@@ -10,9 +10,10 @@ Phases, each followed by a JSON line with its seconds:
 1.  device     the card's name and power limit, as ``nvidia-smi`` reports them;
 2.  build      the CUDA kernels from ``src/repro_torch/csrc`` (registers and
                spills of every kernel instance, and whether ptxas serialised
-               a bf16 flash instance's wgmma; static SASS counts of the fp64
-               FEM kernels and of the bf16 flash instances' local-memory
-               traffic);
+               a bf16 flash instance's wgmma, and its blocks an SM
+               (cudaOccupancyMaxActiveBlocksPerMultiprocessor); static SASS
+               counts of the fp64 FEM kernels and of the bf16 flash
+               instances' local-memory traffic);
 3.  kernels    each kernel against its plain PyTorch version on the card:
                multispring in both dtypes, P ragged, flags exact, at the
                default and a non-default tangent floor; the EBE product
@@ -25,12 +26,15 @@ Phases, each followed by a JSON line with its seconds:
                dv not multiples of 8 (the padding step) and Sq 1 against
                4,096 keys, and the new families' shapes
                (``FLASH_FAMILY_CASES``: non-causal over 1,500 keys, a ragged
-               tail of 64-key tiles, with Sq 1,500, 100, 1 and Sq 200 > Skv
-               150; GQA at a group of 7; dh 112 inside (128, 128)); the
+               tail of key tiles, with Sq 1,500, 100, 1 and Sq 200 > Skv
+               150; GQA at a group of 7; dh 112 inside (128, 128); the
+               (64, 64) instance's 128-key tiles over 900 and 1,000 keys,
+               ragged, GQA, causal with a window and a softcap); the
                bf16 kernel's large-head instances at their edges (``FLASH_EDGE_CASES``: dh 160, dv 96 zero-filled inside
                the (192, 128) instance, softcapped scores far past the cap
                at D 256, MLA's heads with Sq < Skv) per value against the
-               plain version; the k-set entries (k members in one launch):
+               plain version; whisper-small's cross attention at B 8, each
+               row bitwise the row launched at B 1; the k-set entries (k members in one launch):
                EBE for k ∈ {1, 2, 3} in both dtypes (E 997 puts members off
                the bulk copies' 16-byte alignment) and multispring for k 2,
                each against its plain version and bitwise against k
@@ -268,6 +272,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, non-tensor-core for fp32/fp64)
 HBM_BYTES_PER_S = 3.35e12
+HOST_AHEAD_CYCLES = 20_000_000  # ~10 ms of the card's clock (1.98 GHz): cuda_ms's head start for the host
 PEAK_FLOPS = {"torch.float64": 34e12, "torch.float32": 67e12, "torch.bfloat16": 989e12,  # bf16: tensor cores
               "tf32x3": 495e12 / 3}  # fp32 work done as three TF32 products on the tensor cores (495 TFLOP/s)
 MS_OPS_PER_SPRING = 124  # counted from csrc/multispring.cu (pow as one op)
@@ -293,7 +298,9 @@ FLASH_CASES = [
 # the shapes the SSM, hybrid, encoder-decoder and VLM families give the kernel: non-causal
 # with a ragged tail over many key tiles (whisper's encoder, S 1,500), Sq < Skv (its cross
 # attention), Sq > Skv and Sq 1; GQA at a group of 7 (internvl2); dh 112 zero-filled
-# inside the (128, 128) instance (zamba2)
+# inside the (128, 128) instance (zamba2); then the (64, 64) instance's 128-key tiles over
+# long key ranges that end in a ragged tile: Sq 128 over 1,000 keys, GQA at Sq 64, and
+# causal with a window and a softcap, whose first tiles no row sees
 FLASH_FAMILY_CASES = [
     (1, 12, 12, 1500, 1500, 64, 64, False, None, None, True),
     (1, 4, 4, 100, 1500, 64, 64, False, None, None, True),
@@ -301,6 +308,9 @@ FLASH_FAMILY_CASES = [
     (1, 4, 4, 1, 1500, 64, 64, False, None, None, False),
     (1, 14, 2, 300, 300, 64, 64, True, None, None, True),
     (1, 4, 4, 300, 300, 112, 112, True, None, None, True),
+    (1, 4, 4, 128, 1000, 64, 64, False, None, None, True),
+    (2, 14, 2, 64, 900, 64, 64, False, None, None, True),
+    (1, 4, 2, 50, 1000, 64, 64, True, 100, 30.0, False),
 ]
 FLASH_CASES += FLASH_FAMILY_CASES
 FLASH_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
@@ -455,12 +465,17 @@ def require(cond, what):
 
 
 def cuda_ms(fn, reps):
-    """Device ms of one call of ``fn``: CUDA events around ``reps`` calls after a warm-up."""
+    """Device ms of one call of ``fn``: CUDA events around ``reps`` calls after
+    a warm-up.  The card first spins ~10 ms in a sleep kernel while the host
+    enqueues the calls, so that they run back to back: where one call's host
+    work outlasts its kernels (whisper's smallest attention shapes), the
+    events time the kernels and not the host."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOST_AHEAD_CYCLES)
     t0.record()
     for _ in range(reps):
         fn()
@@ -2431,6 +2446,37 @@ def kept_pairs(Sq, Skv, causal, window):
     return kept
 
 
+def flash_batch_check(dev):
+    """The bf16 kernel at whisper-small's cross attention (the (64, 64)
+    instance, B 8 × 12 heads, Sq 128 over 1,500 keys, non-causal, q, k and v
+    strided as the layer gives them): each batch row of the B 8 launch
+    bitwise the same row launched at B 1, and the launch within its limit of
+    the plain version."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    B, H, Sq, Skv, d = 8, 12, 128, 1500, 64
+    g = torch.Generator(device=dev).manual_seed(26)
+    q = torch.randn((B, Sq, H, d), device=dev, generator=g).bfloat16().transpose(1, 2)
+    k = torch.randn((B, Skv, H, d), device=dev, generator=g).bfloat16().transpose(1, 2)
+    v = torch.randn((B, Skv, H, d), device=dev, generator=g).bfloat16().transpose(1, 2)
+    before = fa_ops.wgmma_launch_counts()
+    whole = fa_ops.flash_attention_cuda(q, k, v, causal=False)
+    rows = [fa_ops.flash_attention_cuda(q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=False) for i in range(B)]
+    torch.cuda.synchronize()
+    ran = {inst: n - before[inst] for inst, n in fa_ops.wgmma_launch_counts().items() if n != before[inst]}
+    same = [bool(torch.equal(whole[i:i + 1], rows[i])) for i in range(B)]
+    ref32 = fa_ops.flash_attention_ref(q, k, v, causal=False).float()
+    ratio = float(((whole.float() - ref32).abs() / bf16_limit(ref32)).max())
+    out = {"check": "flash_batch", "B": B, "H": H, "Sq": Sq, "Skv": Skv, "launches_by_instance": str(ran),
+           "bitwise_b8_vs_b1": same, "err_over_limit": ratio}
+    require(ran == {(64, 64): B + 1}, f"the batch check launched the instances {ran}")
+    require(all(same), f"the bf16 kernel's rows depend on the batch: {same}")
+    require(ratio <= 1.0, f"the bf16 kernel disagrees with the plain version: {ratio} of its limit")
+    return out
+
+
 def family_flash_rows(dev, sdpa, launches):
     """timing's rows for the bf16 flash kernel at the families' prefill
     shapes (the instance ``wgmma_instance`` picks: (256, 256) for gemma2,
@@ -2547,7 +2593,8 @@ def main() -> int:
     with Phase("build"):
         lib = _build.build()
         _build.library()
-        emit({"registers_spills": ptxas_report(_build.ptxas_log())})
+        emit({"registers_spills": ptxas_report(_build.ptxas_log()),
+              "wgmma_blocks_per_sm": {wgmma_name(*inst): n for inst, n in fa_ops.wgmma_blocks_per_sm().items()}})
         emit({"sass_static_counts": sass_fp64_counts(lib, _build._nvcc())})
 
     def rel_err(a, b):
@@ -2705,6 +2752,7 @@ def main() -> int:
                   "limit": "2 ulp(|o|) + 2^-5 rms(o row)"})
             require(tuple(out_k.shape) == (B, Hq, Sq, dv), "flash output shape")
             require(ratio <= 1.0, f"flash_attention bf16 disagrees at {case}: {ratio} of its limit")
+        emit(flash_batch_check(dev))
 
     def wave_for(nt, dt):
         t = np.arange(nt) * dt

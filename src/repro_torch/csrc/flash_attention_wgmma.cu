@@ -18,16 +18,19 @@
 // softcap costs one SFU instruction: x · (scale / softcap), tanh.approx.f32,
 // · (softcap · log2 e); the PTX ISA bounds tanh.approx's relative error by
 // 2^-10.987 (an H100 measured 2^-16.46 at worst: tools/flash_ab.py).  The
-// large heads' loop keeps the running max in the units of the raw (or
-// tanh) score and takes p = 2^(u·c − m·c) in one FMA and one
-// ex2.approx.ftz: a rounding apart.
+// slim loop ((64, 64) and the large heads) keeps the running max in the
+// units of the raw (or tanh) score and takes p = 2^(u·c − m·c) in one FMA
+// and one ex2.approx.ftz: a rounding apart.
 //
 // What bounds it on an H100: operations, 2·B·Hq·(kept (q, k) pairs)·(dh + dv)
 // FLOP at the bf16 tensor-core rate against a few hundred MB of q, k, v and o:
 // qwen3-1.7b's causal prefill (B 4, Hq 16, S 4,096, dh 128) 0.28 ms,
 // gemma2-2b's global and local layers (B 2, Hq 8, S 8,192, dh 256) 0.556 and
-// 0.417 ms, deepseek-v2's MLA (B 1, Hq 128, S 2,048, dh 192, dv 128) 0.174.
-// Only wgmma reaches that rate, so both products run on it, TMA doing every load.
+// 0.417 ms, deepseek-v2's MLA (B 1, Hq 128, S 2,048, dh 192, dv 128) 0.174,
+// internvl2-1b's (B 4, Hq 14, S 4,096, dh 64) 0.122.  Only wgmma reaches
+// that rate, so both products run on it, TMA doing every load.  At dh = dv
+// = 64 a score costs 256 FLOP, and the SFU's ex2 (16 a clock an SM) takes as
+// long as the products: there every instruction a score counts.
 //
 // Instances (DK, DV) = (Q·Kᵀ's depth, P·V's width), picked by the binding's
 // wgmma_instance alone: (64, 64), (128, 128), (192, 128) for MLA's heads and
@@ -46,10 +49,24 @@
 // barriers), so one's softmax overlaps the other's products.  One thread
 // TMA-loads the q tiles once, then K and V tiles into a ring of stages, each
 // guarded by a full barrier for K, one for V and empty barriers that both
-// consumers release.  (64, 64) and (128, 128): 64-key tiles, 3 stages, a
-// producer warpgroup handing registers to the consumers (setmaxnreg 40/232),
-// K and V released together after P·V (128-key tiles or a producer warp
-// spilled or gained nothing: PERF.md).
+// consumers release.  (128, 128): 64-key tiles, 3 stages, a producer
+// warpgroup handing registers to the consumers (setmaxnreg 40/232), K and V
+// released together after P·V (128-key tiles or a producer warp spilled or
+// gained nothing: PERF.md).
+// (64, 64): the slim loop below, 128-key tiles (S 64 + P 32 + O 32
+//   registers in the producer warpgroup's budget of 168, no spill), 2 stages,
+//   40/232: half the tiles of 64 keys, so half the per-tile waits, barrier
+//   turns, quad shuffles and rescales of O (internvl2 −20%, whisper's encoder
+//   −15% against 64-key tiles on the slim loop).  Tried and dropped, in
+//   copies of this file (PERF.md): two blocks an SM, loading for themselves
+//   (256 threads, 125 registers: +21% over the slim loop's 64-key tiles) or
+//   with a producer at (384, 2) (80 registers: spilled and serialised,
+//   4×); three consumers (192 query rows: 64-key tiles +10% at internvl2,
+//   +37% at whisper's cross attention; 128-key tiles spill and serialise at
+//   128 registers); 96-key tiles; 3 stages; a head-major grid; splitting
+//   the keys of launches whose queries fit one block into spans merged by a
+//   second kernel (whisper's cross attention +48–75%: at one block an SM
+//   the spans run in more waves, and the merge reads every span's fp32 O).
 // The large heads.  ptxas plans the wgmma pipeline within the register
 // budget of the launch bound, not within the consumers' setmaxnreg count: at
 // 384 threads, 168 registers.  Where the accumulators and fragments in
@@ -116,7 +133,7 @@ constexpr float kNeg = -1e30f;
 // registers 0: no producer warpgroup, the consumers issue the loads
 // themselves in a block of two warpgroups, every thread keeping the
 // registers it launched with, which is the budget ptxas plans the wgmma
-// pipeline in); whether the consumer loop is the large heads' slim one (K
+// pipeline in); whether the consumer loop is the slim one (K
 // released as soon as Q·Kᵀ has read it, not with V after P·V, and loaded a
 // tile ahead of V by the kernel's `load`; an S tile's first k-step writing S
 // without reading it; the softcap decided once per launch, a loop compiled
@@ -134,7 +151,7 @@ struct Layout {
 // The instances, by (DK, DV): the depth of Q·Kᵀ (q and k's head dim) and the
 // width of P·V (v's); a head dim below an instance's is zero-filled by TMA.
 template <int DK, int DV> struct Inst;
-template <> struct Inst<64, 64> : Layout<64, 3, 40, 232, false, false> {};
+template <> struct Inst<64, 64> : Layout<128, 2, 40, 232, true, false> {};
 template <> struct Inst<128, 128> : Layout<64, 3, 40, 232, false, false> {};
 template <> struct Inst<192, 128> : Layout<64, 4, 24, 240, true, true> {};
 template <> struct Inst<256, 256> : Layout<80, 2, 0, 0, true, false> {};
@@ -285,6 +302,28 @@ __device__ __forceinline__ void wgmma_ss<80>(float* d, uint64_t da, uint64_t db,
 }
 
 template <>
+__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -382,6 +421,28 @@ __device__ __forceinline__ void wgmma_ss_fresh<80>(float* d, uint64_t da, uint64
         "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
         "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
         "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_fresh<128>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
       : "l"(da), "l"(db), "r"(0));
 }
 
@@ -805,6 +866,13 @@ bool make_map(CUtensorMap* map, const View& x, int B, int rows) {
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// the kernel's shared memory opted in: above 48 KB a launch needs it
+template <int DK, int DV>
+cudaError_t opt_in() {
+  return cudaFuncSetAttribute(flash_wgmma_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem_bytes<DK, DV>());
+}
+
 template <int DK, int DV>
 int launch(const View& q, const View& k, const View& v, void* out, int B, const Params& p, void* stream) {
   constexpr int smem = smem_bytes<DK, DV>();
@@ -814,14 +882,23 @@ int launch(const View& q, const View& k, const View& v, void* out, int B, const 
   if (!make_map(&tq, q, B, kRows) || !make_map(&tk, k, B, Inst<DK, DV>::kKeys) ||
       !make_map(&tv, v, B, Inst<DK, DV>::kKeys))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e =
-      cudaFuncSetAttribute(flash_wgmma_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t e = opt_in<DK, DV>();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int nq = (p.sq + kBQ - 1) / kBQ;
   const dim3 grid = Inst<DK, DV>::kHeadMajor ? dim3(nq, B * p.hq) : dim3(B * p.hq, nq);
   flash_wgmma_kernel<DK, DV><<<grid, Inst<DK, DV>::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DK, int DV>
+int blocks_per_sm() {
+  int n = 0;
+  cudaError_t e = opt_in<DK, DV>();
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flash_wgmma_kernel<DK, DV>, Inst<DK, DV>::kThreads,
+                                                      smem_bytes<DK, DV>());
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 bool aligned8(long long x) { return x % 8 == 0; }
@@ -851,4 +928,14 @@ extern "C" int flash_attention_wgmma_bf16(const void* q, const void* k, const vo
   if (inst_dk == 192 && inst_dv == 128) return launch<192, 128>(vq, vk, vv, out, B, p, stream);
   if (inst_dk == 256 && inst_dv == 256) return launch<256, 256>(vq, vk, vv, out, B, p, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Blocks of the instance (inst_dk, inst_dv) that fit on one SM at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); a CUDA error negated.
+extern "C" int flash_attention_wgmma_blocks_per_sm_bf16(int inst_dk, int inst_dv) {
+  if (inst_dk == 64 && inst_dv == 64) return blocks_per_sm<64, 64>();
+  if (inst_dk == 128 && inst_dv == 128) return blocks_per_sm<128, 128>();
+  if (inst_dk == 192 && inst_dv == 128) return blocks_per_sm<192, 128>();
+  if (inst_dk == 256 && inst_dv == 256) return blocks_per_sm<256, 256>();
+  return -static_cast<int>(cudaErrorInvalidValue);
 }

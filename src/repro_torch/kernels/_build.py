@@ -101,6 +101,8 @@ _ENTRY_POINTS = {
     # scale, causal, window (0: none), softcap (0: none), stream
     "flash_attention": (("f32",), _FLASH_ARGS),  # tensor cores, 3×TF32 mma.sync
     "flash_attention_wgmma": (("bf16",), _WGMMA_ARGS),  # tensor cores, TMA
+    # the bf16 kernel's instance (DK, DV): its blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+    "flash_attention_wgmma_blocks_per_sm": (("bf16",), [_I, _I]),
 }
 
 

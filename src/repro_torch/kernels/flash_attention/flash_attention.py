@@ -94,6 +94,19 @@ def pad_for_tma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return fit(q, dh), fit(k, dh), fit(v, dv)
 
 
+def wgmma_blocks_per_sm() -> dict[tuple[int, int], int]:
+    """Blocks of each wgmma instance that fit on one SM of the current card
+    at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``): registers,
+    shared memory and threads as each instance launches."""
+    from repro_torch.kernels import _build
+
+    lib = _build.library()
+    out = {inst: lib.flash_attention_wgmma_blocks_per_sm_bf16(*inst) for inst in WGMMA_INSTANCES}
+    for n in out.values():
+        _build.check(max(0, -n), "flash_attention blocks per SM")
+    return out
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                          window: int | None = None, softcap: float | None = None,
                          scale: float | None = None) -> torch.Tensor:

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 from repro_torch.kernels.flash_attention.flash_attention import (COUNTERS, ENTRY, WGMMA_COUNTERS, WGMMA_INSTANCES,
                                                                   counter, flash_attention_cuda, pad_for_tma,
-                                                                  tma_ready, tma_strides, wgmma_instance)
+                                                                  tma_ready, tma_strides, wgmma_blocks_per_sm,
+                                                                  wgmma_instance)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 
@@ -28,4 +29,5 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
 
 
 __all__ = ["flash_attention", "flash_attention_cuda", "flash_attention_ref", "pad_for_tma", "tma_ready", "tma_strides",
-           "wgmma_instance", "wgmma_launch_counts", "WGMMA_INSTANCES", "WGMMA_COUNTERS", "counter", "COUNTERS", "ENTRY"]
+           "wgmma_blocks_per_sm", "wgmma_instance", "wgmma_launch_counts", "WGMMA_INSTANCES", "WGMMA_COUNTERS",
+           "counter", "COUNTERS", "ENTRY"]

@@ -413,12 +413,13 @@ def test_one_tf32_pass_misses_the_fp32_tolerance(monkeypatch, one_thread):
 # ---------------------------------------------------------------------------
 
 def _layouts():
-    """Each instance of the wgmma kernel, (DK, DV) → keys per tile, from the source."""
+    """Each instance of the wgmma kernel, (DK, DV) → (keys per tile, whether
+    it runs the slim loop), from the source's ``Layout<...>``."""
     from repro_torch.kernels import _build
 
     text = (_build.CSRC / "flash_attention_wgmma.cu").read_text()
-    return {(int(dk), int(dv)): int(keys)
-            for dk, dv, keys in re.findall(r"struct Inst<(\d+), (\d+)> : Layout<(\d+),", text)}
+    return {(int(dk), int(dv)): (int(keys), slim == "true") for dk, dv, keys, slim in
+            re.findall(r"struct Inst<(\d+), (\d+)> : Layout<(\d+), \d+, \d+, \d+, (true|false)\b", text)}
 
 
 @pytest.mark.parametrize("dh,dv,want", [((32), 32, (64, 64)), (36, 20, (64, 64)), (128, 128, (128, 128)),
@@ -490,14 +491,17 @@ def _bf16_flash(q, k, v, *, causal=True, window=None, softcap=None, scale=None, 
     holding bf16 values): scores in fp32, scaled by scale·log2(e) or capped as
     (softcap·log2 e)·tanh(x·(scale/softcap)) with tanh moved by its bound in
     a checkerboard of signs over (query, key); the instance's key tiles in
-    order, p = 2^(x − m) in fp32, its bf16 rounding into P·V and the sum of
-    it unrounded; acc / (l + 1e-30) rounded to bf16."""
+    order, p = 2^(x − m) in fp32 (the slim loop's instances keep m in the
+    units of the raw or tanh score u and take p = 2^(u·c − m·c)), its bf16
+    rounding into P·V and the sum of it unrounded; acc / (l + 1e-30) rounded
+    to bf16."""
     B, Hq, Sq, dh = q.shape
     Hkv, Skv, dv = k.shape[1], k.shape[2], v.shape[3]
-    BN = _layouts()[fa.wgmma_instance(dh, dv)]
+    BN, slim = _layouts()[fa.wgmma_instance(dh, dv)]
     kk, vv = (x.repeat_interleave(Hq // Hkv, dim=1) for x in (k, v))
     scale = dh**-0.5 if scale is None else scale
     f32 = np.float32
+    c = float(f32(softcap * LOG2E)) if softcap else float(f32(scale * LOG2E))
     qpos = torch.arange(Sq) + Skv - Sq
     m = torch.full((B, Hq, Sq, 1), -1e30)
     l = torch.zeros((B, Hq, Sq, 1))
@@ -508,10 +512,9 @@ def _bf16_flash(q, k, v, *, causal=True, window=None, softcap=None, scale=None, 
         s = q @ kb.transpose(-1, -2)
         if softcap:
             sign = 1.0 - 2.0 * ((qpos[:, None] + kpos[None, :]) % 2)
-            t = torch.tanh(s * float(f32(scale / softcap))) * (1.0 + sign * tanh_err)
-            s = float(f32(softcap * LOG2E)) * t
-        else:
-            s = s * float(f32(scale * LOG2E))
+            s = torch.tanh(s * float(f32(scale / softcap))) * (1.0 + sign * tanh_err)
+        if not slim:
+            s = s * c
         ok = kpos[None, :] < Skv
         if causal:
             ok = ok & (kpos[None, :] <= qpos[:, None])
@@ -519,8 +522,12 @@ def _bf16_flash(q, k, v, *, causal=True, window=None, softcap=None, scale=None, 
             ok = ok & (qpos[:, None] - kpos[None, :] < window)
         s = torch.where(ok, s, -1e30)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        corr = torch.exp2(m - m_new)
-        p = torch.exp2(s - m_new)
+        if slim:  # a row masked so far takes p = 0
+            corr = torch.exp2((m - m_new) * c)
+            p = torch.exp2(s * c - torch.where(m_new == -1e30, 0.0, m_new * c))
+        else:
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new)
         l = l * corr + p.sum(-1, keepdim=True)
         acc = acc * corr + p.bfloat16().float() @ vb
         m = m_new
@@ -561,5 +568,30 @@ def test_bf16_model_with_approximate_tanh(case, tanh_err, one_thread):
                                             interpret=True, **kw), np.float32)
     model = _bf16_flash(q, k, v, tanh_err=tanh_err, **kw).numpy()
     assert model.shape == (B, Hq, Sq, dv)
+    np.testing.assert_allclose(model, ref, rtol=0, atol=2e-2)
+    np.testing.assert_allclose(model, pal, rtol=0, atol=2e-2)
+
+
+# (B, Hq, Hkv, Sq, Skv), non-causal, dh = dv = 64: whisper-small's cross attention cut
+# down, one query row and one consumer's 64 over keys that end in a ragged tile
+LONG_KEYS_MODEL_CASES = [(1, 2, 1, 1, 1000), (1, 2, 2, 64, 900)]
+
+
+@pytest.mark.parametrize("case", LONG_KEYS_MODEL_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_bf16_model_of_the_64_instance_over_long_keys(case, one_thread):
+    """The (64, 64) instance's arithmetic (its key tiles, the slim exponent)
+    over many key tiles, the last one ragged, within the reference's bf16
+    atol 2e-2 of the oracle and of the Pallas kernel (interpret mode) on the
+    same bf16 inputs."""
+    B, Hq, Hkv, Sq, Skv = case
+    keys, slim = _layouts()[fa.wgmma_instance(64, 64)]
+    assert slim and Skv // keys >= 4 and Skv % keys
+    q, k, v = (_bf16(x) for x in _inputs(Sq * 1000 + Skv, B, Hq, Hkv, Sq, Skv, 64))
+    jq, jk, jv = (jnp.asarray(x.numpy()) for x in (q, k, v))
+    ref = np.asarray(attention_ref(jq, jk, jv, causal=False))
+    pal = np.asarray(flash_attention_pallas(*(x.astype(jnp.bfloat16) for x in (jq, jk, jv)), tq=32, tk=128,
+                                            interpret=True, causal=False), np.float32)
+    model = _bf16_flash(q, k, v, causal=False).numpy()
+    assert model.shape == (B, Hq, Sq, 64)
     np.testing.assert_allclose(model, ref, rtol=0, atol=2e-2)
     np.testing.assert_allclose(model, pal, rtol=0, atol=2e-2)

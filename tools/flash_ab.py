@@ -2,7 +2,7 @@
 """Time the port's flash attention kernel of one source tree on one CUDA card.
 
     python3 tools/flash_ab.py TREE [--mma-peak] [--flex]
-    python3 tools/flash_ab.py TREE --dtype bf16 [--build-only]
+    python3 tools/flash_ab.py TREE --dtype bf16 [--build-only] [--d64] [--layout64 "KEYS, STAGES, ..."]
     python3 tools/flash_ab.py --tanh-error
 
 ``TREE`` is the root of a checkout (``.`` for this one, or another commit
@@ -28,20 +28,33 @@ plain version.  With ``--mma-peak`` it also measures the rate of
 loop of independent products in registers, at 4, 8 and 16 warps an SM and 4,
 8 and 16 products in flight a warp.
 
-``--dtype bf16``: the wgmma kernel (only its source is built) at the causal
-prefill shapes of the paths that run it: qwen3-1.7b (B 4 × 4,096, dh 128),
+``--dtype bf16``: the wgmma kernel (only its source is built) at the prefill
+shapes of the paths that run it: qwen3-1.7b (B 4 × 4,096, dh 128),
 mixtral-8x22b (B 2 × 6,144, Hq 48 over Hkv 8, window 4,096), gemma2-2b's
 local and global layers (B 2 × 8,192, Hq 8 over Hkv 4, dh 256, softcap 50,
 window 4,096 on the local one) and deepseek-v2's MLA (B 1 × 2,048, Hq = Hkv
-128, dh 192, dv 128, scale 192^-½): per shape the ms (10 launches after a
-warm-up), the softcapped shapes' ms without the softcap, and the largest
-error over its limit against the plain version (2 ulp(|o|) + 2^-5 of the
-row's rms, as ``chip_smoke.py`` holds it); per instance the registers, spill
-bytes and why ptxas serialised its wgmma, if it did, and from ``cuobjdump
--sass`` its instructions, ``HGMMA`` (wgmma), ``WARPGROUP`` (arrive and wait:
-two a group when pipelined, two a wgmma when serialised), ``LDL``/``STL``
-(spills) and ``MUFU``.  ``--build-only``
-builds and reports the instances without timing.
+128, dh 192, dv 128, scale 192^-½) and zamba2-7b's shared attention (B 2 ×
+4,096, Hq = Hkv 32, dh 112 inside the (128, 128) instance), all causal;
+and the (64, 64) instance's
+rows: internvl2-1b (B 4 × 4,096, Hq 14 over Hkv 2, causal), whisper-small's
+encoder (B 8 × 12 heads, 1,500 × 1,500), cross attention (128 × 1,500), both
+non-causal, and decoder (128 × 128, causal): per shape the ms (10 launches
+after a warm-up, timed as ``chip_smoke.py`` times its rows: CUDA events
+behind a sleep kernel that lets the host enqueue the calls ahead), SDPA's
+ms where it computes the function (no softcap), the softcapped shapes' ms
+without the softcap, and the largest error over its
+limit against the plain version (2 ulp(|o|) + 2^-5 of the row's rms, as
+``chip_smoke.py`` holds it); per instance the registers, spill bytes, why
+ptxas serialised its wgmma, if it did, its blocks an SM (where the tree's
+binding reports them), and from ``cuobjdump -sass`` its instructions,
+``HGMMA`` (wgmma), ``WARPGROUP`` (arrive and wait: two a group when
+pipelined, two a wgmma when serialised), ``LDL``/``STL`` (spills) and
+``MUFU``.  ``--build-only`` builds and reports the instances without timing;
+``--d64`` times the (64, 64) rows alone.  ``--layout64 "ARGS"`` measures
+a variant of the tree's (64, 64) instance: the tree's ``src`` copied into
+``build/flash_ab/`` with ``ARGS`` in place of the arguments of
+``Inst<64, 64>``'s ``Layout<...>`` in the kernel source (keys a tile,
+stages, producer and consumer registers, slim loop, head-major).
 
 ``--tanh-error``: the relative error of ``tanh.approx.f32`` (the bf16
 kernel's softcap) on this card against tanh in double, over every fp32 x in
@@ -60,14 +73,19 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-from chip_smoke import _sass_ops, bf16_limit, flex_softcap, wgmma_serialized  # noqa: E402  (this checkout's script)
+from chip_smoke import _sass_ops, bf16_limit, cuda_ms, flex_softcap, wgmma_serialized  # noqa: E402  (this checkout's)
 
-BF16_SHAPES = {  # B, Hq, Hkv, S, dh, dv, window, softcap, scale
-    "qwen3-1.7b": (4, 16, 8, 4096, 128, 128, None, None, None),
-    "mixtral-8x22b": (2, 48, 8, 6144, 128, 128, 4096, None, None),
-    "gemma2-2b local": (2, 8, 4, 8192, 256, 256, 4096, 50.0, None),
-    "gemma2-2b global": (2, 8, 4, 8192, 256, 256, None, 50.0, None),
-    "deepseek-v2 MLA": (1, 128, 128, 2048, 192, 128, None, None, 192**-0.5),
+BF16_SHAPES = {  # B, Hq, Hkv, Sq, Skv, dh, dv, causal, window, softcap, scale
+    "qwen3-1.7b": (4, 16, 8, 4096, 4096, 128, 128, True, None, None, None),
+    "mixtral-8x22b": (2, 48, 8, 6144, 6144, 128, 128, True, 4096, None, None),
+    "gemma2-2b local": (2, 8, 4, 8192, 8192, 256, 256, True, 4096, 50.0, None),
+    "gemma2-2b global": (2, 8, 4, 8192, 8192, 256, 256, True, None, 50.0, None),
+    "deepseek-v2 MLA": (1, 128, 128, 2048, 2048, 192, 128, True, None, None, 192**-0.5),
+    "zamba2-7b": (2, 32, 32, 4096, 4096, 112, 112, True, None, None, None),
+    "internvl2-1b": (4, 14, 2, 4096, 4096, 64, 64, True, None, None, None),
+    "whisper-small encoder": (8, 12, 12, 1500, 1500, 64, 64, False, None, None, None),
+    "whisper-small cross": (8, 12, 12, 128, 1500, 64, 64, False, None, None, None),
+    "whisper-small decoder": (8, 12, 12, 128, 128, 64, 64, True, None, None, None),
 }
 SHAPES = {  # fp32: B, Hq, Hkv, dh, dv, window, softcap
     "qwen3-1.7b": (4, 16, 8, 128, 128, None, None),
@@ -118,18 +136,6 @@ extern "C" int run_tanh(const float* x, float* y, int n, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 """
-
-
-def cuda_ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
 
 
 def mma_peak(tree, nvcc, arch):
@@ -214,15 +220,40 @@ def wgmma_report(log):
     return out
 
 
-def bf16_main(tree, out, build_only):
+def variant(tree, layout64):
+    """A copy of ``tree``'s ``src`` under ``build/flash_ab/`` with the (64, 64)
+    instance's ``Layout`` arguments rewritten to ``layout64``; returns the
+    copy's root."""
+    import hashlib
+    import shutil
+
+    tag = hashlib.sha256(f"{os.path.abspath(tree)} {layout64}".encode()).hexdigest()[:10]
+    root = os.path.join(ROOT, "build", "flash_ab", f"variant_{tag}")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(os.path.join(tree, "src"), os.path.join(root, "src"), ignore=shutil.ignore_patterns("__pycache__"))
+    path = os.path.join(root, "src", "repro_torch", "csrc", "flash_attention_wgmma.cu")
+    with open(path) as f:
+        text, n = re.subn(r"(struct Inst<64, 64> : Layout<)[^>]*(>)", rf"\g<1>{layout64}\g<2>", f.read())
+    if n != 1:
+        sys.exit(f"flash_ab: {path} has no single Inst<64, 64> to rewrite")
+    with open(path, "w") as f:
+        f.write(text)
+    return root
+
+
+def bf16_main(tree, out, build_only, only_d64=False):
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
     # only the wgmma kernel's source: the other kernels are not timed here
     _build.SOURCES = ("flash_attention_wgmma.cu",)
-    _build._ENTRY_POINTS = {"flash_attention_wgmma": _build._ENTRY_POINTS["flash_attention_wgmma"]}
+    _build._ENTRY_POINTS = {name: sig for name, sig in _build._ENTRY_POINTS.items()
+                            if name.startswith("flash_attention_wgmma")}
     _build.library()
     out["instances"] = wgmma_report(_build.ptxas_log())
+    if hasattr(fa_ops, "wgmma_blocks_per_sm"):
+        for (dk, dv), n in fa_ops.wgmma_blocks_per_sm().items():
+            out["instances"].setdefault(f"flash_wgmma_kernel<bf16, {dk}, {dv}>", {})["blocks_per_sm"] = n
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(_build.build())], capture_output=True, text=True, check=True).stdout
     for chunk in re.split(r"\n\s+Function : ", sass)[1:]:
@@ -235,16 +266,27 @@ def bf16_main(tree, out, build_only):
     if build_only:
         return
     dev = torch.device("cuda")
-    for name, (B, Hq, Hkv, S_, dh, dv, window, cap, scale) in BF16_SHAPES.items():
+    sdpa = torch.nn.functional.scaled_dot_product_attention  # the yardstick, never the port
+    for name, (B, Hq, Hkv, Sq, Skv, dh, dv, causal, window, cap, scale) in BF16_SHAPES.items():
+        if only_d64 and dh != 64:
+            continue
         g = torch.Generator(device=dev).manual_seed(5)
-        q = torch.randn((B, Hq, S_, dh), device=dev, generator=g).to(torch.bfloat16)
-        k = torch.randn((B, Hkv, S_, dh), device=dev, generator=g).to(torch.bfloat16)
-        v = torch.randn((B, S_, Hkv, dv), device=dev, generator=g).to(torch.bfloat16).transpose(1, 2)
-        kw = dict(causal=True, window=window, softcap=cap, scale=scale)
+        q = torch.randn((B, Hq, Sq, dh), device=dev, generator=g).to(torch.bfloat16)
+        k = torch.randn((B, Hkv, Skv, dh), device=dev, generator=g).to(torch.bfloat16)
+        v = torch.randn((B, Skv, Hkv, dv), device=dev, generator=g).to(torch.bfloat16).transpose(1, 2)
+        kw = dict(causal=causal, window=window, softcap=cap, scale=scale)
         ref = fa_ops.flash_attention_ref(q, k, v, **kw).float()
         ratio = float(((fa_ops.flash_attention_cuda(q, k, v, **kw).float() - ref).abs() / bf16_limit(ref)).max())
         del ref
         row = {"ms": cuda_ms(lambda: fa_ops.flash_attention_cuda(q, k, v, **kw), 10), "err_over_limit": ratio}
+        if cap is None:
+            if window is None:
+                lib = lambda: sdpa(q, k, v, is_causal=causal, scale=scale, enable_gqa=Hq != Hkv)  # noqa: E731
+            else:
+                i, j = torch.arange(Skv - Sq, Skv, device=dev)[:, None], torch.arange(Skv, device=dev)[None, :]
+                mask = (j <= i) & (i - j < window)
+                lib = lambda: sdpa(q, k, v, attn_mask=mask, scale=scale, enable_gqa=Hq != Hkv)  # noqa: E731
+            row["sdpa_ms"] = cuda_ms(lib, 10)
         if cap is not None:
             row["ms_without_softcap"] = cuda_ms(lambda: fa_ops.flash_attention_cuda(q, k, v, **dict(kw, softcap=None)),
                                                 10)
@@ -252,11 +294,15 @@ def bf16_main(tree, out, build_only):
         del q, k, v
 
 
-def main(tree: str, peak: bool, dtype: str, build_only: bool, flex: bool = False) -> None:
-    sys.path.insert(0, os.path.join(tree, "src"))
+def main(tree: str, peak: bool, dtype: str, build_only: bool, flex: bool = False, only_d64: bool = False,
+         layout64: str | None = None) -> None:
     out = {"tree": tree, "device": torch.cuda.get_device_name(0), "dtype": dtype}
+    if layout64 is not None:
+        out["layout64"] = layout64
+        tree = variant(tree, layout64)
+    sys.path.insert(0, os.path.join(tree, "src"))
     if dtype == "bf16":
-        bf16_main(tree, out, build_only)
+        bf16_main(tree, out, build_only, only_d64)
         print(json.dumps(out), flush=True)
         return
     from repro_torch.kernels import _build
@@ -309,5 +355,7 @@ if __name__ == "__main__":
     dtype = args[args.index("--dtype") + 1] if "--dtype" in args else "fp32"
     if dtype not in ("fp32", "bf16"):
         sys.exit(f"flash_ab: --dtype {dtype}: fp32 or bf16")
-    tree = next(a for i, a in enumerate(args) if not a.startswith("--") and (i == 0 or args[i - 1] != "--dtype"))
-    main(tree, "--mma-peak" in args, dtype, "--build-only" in args, "--flex" in args)
+    layout64 = args[args.index("--layout64") + 1] if "--layout64" in args else None
+    tree = next(a for i, a in enumerate(args) if not a.startswith("--")
+                and (i == 0 or args[i - 1] not in ("--dtype", "--layout64")))
+    main(tree, "--mma-peak" in args, dtype, "--build-only" in args, "--flex" in args, "--d64" in args, layout64)
