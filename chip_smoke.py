@@ -141,7 +141,34 @@ Phases, each followed by a JSON line with its seconds:
                3,840 tokens: 24 of (64, 64)); 32 new tokens each: prefill s
                (first and warm), tokens/s, decode tokens/s,
                peak device bytes, parameters and launches per model;
-18. serve_check  the serving tier small, card against the port on the CPU:
+18. train_cpu  one train step on the card against the port on the CPU,
+               fp32, remat: qwen3-1.7b at full width, 2 layers, B 1 × 256,
+               and every other family at its reduced config with its
+               frontend input (B 2 × 32): the loss within 1e-5 relative,
+               each gradient leaf within 1e-4·max|g|, AdamW on the CPU's
+               gradients within 1e-6·max on both; the fp32 flash kernel
+               twice a layer (the forward and the backward's recompute);
+               then qwen3's case in bf16, the (128, 128) kernel twice a
+               layer: the loss within 1e-4 relative and each leaf within
+               5e-2·max|g| of the CPU's, and the card's distance from the
+               fp32 step at most twice the CPU's;
+19. train_main qwen3-1.7b whole (28 layers), bf16 over fp32 parameters,
+               B 2 × 4,096 from ``data.batches`` through the
+               ``Prefetcher``: AdamW alone on one step's gradients, resident
+               and offloaded (8 pinned blocks, ``serial`` and ``prefetch``),
+               bitwise equal, with each warm apply's ms; then 3 train steps
+               resident, again resident, offloaded serial and offloaded
+               prefetch from the same params and batches — s per step,
+               tokens/s, peak device bytes, pinned moment bytes, 56 launches
+               of the bf16 (128, 128) instance a step, the device's busy
+               share and top ops (``torch.profiler``, the last step); the
+               offloaded runs bitwise the resident one where two resident
+               runs are (else within their spread); then the checks of
+               the train CLI, whose processes run from before train_cpu
+               (reduced qwen3, 30 steps, a checkpoint every 10: the nll at
+               step 20 below step 0's; killed after a checkpoint and
+               relaunched, it resumes);
+20. serve_check  the serving tier small, card against the port on the CPU:
                ``SurrogateEngine`` and ``TrajectoryEngine`` (two members each;
                y within 1e-5·max|y|, score within 1e-5, equal signatures),
                batched ≡ per-request bitwise, ``ShardedEngine`` ≡ its engine
@@ -155,7 +182,7 @@ Phases, each followed by a JSON line with its seconds:
                the surrogate one with a repeat, feedback at threshold 0 and an
                injected failure, its health counts and feedback records the
                CPU run's;
-19. serve_main the servers at full width through ``MicroBatcher`` with a
+21. serve_main the servers at full width through ``MicroBatcher`` with a
                ``ResultCache``: (a) the CNN+LSTM ensemble (surrogate_main's
                trained member and a second from ``init_params``) through
                ``save_surrogate`` → ``SurrogateEngine.from_checkpoint`` on 16
@@ -169,7 +196,7 @@ Phases, each followed by a JSON line with its seconds:
                offloaded KV ≡ resident tokens; then the serve CLI at full
                width.  Per server: requests/s, infer ms a batch, wait ms, cache
                hits, peak device bytes, tokens/s;
-20. plan_check the planning and scheduling layer at crs_check's mesh, 12
+22. plan_check the planning and scheduling layer at crs_check's mesh, 12
                springs, on the card against the port on the CPU: ``run_plan`` of
                a two-group sweep (soil axis, 2 cases a scenario, 6 steps,
                tuned by the model) within 1e-6·max|v| with equal manifests
@@ -181,13 +208,13 @@ Phases, each followed by a JSON line with its seconds:
                --train-while-generating`` (both workers rc 0, the queue
                settled, the trainer's validation MAE); ``--scenarios`` over
                ``serve_check``'s feedback log, its shards read back with CRCs;
-21. kset_main  Proposed 2 as 2SET at main's mesh and 150 springs: two cases,
+23. kset_main  Proposed 2 as 2SET at main's mesh and 150 springs: two cases,
                θ of both resident on the card (2 × 7.08 GB), 4 steps of
                ``run_ensemble``, against each case alone in the same resident
                form (s/step, iterations, parts, peak device memory); one
                k-set multispring launch per step and one k-set EBE launch per
                matvec; lanes ≡ the single runs within 1e-6·max|v|;
-22. campaign_main  the campaign at full width through ``run_campaign(...,
+24. campaign_main  the campaign at full width through ``run_campaign(...,
                device=None)`` (kset_main's 2SET carry parked on the host):
                (a) Proposed 2, kset 2, M 3 (two rounds, the tail padded), 4
                steps, unguarded and guarded — per chunk s/step per case, peak
@@ -197,7 +224,7 @@ Phases, each followed by a JSON line with its seconds:
                is 14.16 GB), stopped after step 2 and resumed, bitwise (a)'s
                guarded round 0, with each checkpoint's bytes and seconds to
                copy, write, CRC and restore, and the free disk before;
-23. campaign_mp  the multi-process campaign through the CLI
+25. campaign_mp  the multi-process campaign through the CLI
                (``python -m repro_torch.launch.campaign``, one process each)
                at main's size: Proposed 2, 150 springs, k 1, 5 waves of 4
                steps, a checkpoint every 2; one process as the reference,
@@ -210,7 +237,7 @@ Phases, each followed by a JSON line with its seconds:
                chunk s/step per case and peak device bytes, checkpoint bytes
                and seconds, cases/s and the pair's summed rate against one
                process's;
-24. timing     each kernel at the shapes its main path gives it, against its
+26. timing     each kernel at the shapes its main path gives it, against its
                plain version, its bound and (flash) SDPA, with flash held in
                fp32 and bf16 there too and timed in both (fp32 against the
                3×TF32 bound and the fp32 cores' bound, also at gemma2-2b's
@@ -238,7 +265,7 @@ Phases, each followed by a JSON line with its seconds:
                ``torch.nn.LSTM`` (cuDNN) at B 4, T 4,000, H 1,024, forward and
                forward + backward, and ``ssm_scan`` against its loop at T ∈
                {256, 1,024, 4,096, 16,000} (``{"outside_pallas": [...]}``);
-25. plan_main  the planning and scheduling layer at main's size, 150 springs,
+27. plan_main  the planning and scheduling layer at main's size, 150 springs,
                with a calibration table written from ``timing``'s own kernel
                times (the multispring block and the fp64 EBE product as
                backend ``cuda``, their plain versions as ``torch``): (a) the
@@ -259,10 +286,12 @@ then exits non-zero before the last line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -336,14 +365,6 @@ def bf16_limit(ref32):
 
     ulp = torch.where(ref32 == 0, 0.0, torch.ldexp(torch.ones_like(ref32), torch.frexp(ref32)[1] - 8))
     return 2 * ulp + 2**-5 * ref32.pow(2).mean(-1, keepdim=True).sqrt()
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def _tree_to(tree, device):
@@ -492,6 +513,463 @@ def bound(nbytes_, flops, dt):
     """The least ms the card could take: bytes over its memory rate or operations over its peak rate."""
     t_bytes, t_ops = nbytes_ / HBM_BYTES_PER_S, flops / PEAK_FLOPS[str(dt)]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+# the families other than qwen3 in train_cpu, each at its reduced config
+TRAIN_FAMILIES = ("granite-8b", "gemma2-2b", "mixtral-8x22b", "deepseek-v2-236b", "mamba2-780m", "zamba2-7b",
+                  "whisper-small", "internvl2-1b")
+TRAIN_NPART = 8  # train_main's moment blocks in pinned host memory
+# train_cpu's bf16 step, card against CPU: relative to the CPU's loss, and to max|g| per leaf
+# (readings on an H100 at 700 W: 2.5e-5 and 1.7e-2, the embedding's gradient)
+TRAIN_BF16_TOL = {"loss": 1e-4, "grad": 5e-2}
+
+
+def _train_batch(cfg, B, S, device, seed=0):
+    """One ``data.batches`` batch of ``cfg`` (its frontend input included) on ``device``."""
+    import torch
+    from repro_torch.training import data as D
+
+    b = next(D.batches(D.DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=seed,
+                                    frontend=cfg.frontend, d_model=cfg.d_model,
+                                    n_frontend_tokens=cfg.n_frontend_tokens)))
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def _worst_leaf(got, want):
+    """(max over leaves of max|got − want| / max|want|, its leaf) for two trees of tensors."""
+    from repro_torch.utils.tree import leaves_with_paths
+
+    worst = (0.0, None)
+    for (path, a), (_, b) in zip(leaves_with_paths(got), leaves_with_paths(want)):
+        b = b.float()
+        err = float((a.float().to(b.device) - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        worst = max(worst, (err, path), key=lambda x: x[0])
+    return worst
+
+
+def train_cpu(dev):
+    """qwen3-1.7b at full width, 2 layers, fp32, B 1 × 256, and every other
+    family at its reduced config (B 2 × 32, its frontend input): the loss
+    and the gradient of one train step on the card against the port on the
+    CPU on the same weights and batch (1e-5 relative; each leaf within
+    1e-4·max|g|), and AdamW on the CPU's gradients on both (params and
+    moments within 1e-6·max).  With remat the backward recomputes each
+    block, so the fp32 flash kernel runs twice a layer: twice what one
+    ``forward`` under ``no_grad`` launches.  Then qwen3's case again in
+    bf16 (:func:`_train_bf16`).  → the step's fp32 launches by model, and
+    the bf16 step's launches."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as OPT, train_step as TS
+
+    qwen = ARCHS["qwen3-1.7b"]
+    cases = [(dataclasses.replace(qwen, n_layers=2, dtype="float32"), 1, 256)]
+    cases += [(ARCHS[name].reduced(), 2, 32) for name in TRAIN_FAMILIES]
+    launches = {}
+    for cfg, B, S in cases:
+        tcfg = TS.TrainConfig()
+        loss_fn = TS.make_loss_fn(cfg, tcfg)
+        p_cpu = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        p_gpu = _tree_to(p_cpu, dev)
+        b_cpu = _train_batch(cfg, B, S, "cpu")
+        b_gpu = {k: v.to(dev) for k, v in b_cpu.items()}
+        m_cpu, g_cpu = TS.value_and_grad(loss_fn, p_cpu, b_cpu)
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            T.forward(p_gpu, cfg, b_gpu)
+        fwd = kernels.instance_counts()
+        kernels.reset_launch_counts()  # the train step's launches alone
+        m_gpu, g_gpu = TS.value_and_grad(loss_fn, p_gpu, b_gpu)
+        torch.cuda.synchronize()
+        step_launches = kernels.instance_counts()
+        loss_rel = abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+        grad_err, grad_leaf = _worst_leaf(g_gpu, g_cpu)
+        # AdamW on the same (the CPU's) gradients on both devices, clipping on
+        st_cpu = OPT.adamw_init(p_cpu, tcfg.adamw)
+        st_gpu = OPT.adamw_init(p_gpu, tcfg.adamw)
+        new_cpu, st_cpu = OPT.adamw_apply(g_cpu, p_cpu, st_cpu, tcfg.adamw)
+        new_gpu, st_gpu = OPT.adamw_apply(_tree_to(g_cpu, dev), p_gpu, st_gpu, tcfg.adamw)
+        adamw_err = max(_worst_leaf(new_gpu, new_cpu)[0], _worst_leaf(st_gpu.moments, st_cpu.moments)[0])
+        emit({"check": "train_gpu_vs_cpu", "arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype, "B": B,
+              "S": S, "loss_cpu": float(m_cpu["loss"]), "loss_gpu": float(m_gpu["loss"]), "loss_rel_err": loss_rel,
+              "grad_worst_rel_err": grad_err, "grad_worst_leaf": grad_leaf, "adamw_worst_rel_err": adamw_err,
+              "tol": {"loss": 1e-5, "grad": 1e-4, "adamw": 1e-6},
+              "flash_launches_forward": fwd, "flash_launches_train_step": step_launches})
+        require(fwd["flash_attention_bf16"] == 0 and step_launches["flash_attention_bf16"] == 0,
+                f"{cfg.name}: fp32 training launched the bf16 flash kernel")
+        require(step_launches["flash_attention_f32"] == 2 * fwd["flash_attention_f32"],
+                f"{cfg.name}: the train step's fp32 flash launches {step_launches}, not twice a forward's {fwd}")
+        require(fwd["flash_attention_f32"] == flash_per_pass(cfg),
+                f"{cfg.name}: forward's flash launches {fwd}, not {flash_per_pass(cfg)}")
+        require(loss_rel <= 1e-5, f"{cfg.name}: training loss on the card differs from the CPU: {loss_rel}")
+        require(grad_err <= 1e-4, f"{cfg.name}: gradient {grad_leaf} on the card differs from the CPU: {grad_err}")
+        require(adamw_err <= 1e-6, f"{cfg.name}: AdamW on the card differs from the CPU: {adamw_err}")
+        launches[cfg.name] = step_launches["flash_attention_f32"]
+        if cfg is cases[0][0]:
+            ref32 = float(m_cpu["loss"]), g_cpu  # the bf16 step below is held to these
+        del p_cpu, p_gpu, g_cpu, g_gpu, new_cpu, new_gpu, st_cpu, st_gpu
+    return launches, _train_bf16(dev, dataclasses.replace(cases[0][0], dtype="bfloat16"), *cases[0][1:], *ref32)
+
+
+def _train_bf16(dev, cfg, B, S, loss32, g32):
+    """The bf16 train step that train_main times, small: ``cfg`` (qwen3's
+    two layers at full width, bf16 over the fp32 parameters of train_cpu's
+    first case, its batch), on the card and on the CPU.  The card runs the
+    bf16 (128, 128) kernel under ``FlashAttentionFn``, twice a layer; the
+    CPU its plain version.  Held: the card's loss and each gradient leaf
+    against the CPU's (``TRAIN_BF16_TOL``), and the card's distance from
+    the fp32 step (``loss32``, ``g32``) at most twice the CPU's, leaf by
+    leaf at the worst.  → the step's bf16 launches."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import transformer as T
+    from repro_torch.training import train_step as TS
+
+    loss_fn = TS.make_loss_fn(cfg, TS.TrainConfig())
+    p_cpu = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    p_gpu = _tree_to(p_cpu, dev)
+    b_cpu = _train_batch(cfg, B, S, "cpu")
+    b_gpu = {k: v.to(dev) for k, v in b_cpu.items()}
+    m_cpu, g_cpu = TS.value_and_grad(loss_fn, p_cpu, b_cpu)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        T.forward(p_gpu, cfg, b_gpu)
+    fwd = kernels.instance_counts()
+    kernels.reset_launch_counts()
+    m_gpu, g_gpu = TS.value_and_grad(loss_fn, p_gpu, b_gpu)
+    torch.cuda.synchronize()
+    step_launches = kernels.instance_counts()
+    loss_cpu, loss_gpu = float(m_cpu["loss"]), float(m_gpu["loss"])
+    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    grad_err, grad_leaf = _worst_leaf(g_gpu, g_cpu)
+    cpu_vs32, gpu_vs32 = _worst_leaf(g_cpu, g32), _worst_leaf(g_gpu, g32)
+    loss_cpu_vs32, loss_gpu_vs32 = abs(loss_cpu - loss32) / abs(loss32), abs(loss_gpu - loss32) / abs(loss32)
+    emit({"check": "train_bf16_gpu_vs_cpu", "arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype, "B": B,
+          "S": S, "loss_cpu": loss_cpu, "loss_gpu": loss_gpu, "loss_fp32": loss32, "loss_rel_err": loss_rel,
+          "grad_worst_rel_err": grad_err, "grad_worst_leaf": grad_leaf,
+          "loss_rel_err_vs_fp32": {"cpu": loss_cpu_vs32, "gpu": loss_gpu_vs32},
+          "grad_worst_rel_err_vs_fp32": {"cpu": cpu_vs32, "gpu": gpu_vs32}, "tol": TRAIN_BF16_TOL,
+          "flash_launches_forward": fwd, "flash_launches_train_step": step_launches})
+    require(fwd["flash_attention_f32"] == 0 and step_launches["flash_attention_f32"] == 0,
+            "bf16 training launched the fp32 flash kernel")
+    require(fwd["flash_attention_bf16"] == flash_per_pass(cfg)
+            and step_launches["flash_attention_bf16"] == 2 * fwd["flash_attention_bf16"],
+            f"bf16 train step's flash launches {step_launches}, not twice a forward's {fwd}")
+    require(loss_rel <= TRAIN_BF16_TOL["loss"], f"bf16 training loss on the card differs from the CPU: {loss_rel}")
+    require(grad_err <= TRAIN_BF16_TOL["grad"],
+            f"bf16 gradient {grad_leaf} on the card differs from the CPU: {grad_err}")
+    require(loss_gpu_vs32 <= 2 * loss_cpu_vs32 + 1e-6,
+            f"bf16 loss on the card is {loss_gpu_vs32} from fp32's, the CPU's {loss_cpu_vs32}")
+    require(gpu_vs32[0] <= 2 * cpu_vs32[0],
+            f"bf16 gradients on the card are {gpu_vs32} from fp32's, the CPU's {cpu_vs32}")
+    return step_launches["flash_attention_bf16"]
+
+
+def _pinned(tree):
+    """A pinned host copy of a (nested dict) tree of tensors."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _pinned(v) for k, v in tree.items()}
+    return torch.empty(tree.shape, dtype=tree.dtype, pin_memory=True).copy_(tree)
+
+
+def _equal_to_host(tree, host):
+    """Every leaf of ``tree`` bitwise its host copy's in ``host``."""
+    import torch
+
+    from repro_torch.utils.tree import tree_leaves
+
+    return all(torch.equal(x, h.to(x.device)) for x, h in zip(tree_leaves(tree), tree_leaves(host)))
+
+
+def _max_diff_to_host(tree, host):
+    from repro_torch.utils.tree import tree_leaves
+
+    pairs = zip(tree_leaves(tree), tree_leaves(host))
+    return max(float((x.float() - h.to(x.device).float()).abs().max()) for x, h in pairs)
+
+
+def _device_profile(prof, step_s, profiled_s):
+    """The device's time in one profiled step (kernels and copies, ms), its
+    share of an unprofiled step of ``step_s`` (the busy share; the profiled
+    step's ``profiled_s`` carries the profiler's host overhead) and the top
+    device ops."""
+    # the raw device events (tens of thousands a step): key_averages() would
+    # spend ~10 s building its tables
+    by_name, n_ops = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA"):
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + e.duration_ns() / 1e6
+            n_ops += 1
+    device_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"device_ms": device_ms, "device_busy_share": device_ms / (step_s * 1e3), "profiled_step_s": profiled_s,
+            "device_ops": n_ops, "top_device_ops_ms": {k[:120]: ms for k, ms in top}}
+
+
+def _adamw_apply_timed(apply, *args):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = apply(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def train_main(dev, params, cfg, cli):
+    """qwen3-1.7b whole (``params``: lm_main's fp32 parameters on the host;
+    every run starts from a device copy of them),
+    bf16 compute, B 2 × 4,096 from ``data.batches`` through the
+    ``Prefetcher``.  First the train CLI's checks (:func:`train_cli_check`:
+    its processes started before ``train_cpu`` and end before anything here
+    is timed).  (1) AdamW alone on the gradients of one short batch, twice
+    (the second from non-zero moments): resident, offloaded ``serial`` and
+    ``prefetch`` (8 pinned blocks) — params and both moments bitwise equal,
+    and each warm apply's ms.  (2) 3 train steps each: resident, resident
+    again, offloaded serial, offloaded prefetch, from the same params and
+    batches — s per step (first, warm), tokens/s, peak device bytes, pinned
+    host bytes of the moments, bf16 (128, 128) launches a step (2 × 28),
+    the device's busy share and top ops over the last step
+    (``torch.profiler``).  If the two resident runs are bitwise equal, every
+    run must be bitwise the resident one; else the offloaded runs are held
+    to the resident run-to-run spread.  → the bf16 flash launches of
+    (1) and (2)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import hetmem, offload as O
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.training import data as D, optimizer as OPT, train_step as TS
+    from repro_torch.utils.tree import tree_leaves
+
+    B, S, STEPS = 2, 4096, 3
+    dcfg = D.DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)
+    tokens = B * S
+    t_start = time.perf_counter()
+    train_cli_check(cli)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    inst = (128, 128)  # qwen3's heads: dh 128
+
+    marks = {}
+    t_mark = t_start
+
+    def mark(name):
+        nonlocal t_mark
+        torch.cuda.synchronize()
+        marks[name] = time.perf_counter() - t_mark
+        t_mark = time.perf_counter()
+
+    # (1) AdamW alone on the same gradients (of one short batch: the update's
+    # cost and bits depend on the gradients' shapes, not their batch)
+    tcfg = TS.TrainConfig()
+    host_params, params = params, _tree_to(params, dev)
+    pf = D.Prefetcher(D.batches(dataclasses.replace(dcfg, seq_len=512, global_batch=1)), depth=1, device=dev)
+    _, grads = TS.value_and_grad(TS.make_loss_fn(cfg, tcfg), params, next(pf))
+    pf.close()
+    mark("gradients_s")
+    adamw_ms = {}
+    st = OPT.adamw_init(params, tcfg.adamw)
+    (p1, st1), _ = _adamw_apply_timed(OPT.adamw_apply, grads, params, st, tcfg.adamw)
+    del st
+    (p_res, st_res), adamw_ms["resident"] = _adamw_apply_timed(OPT.adamw_apply, grads, p1, st1, tcfg.adamw)
+    del p1, st1
+    adamw_equal, host_bytes = {}, {}
+    for schedule in ("serial", "prefetch"):
+        off = O.OffloadConfig(optimizer_state=True, optimizer_npart=TRAIN_NPART)
+        st = O.offloaded_adamw_init(params, tcfg.adamw, off)
+        apply = lambda g, p, s: O.offloaded_adamw_apply(g, p, s, tcfg.adamw, schedule=schedule)  # noqa: E731
+        mark(f"offloaded_init_{schedule}_s")
+        (p1, st), _ = _adamw_apply_timed(apply, grads, params, st)
+        (p2, st), adamw_ms[f"offloaded_{schedule}"] = _adamw_apply_timed(apply, grads, p1, st)
+        del p1
+        pinned = all(hetmem.is_pinned_host(x) for blk in st.moments.blocks for x in blk)
+        host_bytes[schedule] = sum(x.numel() * x.element_size() for blk in st.moments.blocks for x in blk)
+        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(p2), tree_leaves(p_res)))
+        same = same and all(torch.equal(a.to(dev), b) for a, b in zip(tree_leaves(O.moments_tree(st)),
+                                                                      tree_leaves(st_res.moments)))
+        adamw_equal[schedule] = same
+        require(pinned, f"offloaded AdamW ({schedule}): the moment blocks are not pinned host tensors")
+        del p2, st
+        mark(f"offloaded_{schedule}_applies_and_compare_s")
+    emit({"check": "train_adamw_offloaded_vs_resident", "arch": cfg.name, "npart": TRAIN_NPART,
+          "bitwise_params_and_moments": adamw_equal, "adamw_ms_warm": adamw_ms,
+          "moments_pinned_host_bytes": host_bytes["serial"]})
+    for schedule, same in adamw_equal.items():
+        require(same, f"offloaded AdamW ({schedule}) differs from the resident one on the same gradients")
+    del grads, p_res, st_res, params
+    launches = fa_ops.wgmma_launch_counts()[inst]
+    torch.cuda.empty_cache()  # each run below starts from the same free memory
+
+    # (2) whole train steps
+    runs = {"resident": O.OffloadConfig(), "resident_repeat": O.OffloadConfig(),
+            "offloaded_serial": O.OffloadConfig(optimizer_state=True, optimizer_npart=TRAIN_NPART),
+            "offloaded_prefetch": O.OffloadConfig(optimizer_state=True, optimizer_npart=TRAIN_NPART,
+                                                  optimizer_schedule="prefetch")}
+    results = {}
+    ref_host = ref_losses = None
+    for name, off in runs.items():
+        tcfg = TS.TrainConfig(offload=off)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mark(f"{name}_before_s")
+        params = _tree_to(host_params, dev)
+        opt = TS.init_train_state(cfg, tcfg, params)
+        step = TS.make_train_step(cfg, tcfg)
+        pf = D.Prefetcher(D.batches(dcfg), depth=2, device=dev)
+        mark(f"{name}_init_s")
+        p, secs, waits, losses = params, [], [], []
+        fa_ops.counter.reset()
+        for i in range(STEPS):
+            batch = next(pf)
+            waits.append(pf.last_wait_s)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) if i == STEPS - 1
+                  else contextlib.nullcontext()) as prof:
+                p, opt, m = step(p, opt, batch)
+                torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        pf.close()
+        per_step = {f"{dk}x{dv}": n / STEPS for (dk, dv), n in fa_ops.wgmma_launch_counts().items() if n}
+        f32 = fa_ops.COUNTERS[torch.float32].n
+        launches += fa_ops.wgmma_launch_counts()[inst]
+        r = {"run": name, "steps": STEPS, "B": B, "S": S, "losses": losses, "step_s": secs,
+             "first_step_s": secs[0], "warm_step_s": secs[1], "tokens_per_s_warm": tokens / secs[1],
+             "adamw_ms_warm": adamw_ms[f"offloaded_{off.optimizer_schedule}" if off.optimizer_state else "resident"],
+             "prefetch_wait_s": waits, "peak_device_bytes": torch.cuda.max_memory_allocated(),
+             "peak_device_bytes_above_start": torch.cuda.max_memory_allocated() - base,
+             "flash_bf16_launches_per_step": per_step, "flash_f32_launches": f32,
+             "profiled_step": _device_profile(prof, secs[1], secs[-1])}
+        if off.optimizer_state:
+            r["moments_pinned_host_bytes"] = sum(x.numel() * x.element_size() for blk in opt.moments.blocks
+                                                 for x in blk)
+        mark(f"{name}_steps_s")
+        if ref_host is None:
+            ref_host, ref_losses = _pinned(p), losses
+        else:
+            r["bitwise_resident"] = losses == ref_losses and _equal_to_host(p, ref_host)
+            r["max_abs_param_diff_vs_resident"] = 0.0 if r["bitwise_resident"] else _max_diff_to_host(p, ref_host)
+        results[name] = r
+        emit({"train_main": r})
+        require(per_step == {"128x128": 2 * cfg.n_layers} and f32 == 0,
+                f"{name}: flash launches a step {per_step} (fp32 {f32}), not {2 * cfg.n_layers} of (128, 128)")
+        require(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
+        del p, params, opt, m, batch
+    deterministic = results["resident_repeat"]["bitwise_resident"]
+    spread = results["resident_repeat"]["max_abs_param_diff_vs_resident"]
+    emit({"check": "train_offloaded_vs_resident", "resident_runs_bitwise_equal": deterministic,
+          "resident_run_to_run_max_abs_param_diff": spread,
+          "held_to": "bitwise" if deterministic else "the resident run-to-run spread",
+          **{name: {k: results[name][k] for k in ("bitwise_resident", "max_abs_param_diff_vs_resident")}
+             for name in ("offloaded_serial", "offloaded_prefetch")}})
+    for name in ("offloaded_serial", "offloaded_prefetch"):
+        if deterministic:
+            require(results[name]["bitwise_resident"], f"{name}: train steps differ from the resident run")
+        else:
+            require(results[name]["max_abs_param_diff_vs_resident"] <= spread,
+                    f"{name}: params differ from the resident run beyond its run-to-run spread")
+    del ref_host
+    torch.cuda.empty_cache()
+    mark("after_runs_s")
+    emit({"train_main_seconds": marks})
+    return launches
+
+
+def _train_cli_argv(ck, steps):
+    return [sys.executable, "-m", "repro_torch.launch.train", "--arch", "qwen3-1.7b", "--reduced", "--steps",
+            str(steps), "--offload-optimizer", "--ckpt-every", "10", "--ckpt-dir", ck]
+
+
+def train_cli_start(root):
+    """Start the train CLI on the card, reduced qwen3, in processes that run
+    beside the phases that follow (``train_cli_check`` reads them): (a) 30
+    steps with a checkpoint every 10; (b) the same with no end, killed once
+    its step-10 checkpoint is committed, then (c) relaunched as (a) on its
+    directory.  A thread drives (b) and (c); every process still running
+    when the script exits is killed."""
+    import atexit
+    import threading
+
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ck_a, ck_b = os.path.join(root, "a"), os.path.join(root, "b")
+    procs = []
+
+    def launch(ck, steps):
+        proc = subprocess.Popen(_train_cli_argv(ck, steps), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True, env=env, cwd=ROOT)
+        procs.append(proc)
+        return proc
+
+    def stop_all():
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    atexit.register(stop_all)
+    cli = {"t0": time.perf_counter(), "a": launch(ck_a, 30), "stop_all": stop_all}
+    b = launch(ck_b, 1_000_000)
+
+    def kill_and_relaunch():
+        try:
+            b_out = []
+            for line in b.stdout:
+                b_out.append(line)
+                if line.startswith("step    10"):
+                    break
+            deadline = time.perf_counter() + 300
+            while not os.path.exists(os.path.join(ck_b, "step_000000010", "manifest.json")):
+                if time.perf_counter() > deadline or b.poll() is not None:
+                    raise AssertionError(f"train CLI (b) wrote no step-10 checkpoint: {''.join(b_out)[-2000:]}")
+                time.sleep(0.005)
+            b.kill()
+            b.wait(timeout=60)
+            cli.update(b_rc=b.returncode, checkpoints_at_kill=sorted(os.listdir(ck_b)))
+            c = launch(ck_b, 30)
+            cli.update(c_out=c.communicate(timeout=600)[0], c_rc=c.returncode)
+        except BaseException as e:  # re-raised by train_cli_check on the main thread
+            cli["error"] = e
+
+    cli["thread"] = threading.Thread(target=kill_and_relaunch, daemon=True)
+    cli["thread"].start()
+    return cli
+
+
+def train_cli_check(cli):
+    """Wait for the processes of :func:`train_cli_start` and check them: (a)
+    completes and its nll at step 20 is below step 0's (the CLI's learning
+    rate and warm-up are gentler than the CPU test's); (b) was killed; (c)
+    prints ``[resume]`` and completes."""
+    try:
+        a_out = cli["a"].communicate(timeout=600)[0]
+        cli["thread"].join(timeout=600)
+    finally:
+        cli["stop_all"]()
+    if "error" in cli:
+        raise cli["error"]
+    a_rc, c_out = cli["a"].returncode, cli.get("c_out", "")
+    nll = {int(s): float(v) for s, v in re.findall(r"^step\s+(\d+)\s+nll\s+(\S+)$", a_out, re.M)}
+    resumed = re.search(r"^\[resume\] from checkpoint step (\d+)$", c_out, re.M)
+    emit({"check": "train_cli", "argv": _train_cli_argv("DIR", 30)[1:], "rc": a_rc, "nll": nll,
+          "killed_rc": cli.get("b_rc"), "checkpoints_at_kill": cli.get("checkpoints_at_kill"),
+          "relaunch_rc": cli.get("c_rc"), "relaunch_resumed_from": int(resumed.group(1)) if resumed else None,
+          "relaunch_out": c_out[-400:], "seconds_since_start": time.perf_counter() - cli["t0"]})
+    require(a_rc == 0 and "training complete" in a_out, f"train CLI failed: {a_out[-2000:]}")
+    require(0 in nll and 20 in nll and nll[20] < nll[0], f"train CLI's nll did not fall by step 20: {nll}")
+    require(cli.get("b_rc") not in (0, None), "train CLI (b) ended before it was killed")
+    require(cli.get("c_rc") == 0 and resumed and "training complete" in c_out,
+            f"relaunched train CLI did not resume: {c_out[-2000:]}")
 
 
 KSET_KERNELS = ("multispring_kset", "ebe_matvec_kset_f64", "ebe_matvec_kset_f32")
@@ -954,7 +1432,7 @@ def surrogate_check(root):
     import numpy as np
     import torch
 
-    from repro_torch.core.stream import tree_leaves, tree_map
+    from repro_torch.core.stream import leaves_in_insertion_order, tree_map
     from repro_torch.launch import campaign as cli
     from repro_torch.surrogate import dataset, model, seqmodel, train, trajectory
 
@@ -970,7 +1448,7 @@ def surrogate_check(root):
         ps = tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
         with model.exact_convs():
             loss = mod.mae_loss(ps, cfg, x, y)
-            return float(loss.detach()), torch.autograd.grad(loss, tree_leaves(ps))
+            return float(loss.detach()), torch.autograd.grad(loss, leaves_in_insertion_order(ps))
 
     rng = np.random.default_rng(11)
     cnn, traj = model.SurrogateConfig(**SURROGATE_CHECK), seqmodel.TrajectoryConfig()
@@ -1044,8 +1522,9 @@ def surrogate_check(root):
     t0 = time.perf_counter()
     p_post, post = train.fit_shards(cnn, cache, order=["campaign"], **fit_kw)
     post_s = time.perf_counter() - t0
-    leaf_err = max(float((a - b).abs().max()) for a, b in zip(tree_leaves(p_live), tree_leaves(p_post)))
-    bitwise = all(torch.equal(a, b) for a, b in zip(tree_leaves(p_live), tree_leaves(p_post)))
+    pairs = list(zip(leaves_in_insertion_order(p_live), leaves_in_insertion_order(p_post)))
+    leaf_err = max(float((a - b).abs().max()) for a, b in pairs)
+    bitwise = all(torch.equal(a, b) for a, b in pairs)
     rows["live_vs_posthoc"] = {
         "shards": live["n_shards"], "rows": int(len(gen["waves"])), "nt": int(gen["waves"].shape[1]),
         "stream_wait_s": live["stream_wait_s"], "val_mae": [live["val_mae"], post["val_mae"]],
@@ -1065,8 +1544,8 @@ def surrogate_check(root):
         d = os.path.join(root, f"ckpt_{name}")
         save(d, cfg, params, scale=post["scale"], step=8)
         cfg2, members, scale, step = load(d, device=cpu)
-        same = all(b.device == cpu and torch.equal(a.cpu(), b) for a, b in zip(tree_leaves(params),
-                                                                               tree_leaves(members[0])))
+        same = all(b.device == cpu and torch.equal(a.cpu(), b) for a, b in zip(leaves_in_insertion_order(params),
+                                                                               leaves_in_insertion_order(members[0])))
         loaded[name] = same
         require(same and cfg2 == cfg and scale == post["scale"] and step == 8, f"{name}: card → CPU not bitwise")
     rows["saved_on_card_loaded_on_cpu_bitwise"] = loaded
@@ -1139,7 +1618,7 @@ def surrogate_main(root):
     from torch.autograd import DeviceType
 
     from repro_torch import kernels
-    from repro_torch.core.stream import tree_leaves, tree_map
+    from repro_torch.core.stream import leaves_in_insertion_order, tree_map
     from repro_torch.surrogate import dataset, model, seqmodel, train, trajectory
 
     dev = torch.device("cuda")
@@ -1176,7 +1655,7 @@ def surrogate_main(root):
             torch.cuda.synchronize()
             require(again["history"] == info["history"], "fit_trajectory_shards is not deterministic")
         steps, vals = _step_and_val_seconds(marks, time.perf_counter())
-        row = {"config": dataclasses.asdict(cfg), "params": sum(t.numel() for t in tree_leaves(params)),
+        row = {"config": dataclasses.asdict(cfg), "params": sum(t.numel() for t in leaves_in_insertion_order(params)),
                "adam_step_s": {"first": steps[0], "warm": steps[1:]},
                "predict_s": {"first": vals[0], "warm": vals[1:], "batch": SURROGATE_DATA["shard_size"],
                              "nt": SURROGATE_DATA["nt"]},
@@ -2240,6 +2719,7 @@ def lm_families(dev):
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import layers as L, moe as M, transformer as T
     from repro_torch.serving import decode as serve
+    from repro_torch.utils.tree import tree_leaves
 
     def greedy(logits):
         return logits[:, -1].argmax(-1, keepdim=True)
@@ -2252,7 +2732,7 @@ def lm_families(dev):
         torch.cuda.empty_cache()
         resident_before = torch.cuda.memory_allocated()
         params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-        n_params = sum(x.numel() for x in _leaves(params))
+        n_params = sum(x.numel() for x in tree_leaves(params))
         prompt = torch.randint(0, cfg.vocab_size, (B, S0), device=dev,
                                generator=torch.Generator(device=dev).manual_seed(1))
         batch = {"tokens": prompt, **frontend_inputs(name, cfg, B, spec.get("frontend", 0),
@@ -2577,6 +3057,7 @@ def main() -> int:
     from repro_torch.kernels.multispring import ops as ms_ops
     from repro_torch.models import layers as L, transformer as T
     from repro_torch.serving import decode as serve
+    from repro_torch.utils.tree import tree_leaves
 
     # plain versions run on the card below: full fp32, no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3134,7 +3615,7 @@ def main() -> int:
     with Phase("lm_main"):
         cfg_l = qwen  # 28 layers, bf16 compute, fp32 parameters
         params = T.init_params(cfg_l, torch.Generator(device=dev).manual_seed(0), dev)
-        n_params = sum(x.numel() for x in _leaves(params))
+        n_params = sum(x.numel() for x in tree_leaves(params))
         B, S0, NEW, C = 4, 4096, 32, 4128
         prompt_main = torch.randint(0, cfg_l.vocab_size, (B, S0), device=dev,
                                     generator=torch.Generator(device=dev).manual_seed(1))
@@ -3231,6 +3712,18 @@ def main() -> int:
         # mixtral and deepseek-v2 at published widths; lm_main's qwen3 stays on the
         # card for serve_main
         families_launches = lm_families(dev)
+
+    # the train CLI's processes run beside train_cpu; train_main reads them
+    cli = train_cli_start(os.path.join(ROOT, "build", "train_cli"))
+    with Phase("train_cpu"):
+        train_cpu_launches, train_cpu_bf16_launches = train_cpu(dev)
+
+    with Phase("train_main"):
+        # lm_main's qwen3-1.7b parameters are every run's starting point; they wait on the
+        # host meanwhile, so the runs have the card's memory to themselves
+        params = _pinned(params)
+        train_main_launches = train_main(dev, params, qwen, cli)
+        params = _tree_to(params, dev)
 
     feedback_log = os.path.join(ROOT, "build", "serve_feedback.jsonl")
     with Phase("serve_check"):
@@ -3538,7 +4031,7 @@ def main() -> int:
         rows.append({"name": "flash_attention_f32", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
                      "replaces": "src/repro/kernels/flash_attention/flash_attention.py:83",
                      "launches": (cpu_path_launches["flash_attention_f32"] + sum(families_cpu_launches.values())
-                                  + serve_check_launches["flash_attention_f32"]),
+                                  + serve_check_launches["flash_attention_f32"] + sum(train_cpu_launches.values())),
                      **f32,
                      "detail": {"B": Bf, "Hq": Hq, "Hkv": Hkv, "S": S, "dh": dh, "dtype": "torch.float32",
                                 "causal": True, "v_strided": True, "tol": FLASH_TOL["torch.float32"], "flops": flops,
@@ -3550,7 +4043,9 @@ def main() -> int:
                                     **{f"lm_families_cpu {n} (fp32 prefill + forward)": c
                                        for n, c in families_cpu_launches.items()},
                                     "serve_check (reduced qwen3, gemma2, mixtral, deepseek-v2 DecodeEngine and "
-                                    "serve CLI, fp32)": serve_check_launches["flash_attention_f32"]}}})
+                                    "serve CLI, fp32)": serve_check_launches["flash_attention_f32"],
+                                    **{f"train_cpu {n} (one train step, fp32, remat)": c
+                                       for n, c in train_cpu_launches.items()}}}})
         q, k, v = q.bfloat16(), k.bfloat16(), v_bshd.bfloat16().transpose(1, 2)
         del v_bshd
         out_k, out_p = fa_ops.flash_attention_cuda(q, k, v), fa_ops.flash_attention_ref(q, k, v)
@@ -3569,7 +4064,7 @@ def main() -> int:
                      "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
                      "replaces": "src/repro/kernels/flash_attention/flash_attention.py:83",
                      "launches": (prefill_by_kernel["flash_attention_bf16"] + offload_launches["flash_attention_bf16"]
-                                  + sum(serve_launches.values())),
+                                  + sum(serve_launches.values()) + train_cpu_bf16_launches + train_main_launches),
                      "max_abs_err": err,
                      "ms": fa_ms, "plain_ms": cuda_ms(lambda: fa_ops.flash_attention_ref(q, k, v), 2),
                      "bound_ms": b_fa, "bound_by": by,
@@ -3583,7 +4078,10 @@ def main() -> int:
                                 "sdpa_err_over_limit": lib_ratio, "tflop_per_s": flops / (fa_ms / 1e3) / 1e12,
                                 "launches_by_path": {"lm_main": prefill_by_kernel["flash_attention_bf16"],
                                                      "lm_offload": offload_launches["flash_attention_bf16"],
-                                                     **serve_launches}}})
+                                                     **serve_launches,
+                                                     "train_cpu qwen3-1.7b (one train step, bf16, remat)":
+                                                         train_cpu_bf16_launches,
+                                                     "train_main": train_main_launches}}})
         del q, k, v, out_k, out_p
         # the (256, 256) instance at gemma2-2b's (local, global) prefill shapes, (192, 128) at
         # deepseek-v2's MLA, (128, 128) at mixtral's (window 4,096, GQA group 6)

@@ -6,7 +6,9 @@ turns a mid-run carry of any of the four methods (as numpy) into the
 port's carry on an operator set's device, so both packages can continue
 from the same nonlinear state.  :func:`params_from_numpy` and
 :func:`decode_state_from_numpy` do the same for a language model's
-parameters and for a decode state (the KV caches after a prefill), and
+parameters (and any parameter-shaped tree, such as its gradients) and
+for a decode state (the KV caches after a prefill),
+:func:`adamw_state_from_numpy` for the resident AdamW state, and
 :func:`surrogate_params_from_numpy` for a surrogate's params (the CNN+LSTM
 or the SSM trajectory model).
 """
@@ -18,10 +20,11 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.stream import tree_leaves
+from repro_torch.utils.tree import tree_leaves
 from repro_torch.fem import meshgen, multispring as ms, newmark
 from repro_torch.fem.methods import METHODS, partition_springs, springs_to_host
 from repro_torch.models import transformer
+from repro_torch.training.optimizer import AdamWState
 
 _MATERIAL_FIELDS = tuple(f.name for f in dataclasses.fields(meshgen.Material))
 
@@ -116,6 +119,28 @@ def params_from_numpy(tree: dict[str, Any], cfg, device) -> dict[str, Any]:
     for name, lead in stacks.items():
         _check_stack(params[name], lead, name, cfg)
     return params
+
+
+def adamw_state_from_numpy(state: Any, cfg, device) -> AdamWState:
+    """The port's resident :class:`~repro_torch.training.optimizer.AdamWState`
+    from the reference's (an object or dict with ``step`` and ``moments``:
+    a parameter-shaped tree of ``{"m", "v"}`` leaves, numpy arrays), each
+    moment tree checked as :func:`params_from_numpy` checks parameters."""
+    moments = _get(state, "moments")
+
+    def pick(tree, key):
+        if isinstance(tree, dict) and set(tree) == {"m", "v"} and not isinstance(tree["m"], dict):
+            return tree[key]
+        if isinstance(tree, dict):
+            return {k: pick(v, key) for k, v in tree.items()}
+        raise ValueError(f"moments: a leaf {type(tree).__name__} where a {{'m', 'v'}} pair belongs")
+
+    m, v = (params_from_numpy(pick(moments, key), cfg, device) for key in ("m", "v"))
+
+    def join(a, b):
+        return {k: join(a[k], b[k]) for k in a} if isinstance(a, dict) else {"m": a, "v": b}
+
+    return AdamWState(step=int(np.asarray(_get(state, "step"))), moments=join(m, v))
 
 
 def _check_stack(tree: Any, lead: tuple[int, ...], name: str, cfg) -> None:

@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.hetmem import PartitionedState
-from repro_torch.core.stream import tree_leaves
+from repro_torch.core.stream import leaves_in_insertion_order
 
 # -- health word bits --------------------------------------------------------
 BIT_CARRY_NONFINITE = 1    # non-finite value somewhere in the step carry
@@ -78,7 +78,7 @@ def _tensors(tree) -> list[torch.Tensor]:
     """The tensor leaves of ``tree``, a :class:`PartitionedState`'s blocks
     included (Proposed 1's θ with ``offload=False``: ``[k, chunk, S]`` blocks)."""
     out = []
-    for x in tree_leaves(tree):
+    for x in leaves_in_insertion_order(tree):
         if isinstance(x, PartitionedState):
             out.extend(t for blk in x.blocks for t in blk)
         elif isinstance(x, torch.Tensor):
@@ -121,7 +121,7 @@ def freeze(live: torch.Tensor, new_tree, old_tree):
     dead = (~live).nonzero().flatten()
     if not dead.numel():
         return new_tree
-    for n, o in zip(tree_leaves(new_tree), tree_leaves(old_tree)):
+    for n, o in zip(leaves_in_insertion_order(new_tree), leaves_in_insertion_order(old_tree)):
         lanes = dead
         if isinstance(n, PartitionedState):
             if n.spare is not None and n.spare is o.blocks:
@@ -181,7 +181,7 @@ def _with_second_set(carry, springs_index: int = 1):
 def _synchronize(tree) -> None:
     """Wait for the current stream of the CUDA device ``tree`` computes on
     (the streamed pass's copies back into host blocks are queued there)."""
-    for x in tree_leaves(tree):
+    for x in leaves_in_insertion_order(tree):
         if isinstance(x, torch.Tensor) and x.device.type == "cuda":
             torch.cuda.current_stream(x.device).synchronize()
             return

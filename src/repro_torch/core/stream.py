@@ -143,7 +143,7 @@ class StreamEngine:
         results.  A loop over the members: the device-resident limit of the
         plan, for functions that have no k-set form of their own."""
         k = self.plan.kset
-        for x in tree_leaves(mapped):
+        for x in leaves_in_insertion_order(mapped):
             if not isinstance(x, torch.Tensor) or x.dim() < 1 or x.shape[0] != k:
                 raise ValueError(f"k-set leading axis {tuple(getattr(x, 'shape', ()))} != kset={k}")
         outs = [fn(*(_member(t, i) for t in mapped), *broadcast) for i in range(k)]
@@ -327,7 +327,10 @@ def tree_map(fn, *trees):
     return fn(*trees)
 
 
-def tree_leaves(tree):
+def leaves_in_insertion_order(tree):
+    """The leaves of ``tree`` in :func:`tree_map`'s visiting order: dict keys
+    as inserted.  ``utils.tree.tree_leaves`` sorts dict keys instead, as
+    ``jax.tree_util`` does; the two orders must not be mixed."""
     out = []
     tree_map(out.append, tree)
     return out

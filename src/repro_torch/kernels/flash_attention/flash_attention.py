@@ -110,7 +110,16 @@ def wgmma_blocks_per_sm() -> dict[tuple[int, int], int]:
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                          window: int | None = None, softcap: float | None = None,
                          scale: float | None = None) -> torch.Tensor:
-    """``o [B,Hq,Sq,dv]`` from the CUDA kernel of q's dtype (see the plain version for the function)."""
+    """``o [B,Hq,Sq,dv]`` from the CUDA kernel of q's dtype (see the plain version for the function).
+
+    The output is written by the kernel into a new tensor, so it carries no
+    gradient: with grad mode on, q, k or v that require one are refused
+    (the trainable attention, ``models/layers.FlashAttentionFn``, calls this
+    from its forward, where grad mode is off, and recomputes the plain
+    version for the backward)."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        _fail("q, k or v requires a gradient, which the kernel's output would not carry: "
+              "call models.layers.FlashAttentionFn, or the kernel under torch.no_grad()")
     if q.device.type != "cuda":
         _fail(f"the CUDA kernel needs CUDA tensors, got {q.device}")
     dt, dev = q.dtype, q.device

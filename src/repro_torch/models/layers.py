@@ -7,10 +7,11 @@ and rounding points:
   activation dtype ``cfg.dtype`` where they are used;
 * activations run in ``cfg.dtype`` (bf16 on the card), softmax statistics
   and norm reductions in fp32;
-* attention never forms S×S: the prefill goes through
-  :func:`flash_attention` (the hand-written CUDA kernel on the card, its
-  plain version on the CPU), the decode through :func:`decode_attention`
-  over the cache.
+* attention never forms S×S: the prefill and the training forward go
+  through :class:`FlashAttentionFn` — :func:`flash_attention` (the
+  hand-written CUDA kernel on the card, its plain version on the CPU), with
+  a backward that recomputes the plain blocked softmax one query block at
+  a time — the decode through :func:`decode_attention` over the cache.
 
 There is no sharding on one card, so ``proj`` is a plain matmul.  MLA
 (DeepSeek-V2) prefills through the same flash kernel (dh = nq + nr, dv)
@@ -23,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import NEG
+from repro_torch.kernels.flash_attention.ref import BLOCK_Q, NEG, attend_rows
 
 
 def dt(cfg: ModelConfig) -> torch.dtype:
@@ -96,6 +97,65 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 def proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum('bsd,d...->bs...')`` as one matmul."""
     return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
+
+
+# ---------------------------------------------------------------------------
+# trainable attention: the kernel forward, a blocked recompute backward
+# ---------------------------------------------------------------------------
+
+
+def _flash_backward(q, k, v, do, *, causal, window, softcap, scale):
+    """dq, dk, dv of the plain blocked attention (``flash_attention_jnp``'s
+    function, as ``jax.grad`` differentiates it): per query block of 512,
+    its rows recomputed under autograd from fp32 copies of q, k and v (``p``
+    still rounded to v's dtype) and ``do``'s rows backpropagated; dk and dv
+    summed over the blocks in fp32.  One query block's graph lives until
+    its ``autograd.grad``: a few fp32 ``[B,Hq,512,1024]`` score tensors for
+    each key block it sees, so several times ``[B,Hq,512,Skv]`` in all.
+    Key blocks that the mask hides from a whole query block are skipped
+    (bitwise the same function)."""
+    B, Hq, Sq, dh = q.shape
+    Hkv, Skv, dv = k.shape[1], k.shape[2], v.shape[3]
+    G = Hq // Hkv
+    scale = dh**-0.5 if scale is None else scale
+    qg = q.detach().reshape(B, Hkv, G, Sq, dh)
+    dog = do.reshape(B, Hkv, G, Sq, dv)
+    dq = torch.empty((B, Hkv, G, Sq, dh), dtype=torch.float32, device=q.device)
+    with torch.enable_grad():
+        kf = k.detach().float().requires_grad_()
+        vf = v.detach().float().requires_grad_()
+        dk, dvv = torch.zeros_like(kf), torch.zeros_like(vf)
+        for q0 in range(0, Sq, BLOCK_Q):
+            qb = qg[:, :, :, q0:q0 + BLOCK_Q].float().detach().requires_grad_()
+            n = qb.shape[3]
+            o = attend_rows(qb, kf, vf, q0, causal=causal, window=window, softcap=softcap, scale=scale,
+                            offset=Skv - Sq, p_dtype=v.dtype, skip_masked=True)
+            gq, gk, gv = torch.autograd.grad(o, (qb, kf, vf), dog[:, :, :, q0:q0 + n].float())
+            dq[:, :, :, q0:q0 + n] = gq
+            dk += gk
+            dvv += gv
+    return dq.reshape(B, Hq, Sq, dh).to(q.dtype), dk.to(k.dtype), dvv.to(v.dtype)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention that trains: the forward is :func:`flash_attention` as it
+    is (the kernel on the card, with its launches and values; the plain
+    version on the CPU) and saves q, k and v; the backward is
+    :func:`_flash_backward`.  With grad mode off, or no input requiring a
+    gradient, ``apply`` is that forward alone, launches included, and
+    builds no graph.  The JAX package trains through ``flash_attention_jnp``
+    and has no backward kernel either."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        return flash_attention(q, k, v, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (*_flash_backward(q, k, v, do, **ctx.opts), None, None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -175,7 +235,7 @@ def attention(
     k = rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        o = flash_attention(q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap)
+        o = FlashAttentionFn.apply(q, k, v, causal, window, cfg.attn_softcap, None)
         new_cache = (k, v) if return_kv else None
     else:
         # rolling ring buffer: capacity C == window for windowed layers, the
@@ -256,7 +316,7 @@ def mla_attention(
         k_nope = proj(c_kv, params["wk_b"].to(adt)).transpose(1, 2)  # [B,H,S,nq]
         v = proj(c_kv, params["wv_b"].to(adt)).transpose(1, 2)  # a strided view: the kernel reads its strides
         k = torch.cat([k_nope, k_rope.expand(B, H, S, nr)], dim=-1)  # contiguous, k_rope copied per head
-        o = flash_attention(torch.cat([q_nope, q_rope], dim=-1), k, v, causal=True, scale=scale)
+        o = FlashAttentionFn.apply(torch.cat([q_nope, q_rope], dim=-1), k, v, True, None, None, scale)
         new_cache = (c_kv, k_rope[:, 0]) if return_kv else None
     else:
         ck, kr, pos = cache["c_kv"], cache["k_rope"], cache["pos"]

@@ -1,5 +1,5 @@
-"""The model stacks of the port, inference only: every family of the JAX
-package's ``models/transformer.py``, with the same public names and the same
+"""The model stacks of the port: every family of the JAX package's
+``models/transformer.py``, with the same public names and the same
 parameter trees, where each stack's layers are slices of stacked tensors:
 
   dense / vlm    ``layers [L,…]``; the VLM also ``patch_proj [D, D]``, its
@@ -19,7 +19,14 @@ parameter trees, where each stack's layers are slices of stacked tensors:
                  with the cross attention ``xattn`` and its norm ``lnx``
 
 Where JAX scans over a stack, this module loops over the layers that
-:func:`layout` lists in the order they run, Mamba blocks included.
+:func:`layout` lists in the order they run, Mamba blocks included, each
+stack split into its layers once per call (``torch.unbind``: in a backward,
+one stacking of the layers' gradients per stack).  ``forward`` trains:
+under grad mode with ``remat`` each block runs under
+``torch.utils.checkpoint`` (what the reference's ``jax.checkpoint(...,
+nothing_saveable)`` over each scan body does), so the backward recomputes
+it, flash attention included; ``prefill`` and ``decode_step`` run under
+``torch.no_grad``.
 
 ``init_decode_state`` / ``prefill`` / ``decode_step`` share one state
 layout: ``{"pos": int, <cache key>: …}``.  Attention layers keep ring caches
@@ -43,6 +50,7 @@ from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -257,7 +265,7 @@ def _cross_attention(p, x, cfg, enc):
     else:
         k = L.proj(enc, p["wk"].to(adt)).transpose(1, 2)
         v = L.proj(enc, p["wv"].to(adt)).transpose(1, 2)
-        o = L.flash_attention(q, k, v, causal=False, softcap=cfg.attn_softcap)
+        o = L.FlashAttentionFn.apply(q, k, v, False, None, cfg.attn_softcap, None)
     B, H, Sq, hd = o.shape
     out = o.to(adt).transpose(1, 2).reshape(B, Sq, H * hd) @ p["wo"].to(adt).reshape(H * hd, -1)
     return out, (k, v)
@@ -303,11 +311,46 @@ def _block(p, x, cfg, slot: Slot, mode: str, positions, cache=None, enc=None):
     return x + m, kv, aux
 
 
+def _unbound(stacked: Any, depth: int) -> Any:
+    """A stacked tree with each leaf split along its ``depth`` stack
+    dimensions into nested tuples of views."""
+    if isinstance(stacked, dict):
+        return {k: _unbound(v, depth) for k, v in stacked.items()}
+    parts = torch.unbind(stacked, 0)
+    return parts if depth == 1 else tuple(_unbound(x, depth - 1) for x in parts)
+
+
+def _pick(unbound: Any, at: int | tuple[int, int]) -> Any:
+    """Entry ``at`` of an :func:`_unbound` tree."""
+    if isinstance(unbound, dict):
+        return {k: _pick(v, at) for k, v in unbound.items()}
+    return unbound[at] if isinstance(at, int) else unbound[at[0]][at[1]]
+
+
 def _layers(params, cfg, slots=None):
     """(block parameters (views), slot) of every block of ``slots`` (the
     decoder's :func:`layout` by default), in order."""
+    split = {}
     for s in layout(cfg) if slots is None else slots:
-        yield (params[s.stack] if s.at is None else layer(params[s.stack], s.at)), s
+        if s.at is None:
+            yield params[s.stack], s
+            continue
+        if s.stack not in split:
+            split[s.stack] = _unbound(params[s.stack], 1 if isinstance(s.at, int) else 2)
+        yield _pick(split[s.stack], s.at), s
+
+
+def _forward_block(lp, x, cfg, slot, positions, enc, remat):
+    """One block of ``forward`` → (x, the MoE's aux or ``None``); under grad
+    mode with ``remat``, checkpointed: its activations are recomputed in
+    the backward instead of kept."""
+    def run(lp, x, enc):
+        y, _, aux = _block(lp, x, cfg, slot, "forward", positions, enc=enc)
+        return y, aux
+
+    if remat and torch.is_grad_enabled():
+        return checkpoint(run, lp, x, enc, use_reentrant=False, preserve_rng_state=False)
+    return run(lp, x, enc)
 
 
 def _embed(params, cfg, tokens):
@@ -330,10 +373,10 @@ def _inputs(params, cfg, batch):
     return x
 
 
-def _encode(params, cfg, batch):
+def _encode(params, cfg, batch, remat: bool = False):
     """whisper's encoder over ``batch["frames"] [B,Se,D]`` (the stub
     frontend's output): non-causal blocks with rope on the frame positions,
-    then ``enc_norm``."""
+    then ``enc_norm``; ``remat`` as in :func:`forward`."""
     if "frames" not in batch:
         raise ValueError(f"{cfg.name}: the encoder-decoder family needs batch['frames'] [B, frames, d_model] "
                          f"beside the tokens")
@@ -341,7 +384,7 @@ def _encode(params, cfg, batch):
     positions = torch.arange(e.shape[1], device=e.device)
     slots = [Slot("encoder", i, None, i, None, "encoder") for i in range(cfg.encoder_layers)]  # no cache
     for lp, slot in _layers(params, cfg, slots):
-        e, _, _ = _block(lp, e, cfg, slot, "forward", positions)
+        e, _ = _forward_block(lp, e, cfg, slot, positions, None, remat)
     return _norm_apply(cfg, e, params["enc_norm"])
 
 
@@ -359,19 +402,19 @@ def _unembed(params, cfg, x):
 # ---------------------------------------------------------------------------
 
 
-@torch.no_grad()
 def forward(params, cfg: ModelConfig, batch: dict, *, remat: bool = True):
     """batch: ``tokens`` (+ ``frames`` for whisper, ``patches`` for a VLM) →
     (logits [B,S,V] fp32, aux_loss fp32: the MoE layers' load-balancing
-    losses summed, 0 without them).  Inference only: ``remat`` is accepted
-    for the JAX signature and ignored."""
-    del remat
+    losses summed, 0 without them).  Differentiable: with grad mode on and
+    ``remat``, every block (the encoder's too) is checkpointed; attention
+    runs the flash kernel's forward once per layer, and again where the
+    backward recomputes the block."""
     x = _inputs(params, cfg, batch)
-    enc = _encode(params, cfg, batch) if cfg.family == "encdec" else None
+    enc = _encode(params, cfg, batch, remat) if cfg.family == "encdec" else None
     positions = torch.arange(x.shape[1], device=x.device)
     auxes = []
     for lp, slot in _layers(params, cfg):
-        x, _, a = _block(lp, x, cfg, slot, "forward", positions, enc=enc)
+        x, a = _forward_block(lp, x, cfg, slot, positions, enc, remat)
         if a is not None:
             auxes.append(a)
     aux = torch.stack(auxes).sum() if auxes else torch.zeros((), dtype=torch.float32, device=x.device)

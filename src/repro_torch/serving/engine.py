@@ -54,7 +54,7 @@ import torch
 from repro_torch.core.stream import pad_kset, tree_map
 from repro_torch.device import resolve_device
 from repro_torch.surrogate.model import pick_bucket
-from repro_torch.training.checkpoint import _paths
+from repro_torch.utils.tree import leaves_with_paths
 
 
 class InferResult(NamedTuple):
@@ -104,7 +104,7 @@ def _params_digest(members: Sequence[Any]) -> str:
     and ordered as ``jax.tree_util`` names and flattens them."""
     h = hashlib.sha256()
     for p in members:
-        for name, leaf in _paths(p):
+        for name, leaf in leaves_with_paths(p):
             h.update(name.encode())
             dtype, shape, data = _leaf_bytes(leaf)
             h.update(dtype.encode() + shape.encode())

@@ -29,7 +29,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.stream import pad_kset, tree_leaves, tree_map
+from repro_torch.core.stream import pad_kset, leaves_in_insertion_order, tree_map
 from repro_torch.device import resolve_device
 
 
@@ -176,7 +176,7 @@ def pick_bucket(n: int, buckets=PREDICT_BUCKETS) -> int:
 
 def check_params_on(params, dev: torch.device) -> None:
     """Refuse a param tree that does not live on ``dev``."""
-    where = tree_leaves(params)[0].device
+    where = leaves_in_insertion_order(params)[0].device
     if where.type != dev.type or (dev.index is not None and where.index != dev.index):
         raise ValueError(f"params live on {where}, not on {dev}: move them first")
 

@@ -27,7 +27,7 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.stream import tree_leaves, tree_map
+from repro_torch.core.stream import leaves_in_insertion_order, tree_map
 from repro_torch.device import resolve_device
 from repro_torch.surrogate import model as _cnn
 from repro_torch.surrogate.model import SurrogateConfig, exact_convs, init_params, mae_loss
@@ -61,7 +61,7 @@ def _make_adam(cfg, params, loss_fn=None):
         ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
         with exact_convs():
             loss = loss_fn(ps, cfg, xb, yb)
-            grads = torch.autograd.grad(loss, tree_leaves(ps))
+            grads = torch.autograd.grad(loss, leaves_in_insertion_order(ps))
         g = iter(grads)
         g = tree_map(lambda _: next(g), params)
         # fp32 on the device (torch.full fills there: no host → device copy)

@@ -1,1 +1,1 @@
-"""Training-side utilities of the port: checkpoints and the straggler watchdog."""
+"""Training in the port: the train step, AdamW, the data pipeline, checkpoints and elastic bookkeeping."""

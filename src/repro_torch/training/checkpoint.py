@@ -58,6 +58,7 @@ import torch
 
 from repro_torch.core.hetmem import PartitionedState
 from repro_torch.parallel.distributed import make_barrier
+from repro_torch.utils.tree import leaves_with_paths
 
 _CRC_CHUNK = 1 << 26  # bytes per read while checksumming (bounds host memory)
 
@@ -95,20 +96,10 @@ _SHARD_DIR = re.compile(r"^step_(\d+)\.p(\d+)$")
 _COMMIT = re.compile(r"^step_(\d+)\.commit\.json$")
 
 
-def _paths(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
+def _paths(tree: Any) -> list[tuple[str, Any]]:
     """``(name, leaf)`` of every leaf, named as ``jax.tree_util.keystr`` names
-    them, in flattening order (dict keys sorted, ``None`` has no leaf)."""
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        return [p for k in sorted(tree) for p in _paths(tree[k], f"{prefix}[{k!r}]")]
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):  # NamedTuple
-        return [p for f, v in zip(tree._fields, tree) for p in _paths(v, f"{prefix}.{f}")]
-    if isinstance(tree, (list, tuple)):
-        return [p for i, v in enumerate(tree) for p in _paths(v, f"{prefix}[{i}]")]
-    if isinstance(tree, PartitionedState):
-        return _paths(tree.blocks, f"{prefix}.blocks")
-    return [(prefix, tree)]
+    them, in flattening order (``utils.tree.leaves_with_paths``)."""
+    return leaves_with_paths(tree)
 
 
 def _to_host(leaf: Any) -> np.ndarray:

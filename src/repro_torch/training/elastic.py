@@ -1,10 +1,11 @@
-"""Straggler detection from step-time telemetry (framework-free).
+"""Straggler detection and elastic re-layout (framework-free).
 
-The port's copy of the watchdog half of the JAX package's
-``training/elastic.py``.  :class:`StepWatchdog` flags hosts whose step time
-exceeds ``median × slack`` (median + MAD, so one outlier cannot poison the
-baseline); the elastic scheduler's :class:`~repro_torch.scenario.scheduler.
-QueueWatch` feeds it worker heartbeat ages.
+The port's copy of the JAX package's ``training/elastic.py``.
+:class:`StepWatchdog` flags hosts whose step time exceeds ``median ×
+slack`` (median + MAD, so one outlier cannot poison the baseline); the
+elastic scheduler's :class:`~repro_torch.scenario.scheduler.QueueWatch`
+feeds it worker heartbeat ages.  :func:`elastic_plan` reassigns the rows
+of the global batch when the data-parallel world size changes.
 """
 from __future__ import annotations
 
@@ -58,3 +59,22 @@ class StepWatchdog:
         return StragglerReport(
             step=step, slow_hosts=tuple(sorted(slow)), median_s=med, worst_s=max(latest.values())
         )
+
+
+def elastic_plan(global_batch: int, old_dp: int, new_dp: int) -> dict[int, tuple[int, int]]:
+    """Per-new-replica ``(start, size)`` rows of the global batch.
+
+    Deterministic and gap-free: the union of all assignments covers
+    ``[0, global_batch)`` exactly once, for any old and new world size, and
+    the layout depends on ``new_dp`` alone (a rejoining host computes the
+    survivors' plan).  A batch that ``new_dp`` does not divide takes
+    ⌈global_batch / new_dp⌉ rows a replica, the last one fewer."""
+    del old_dp
+    per = -(-global_batch // new_dp)
+    plan = {}
+    start = 0
+    for r in range(new_dp):
+        size = min(per, global_batch - start)
+        plan[r] = (start, size)
+        start += size
+    return plan

@@ -671,3 +671,61 @@ def test_serve_cli_multi_device_exits_nonzero(n):
         serve.main(["--device", "cpu", "--host-devices", str(n)])
     assert e.value.code not in (0, None)
     assert f"--host-devices {n}" in str(e.value.code) and "not ported yet" in str(e.value.code)
+
+
+def test_flash_cuda_entry_refuses_inputs_that_need_a_gradient():
+    """The kernel writes its output into a new tensor, which carries no
+    gradient: with grad mode on, q, k or v requiring one are refused before
+    the device is looked at (so on the CPU too); under ``no_grad`` the
+    device check follows; the trainable path (``FlashAttentionFn``) calls
+    the entry with grad mode off and on the CPU runs the plain version."""
+    from repro_torch.models.layers import FlashAttentionFn
+
+    q = torch.zeros(1, 2, 4, 8)
+    for needs in ("q", "k", "v"):
+        args = [q.clone(), q[:, :1].clone(), q[:, :1].clone()]
+        args["qkv".index(needs)].requires_grad_()
+        with pytest.raises(ValueError, match="requires a gradient"):
+            fa_ops.flash_attention_cuda(*args)
+        with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+            fa_ops.flash_attention_cuda(*args)
+        out = FlashAttentionFn.apply(*args, True, None, None, None)
+        assert out.grad_fn is not None and type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    with torch.no_grad():
+        assert FlashAttentionFn.apply(*args, True, None, None, None).grad_fn is None
+    assert kernels.launch_counts()["flash_attention"] == 0
+    assert FlashAttentionFn.apply(*args, True, None, None, None).requires_grad
+
+
+def test_train_entry_points_raise_without_a_card(tmp_path):
+    """The trainer defaults to the card like every entry point: the data
+    prefetcher and the train CLI raise without one; the CPU runs only when
+    asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from repro_torch.launch import train as train_cli
+    from repro_torch.training import data
+
+    it = data.batches(data.DataConfig(vocab_size=16, seq_len=4, global_batch=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        data.Prefetcher(it)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1", "--ckpt-dir", str(tmp_path / "ck")])
+    assert not os.path.exists(tmp_path / "ck")
+    pf = data.Prefetcher(it, device="cpu")
+    assert next(pf)["tokens"].device.type == "cpu"
+    pf.close()
+
+
+@pytest.mark.parametrize("flags,flag", [(["--mesh", "2x4"], "--mesh"), (["--multi-pod"], "--multi-pod"),
+                                        (["--distributed"], "--distributed"), (["--host-devices", "2"], "--host-devices")])
+def test_train_cli_refuses_several_devices(flags, flag):
+    """The reference launcher's multi-device flags exit non-zero by name,
+    before any device is touched."""
+    from repro_torch.launch import train as train_cli
+
+    with pytest.raises(SystemExit) as e:
+        train_cli.main(["--arch", "qwen3-1.7b", "--reduced", "--device", "cpu", *flags])
+    assert e.value.code not in (0, None)
+    assert f"{flag} is not ported yet" in str(e.value.code)
+    assert "several devices in one process are a later slice" in str(e.value.code)

@@ -23,7 +23,7 @@ from repro.surrogate import model as ref_model
 from repro.surrogate import train as ref_train
 from repro.surrogate.trajectory import load_trajectory as ref_load_trajectory
 from repro_torch import convert
-from repro_torch.core.stream import tree_leaves, tree_map
+from repro_torch.core.stream import leaves_in_insertion_order, tree_map
 from repro_torch.surrogate import model, train
 from repro_torch.surrogate.trajectory import load_trajectory
 
@@ -133,13 +133,13 @@ def test_init_params_shapes_and_draw():
     assert abs(float(w.std()) - (2.0 / (9 * 16)) ** 0.5) < 0.1 * (2.0 / (9 * 16)) ** 0.5
     assert all(float(layer["b"].abs().max()) == 0 for layer in p["enc"] + p["dec"])
     q = model.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
-    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(p), tree_leaves(q)))
+    assert all(torch.equal(a, b) for a, b in zip(leaves_in_insertion_order(p), leaves_in_insertion_order(q)))
 
 
 def _grads_np(params_t, cfg, x, y, module=model):
     ps = tree_map(lambda t: t.clone().requires_grad_(True), params_t)
     loss = module.mae_loss(ps, cfg, torch.tensor(x), torch.tensor(y))
-    g = iter(torch.autograd.grad(loss, tree_leaves(ps)))
+    g = iter(torch.autograd.grad(loss, leaves_in_insertion_order(ps)))
     return float(loss.detach()), tree_map(lambda _: next(g).numpy(), params_t)
 
 
@@ -171,7 +171,7 @@ def test_adam_steps_match():
         return sum(jnp.sum(a * b) for a, b in zip(jax.tree_util.tree_leaves(p), jax.tree_util.tree_leaves(c)))
 
     def loss(p, cfg, xb, yb):
-        return sum((a * b).sum() for a, b in zip(tree_leaves(p), tree_leaves(c_t)))
+        return sum((a * b).sum() for a, b in zip(leaves_in_insertion_order(p), leaves_in_insertion_order(c_t)))
 
     step_r, m_r, v_r = ref_train._make_adam(rcfg, pn, ref_loss)
     p = convert.surrogate_params_from_numpy(pn, "cpu")
@@ -186,7 +186,7 @@ def test_adam_steps_match():
         assert len(ref_leaves) == len(got_leaves) == 20
         for a, b in zip(ref_leaves, got_leaves):
             assert _rel(a, b) <= 1e-6
-    assert not any(t.requires_grad for t in tree_leaves(p))
+    assert not any(t.requires_grad for t in leaves_in_insertion_order(p))
 
 
 def _assert_fit_info_close(want, got, rel=1e-4):
@@ -274,7 +274,7 @@ def test_surrogate_params_from_numpy_keeps_the_tree_and_refuses_others():
     pn = _ref_params(rcfg)
     p = convert.surrogate_params_from_numpy(pn, "cpu")
     assert jax.tree_util.tree_structure(pn) == jax.tree_util.tree_structure(tree_map(lambda t: t.numpy(), p))
-    assert all(t.dtype == torch.float32 for t in tree_leaves(p))
+    assert all(t.dtype == torch.float32 for t in leaves_in_insertion_order(p))
     with pytest.raises(ValueError, match="surrogate tree has keys"):
         convert.surrogate_params_from_numpy({"embed": np.zeros(3, np.float32)}, "cpu")
     with pytest.raises(ValueError, match="fp32"):

@@ -25,7 +25,7 @@ from repro.surrogate import seqmodel as ref_seq
 from repro.surrogate import train as ref_train
 from repro.surrogate import trajectory as ref_traj
 from repro_torch import convert
-from repro_torch.core.stream import tree_leaves, tree_map
+from repro_torch.core.stream import leaves_in_insertion_order, tree_map
 from repro_torch.models import layers
 from repro_torch.surrogate import dataset, model, seqmodel, train, trajectory
 
@@ -141,7 +141,7 @@ def test_mae_loss_and_gradient_match():
     want_l, want_g = ref_value_and_grad(pn, rcfg, jnp.asarray(x), jnp.asarray(y))
     ps = tree_map(lambda t: t.requires_grad_(True), convert.surrogate_params_from_numpy(pn, "cpu"))
     loss = seqmodel.mae_loss(ps, cfg, torch.tensor(x), torch.tensor(y))
-    g = iter(torch.autograd.grad(loss, tree_leaves(ps)))
+    g = iter(torch.autograd.grad(loss, leaves_in_insertion_order(ps)))
     got_g = tree_map(lambda _: next(g).numpy(), ps)
     assert float(loss.detach()) == pytest.approx(float(want_l), rel=1e-5)
     want_g = jax.tree_util.tree_map(np.asarray, want_g)
