@@ -23,8 +23,9 @@ Phases, each followed by a JSON line with its seconds:
                flash attention in fp32 (3×TF32 mma.sync kernel) and bf16
                (wgmma/TMA kernel) over GQA, ragged, Sq < Skv, window, softcap,
                non-causal, Sq × Skv, dh ∈ {128, 256, 192 with dv 128}, dh and
-               dv not multiples of 8 (the padding step) and Sq 1 against
-               4,096 keys, and the new families' shapes
+               dv not multiples of 8 (the padding step), Sq 1 against 4,096
+               keys, llama3-405b's 128 heads over 8 (S 1,024), and the new
+               families' shapes
                (``FLASH_FAMILY_CASES``: non-causal over 1,500 keys, a ragged
                tail of key tiles, with Sq 1,500, 100, 1 and Sq 200 > Skv
                150; GQA at a group of 7; dh 112 inside (128, 128); the
@@ -80,11 +81,11 @@ Phases, each followed by a JSON line with its seconds:
                and params within 1e-6); saved on the card, loaded on the CPU
                bitwise;
 10. surrogate_main  the CNN+LSTM at the widest point of the paper's search
-               space (latent 1,024, n_lstm 3, kernel 65, n_c 2) trained 6
+               space (latent 1,024, n_lstm 3, kernel 65, n_c 2) trained 4
                Adam steps through ``fit_shards`` on the paper's dataset shape
                (100 waves × 16,000 samples × 3 in shards of 16; the targets a
                seeded causal FIR response of the waves), and the trajectory
-               surrogate 6 steps through ``fit_trajectory_shards`` on the
+               surrogate 4 steps through ``fit_trajectory_shards`` on the
                same shards, then ``step`` over 512 samples against
                ``apply(scan="seq")`` (1e-5·max|y|): s per Adam step (first and
                warm), s per validation ``predict``, peak device bytes, the
@@ -141,7 +142,27 @@ Phases, each followed by a JSON line with its seconds:
                3,840 tokens: 24 of (64, 64)); 32 new tokens each: prefill s
                (first and warm), tokens/s, decode tokens/s,
                peak device bytes, parameters and launches per model;
-18. train_cpu  one train step on the card against the port on the CPU,
+18. lm_tail    granite-8b and llama3-405b, with the launch tail: granite at full
+               width, 2 layers, fp32, B 1 × 256 + 4 decode steps, card against
+               CPU and against ``forward`` (5e-5·max|logits|, greedy tokens
+               equal); granite-8b whole (36 layers, B 4 × 4,096: 36 launches of
+               the bf16 kernel's (128, 128) instance at Hq 32 / Hkv 8) and
+               llama3-405b at published widths, 2 of 126 layers (B 1 × 8,192: 2
+               launches at Hq 128 / Hkv 8, a GQA group of 16; its prefill→decode
+               against ``forward`` in fp32 on the same parameters), bf16 over
+               fp32 parameters, 3 warm prefills and ``serving/decode.generate``
+               of 32 greedy tokens (no flash launch past its prefill); the dry
+               run's FLOP count of each prefill's cell (``launch/dryrun.
+               trace_cell``: the cut depth, the card's 1×1 mesh, fp32
+               parameters) equal to ``FlopCounterMode``'s over a warm prefill on
+               the card, the achieved TFLOP/s and its share of the 989 TFLOP/s
+               dense bf16 peak; ``tree_bytes`` of the card's parameter and cache
+               trees equal to the bytes it holds; then two processes on the card
+               in a gloo group run ``compressed_mean_grads`` over two full-width
+               qwen3-1.7b layers' gradient shapes for 5 steps (CUDA tensors,
+               residual carried): each mean within the reference test's bound
+               (0.05·max|mean| + 1e-3), bitwise the same processes' CPU run;
+19. train_cpu  one train step on the card against the port on the CPU,
                fp32, remat: qwen3-1.7b at full width, 2 layers, B 1 × 256,
                and every other family at its reduced config with its
                frontend input (B 2 × 32): the loss within 1e-5 relative,
@@ -152,7 +173,7 @@ Phases, each followed by a JSON line with its seconds:
                layer: the loss within 1e-4 relative and each leaf within
                5e-2·max|g| of the CPU's, and the card's distance from the
                fp32 step at most twice the CPU's;
-19. train_main qwen3-1.7b whole (28 layers), bf16 over fp32 parameters,
+20. train_main qwen3-1.7b whole (28 layers), bf16 over fp32 parameters,
                B 2 × 4,096 from ``data.batches`` through the
                ``Prefetcher``: AdamW alone on one step's gradients, resident
                and offloaded (8 pinned blocks, ``serial`` and ``prefetch``),
@@ -168,7 +189,7 @@ Phases, each followed by a JSON line with its seconds:
                (reduced qwen3, 30 steps, a checkpoint every 10: the nll at
                step 20 below step 0's; killed after a checkpoint and
                relaunched, it resumes);
-20. serve_check  the serving tier small, card against the port on the CPU:
+21. serve_check  the serving tier small, card against the port on the CPU:
                ``SurrogateEngine`` and ``TrajectoryEngine`` (two members each;
                y within 1e-5·max|y|, score within 1e-5, equal signatures),
                batched ≡ per-request bitwise, ``ShardedEngine`` ≡ its engine
@@ -182,7 +203,7 @@ Phases, each followed by a JSON line with its seconds:
                the surrogate one with a repeat, feedback at threshold 0 and an
                injected failure, its health counts and feedback records the
                CPU run's;
-21. serve_main the servers at full width through ``MicroBatcher`` with a
+22. serve_main the servers at full width through ``MicroBatcher`` with a
                ``ResultCache``: (a) the CNN+LSTM ensemble (surrogate_main's
                trained member and a second from ``init_params``) through
                ``save_surrogate`` → ``SurrogateEngine.from_checkpoint`` on 16
@@ -196,7 +217,7 @@ Phases, each followed by a JSON line with its seconds:
                offloaded KV ≡ resident tokens; then the serve CLI at full
                width.  Per server: requests/s, infer ms a batch, wait ms, cache
                hits, peak device bytes, tokens/s;
-22. plan_check the planning and scheduling layer at crs_check's mesh, 12
+23. plan_check the planning and scheduling layer at crs_check's mesh, 12
                springs, on the card against the port on the CPU: ``run_plan`` of
                a two-group sweep (soil axis, 2 cases a scenario, 6 steps,
                tuned by the model) within 1e-6·max|v| with equal manifests
@@ -208,13 +229,13 @@ Phases, each followed by a JSON line with its seconds:
                --train-while-generating`` (both workers rc 0, the queue
                settled, the trainer's validation MAE); ``--scenarios`` over
                ``serve_check``'s feedback log, its shards read back with CRCs;
-23. kset_main  Proposed 2 as 2SET at main's mesh and 150 springs: two cases,
+24. kset_main  Proposed 2 as 2SET at main's mesh and 150 springs: two cases,
                θ of both resident on the card (2 × 7.08 GB), 4 steps of
                ``run_ensemble``, against each case alone in the same resident
                form (s/step, iterations, parts, peak device memory); one
                k-set multispring launch per step and one k-set EBE launch per
                matvec; lanes ≡ the single runs within 1e-6·max|v|;
-24. campaign_main  the campaign at full width through ``run_campaign(...,
+25. campaign_main  the campaign at full width through ``run_campaign(...,
                device=None)`` (kset_main's 2SET carry parked on the host):
                (a) Proposed 2, kset 2, M 3 (two rounds, the tail padded), 4
                steps, unguarded and guarded — per chunk s/step per case, peak
@@ -224,20 +245,20 @@ Phases, each followed by a JSON line with its seconds:
                is 14.16 GB), stopped after step 2 and resumed, bitwise (a)'s
                guarded round 0, with each checkpoint's bytes and seconds to
                copy, write, CRC and restore, and the free disk before;
-25. campaign_mp  the multi-process campaign through the CLI
+26. campaign_mp  the multi-process campaign through the CLI
                (``python -m repro_torch.launch.campaign``, one process each)
-               at main's size: Proposed 2, 150 springs, k 1, 5 waves of 4
+               at main's size: Proposed 2, 150 springs, k 1, 3 waves of 4
                steps, a checkpoint every 2; one process as the reference,
                then two processes on the card (``--num-processes 2``),
                stopped after step 2 and relaunched: each process's banked
                rounds bitwise the one-process rows (process 1's padded lane
-               bitwise case 4), ``OUT/p00`` ∪ ``OUT/p01`` the one-process
+               bitwise case 2), ``OUT/p00`` ∪ ``OUT/p01`` the one-process
                shards, the pair's checkpoint refused by one process ("world
                size"), each worker's FEM kernel launches; per process and
                chunk s/step per case and peak device bytes, checkpoint bytes
                and seconds, cases/s and the pair's summed rate against one
                process's;
-26. timing     each kernel at the shapes its main path gives it, against its
+27. timing     each kernel at the shapes its main path gives it, against its
                plain version, its bound and (flash) SDPA, with flash held in
                fp32 and bf16 there too and timed in both (fp32 against the
                3×TF32 bound and the fp32 cores' bound, also at gemma2-2b's
@@ -246,7 +267,9 @@ Phases, each followed by a JSON line with its seconds:
                S 8,192, softcap 50), its (192, 128) one at deepseek-v2's MLA
                (B 1, 128 heads, S 2,048, dh 192, dv 128) and its (128, 128)
                one at mixtral-8x22b's (B 2, Hq 48 over Hkv 8, S 6,144, window
-               4,096) and at zamba2's (B 2, 32 heads, S 4,096, dh 112), its
+               4,096), at zamba2's (B 2, 32 heads, S 4,096, dh 112), at
+               granite-8b's (B 4, Hq 32 over Hkv 8, S 4,096) and at llama3-405b's
+               (B 1, Hq 128 over Hkv 8, S 8,192), its
                (64, 64) one at internvl2's (B 4, Hq 14 over Hkv 2, S 4,096)
                and whisper's (B 8, 12 heads: the encoder's 1,500 × 1,500 and
                the cross attention's 128 × 1,500, non-causal; the decoder's
@@ -265,7 +288,7 @@ Phases, each followed by a JSON line with its seconds:
                ``torch.nn.LSTM`` (cuDNN) at B 4, T 4,000, H 1,024, forward and
                forward + backward, and ``ssm_scan`` against its loop at T ∈
                {256, 1,024, 4,096, 16,000} (``{"outside_pallas": [...]}``);
-27. plan_main  the planning and scheduling layer at main's size, 150 springs,
+28. plan_main  the planning and scheduling layer at main's size, 150 springs,
                with a calibration table written from ``timing``'s own kernel
                times (the multispring block and the fp64 EBE product as
                backend ``cuda``, their plain versions as ``torch``): (a) the
@@ -323,6 +346,8 @@ FLASH_CASES = [
     (1, 4, 2, 100, 150, 192, 128, True, None, None, False),  # MLA's dh ≠ dv
     (1, 2, 1, 50, 90, 36, 20, True, None, None, True),     # dh, dv not multiples of 8: bf16 pads for TMA
     (1, 4, 2, 1, 4096, 128, 128, True, None, None, False),  # one query row against a long cache
+    (1, 128, 8, 1024, 1024, 128, 128, True, None, None, True),  # llama3-405b's heads: a GQA group of 16
+    (1, 32, 2, 64, 96, 128, 128, True, None, None, False),   # the same group of 16, small enough to run whole
 ]
 # the shapes the SSM, hybrid, encoder-decoder and VLM families give the kernel: non-causal
 # with a ragged tail over many key tiles (whisper's encoder, S 1,500), Sq < Skv (its cross
@@ -1190,20 +1215,21 @@ def campaign_main(mesh, cfg, waves, kset_v, root):
     return plain["launches"]
 
 
-# campaign_mp: the campaign CLI at main's size (Proposed 2, 150 springs, k 1), 5 waves of
-# 4 steps, a checkpoint every 2: one process, then two processes on the one card
-CAMPAIGN_MP_FLAGS = ["--waves", "5", "--nt", "4", "--mesh-n", "64x64x12", "--nspring", "150",
+# campaign_mp: the campaign CLI at main's size (Proposed 2, 150 springs, k 1), 3 waves of
+# 4 steps (cut from 5 to fit the run's time limit), a checkpoint every 2: one process,
+# then two processes on the one card
+CAMPAIGN_MP_FLAGS = ["--waves", "3", "--nt", "4", "--mesh-n", "64x64x12", "--nspring", "150",
                      "--method", "proposed2", "--kset", "1", "--ckpt-every", "2"]
 CAMPAIGN_MP_TIMEOUT_S = {"one": 300, "pair_stopped": 240, "pair_resumed": 300}
 _CLI_RECORD = re.compile(r"\[(chunk|checkpoint|launches)\] (\{.*\})$")
 
 
-def _spawn_campaign_cli(argvs, log_dir, name, timeout):
-    """Each argv as ``python -m repro_torch.launch.campaign`` in a process of
-    its own, all started at once, each writing a log file (a pipe left full
-    would stall a sibling at a barrier).  A child that exits non-zero, or a
-    launch that outlives ``timeout``, fails the phase; its siblings are
-    killed.  Returns each child's output and wall seconds."""
+def _spawn(argvs, log_dir, name, timeout):
+    """Each argv as ``python <argv>`` in a process of its own, all started at
+    once, each writing a log file (a pipe left full would stall a sibling at
+    a barrier).  A child that exits non-zero, or a launch that outlives
+    ``timeout``, fails the phase; its siblings are killed.  Returns each
+    child's output and wall seconds."""
     src = os.path.join(ROOT, "src")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (src, os.environ.get("PYTHONPATH")) if p))
     procs, logs, walls = [], [], [None] * len(argvs)
@@ -1211,18 +1237,18 @@ def _spawn_campaign_cli(argvs, log_dir, name, timeout):
     try:
         for i, argv in enumerate(argvs):
             logs.append(open(os.path.join(log_dir, f"{name}_{i}.log"), "w+"))
-            procs.append(subprocess.Popen([sys.executable, "-m", "repro_torch.launch.campaign", *argv],
-                                          stdout=logs[-1], stderr=subprocess.STDOUT, env=env, cwd=ROOT))
+            procs.append(subprocess.Popen([sys.executable, *argv], stdout=logs[-1], stderr=subprocess.STDOUT,
+                                          env=env, cwd=ROOT))
         while None in walls:
             for i, p in enumerate(procs):
                 if walls[i] is None and p.poll() is not None:
                     walls[i] = time.perf_counter() - t0
                     if p.returncode:
                         logs[i].seek(0)
-                        raise AssertionError(f"campaign_mp {name}: process {i} exited {p.returncode}:\n"
+                        raise AssertionError(f"{name}: process {i} exited {p.returncode}:\n"
                                              f"{logs[i].read()[-4000:]}")
             if time.perf_counter() - t0 > timeout:
-                raise AssertionError(f"campaign_mp {name}: not done within {timeout} s")
+                raise AssertionError(f"{name}: not done within {timeout} s")
             time.sleep(0.2)
         outs = []
         for f in logs:
@@ -1257,12 +1283,12 @@ def _host_mem_available():
 def campaign_mp(root):
     """The multi-process campaign through the CLI, as a user runs it, at
     main's size (64×64×12, 150 springs, Proposed 2, k 1; θ of a case, 7.08
-    GB, on the card, as the campaign's k-set keeps it), 5 waves of 4 steps,
+    GB, on the card, as the campaign's k-set keeps it), 3 waves of 4 steps,
     a checkpoint every 2: (1) one process, as the reference; (2) two
     processes on the one card (``--num-processes 2``), stopped after step 2;
     (3) the pair relaunched, resuming.  Each process's banked rounds are
     bitwise the one-process run's rows (process 1's padded lane bitwise
-    case 4), the union of ``OUT/p00`` and ``OUT/p01`` is the one-process
+    case 2), the union of ``OUT/p00`` and ``OUT/p01`` is the one-process
     shards, a one-process manager refuses the pair's checkpoints, and every
     worker launched the FEM kernels.  Returns the workers' summed launches."""
     import shutil
@@ -1284,17 +1310,18 @@ def campaign_mp(root):
     emit({"campaign_mp_before": before})
     one_ck, one_out = os.path.join(root, "one_ckpt"), os.path.join(root, "one_out")
     mp_ck, mp_out = os.path.join(root, "mp_ckpt"), os.path.join(root, "mp_out")
-    (one,), (one_s,) = _spawn_campaign_cli([CAMPAIGN_MP_FLAGS + ["--ckpt-dir", one_ck, "--out", one_out]],
-                                           root, "one", CAMPAIGN_MP_TIMEOUT_S["one"])
+    cli = ["-m", "repro_torch.launch.campaign", *CAMPAIGN_MP_FLAGS]
+    (one,), (one_s,) = _spawn([cli + ["--ckpt-dir", one_ck, "--out", one_out]], root, "one",
+                              CAMPAIGN_MP_TIMEOUT_S["one"])
     for name in os.listdir(one_ck):  # its banked rounds are what the pair is held to; the steps free the disk
         if name.startswith("step_"):
             shutil.rmtree(os.path.join(one_ck, name))
 
     def pair(name, *extra):
         port = free_port()
-        return _spawn_campaign_cli(
-            [CAMPAIGN_MP_FLAGS + ["--ckpt-dir", mp_ck, "--out", mp_out, "--coordinator", f"127.0.0.1:{port}",
-                                  "--num-processes", "2", "--process-id", str(p), *extra] for p in range(2)],
+        return _spawn(
+            [cli + ["--ckpt-dir", mp_ck, "--out", mp_out, "--coordinator", f"127.0.0.1:{port}",
+                    "--num-processes", "2", "--process-id", str(p), *extra] for p in range(2)],
             root, name, CAMPAIGN_MP_TIMEOUT_S[name])
 
     stopped, stopped_s = pair("pair_stopped", "--stop-after-steps", "2")
@@ -1304,7 +1331,7 @@ def campaign_mp(root):
     runs = {"one": [one], "pair_stopped": stopped, "pair_resumed": resumed}
     recs = {k: [_cli_records(o) for o in outs] for k, outs in runs.items()}
     # the one-process run's banked rounds (round r is case r at k 1) against the pair's (round r of
-    # process p is lane 2r + p; lane 5 pads with a repeat of case 4)
+    # process p is lane 2r + p; a lane past the last case pads with a repeat of it)
     n_waves = int(CAMPAIGN_MP_FLAGS[CAMPAIGN_MP_FLAGS.index("--waves") + 1])
 
     def banked(path):
@@ -1370,7 +1397,8 @@ def campaign_mp(root):
     require(all(same) and all(r["committed"] for r in rounds), f"campaign_mp: a round differs {rounds}")
     require(all(np.isfinite(r["max_abs_v"]) and r["max_abs_v"] > 0 for r in rounds),
             "campaign_mp: a velocity history is not finite or moved nothing")
-    require(shards_same and per_process == {0: 3, 1: 2}, f"campaign_mp: shards {match} {per_process}")
+    require(shards_same and per_process == {0: (n_waves + 1) // 2, 1: n_waves // 2},
+            f"campaign_mp: shards {match} {per_process}")
     require("world size" in refused, f"campaign_mp: one process resumed the pair's checkpoint: {refused}")
     for p, w in enumerate(worker):
         require(all(w[k] > 0 for k in ("multispring", *KSET_KERNELS)), f"campaign_mp: worker {p} launched {w}")
@@ -1388,7 +1416,7 @@ SURROGATE_CAMPAIGN_FLAGS = ["--waves", "4", "--nt", "16", "--mesh-n", "3x3x3", "
 # longest latent sequence (n_c 2: T/4 LSTM steps), on the paper's dataset shape
 SURROGATE_MAIN = dict(n_c=2, n_lstm=3, kernel=65, latent=1024, lr=1.75e-4)
 SURROGATE_DATA = dict(n_waves=100, nt=16000, shard_size=16, fir_taps=64)
-SURROGATE_FIT = dict(steps=6, batch=4, val_shards=1, steps_per_shard=2)
+SURROGATE_FIT = dict(steps=4, batch=4, val_shards=1, steps_per_shard=2)  # cut from 6 steps for the time limit
 
 
 def _smooth_pairs(n, nt, seed):
@@ -1598,8 +1626,8 @@ def surrogate_main(root):
     """The CNN+LSTM at the widest point of the paper's search space (latent
     1024, n_lstm 3, kernel 65, n_c 2) trained through ``fit_shards`` on the
     paper's dataset shape (100 waves × 16,000 samples × 3, shards of 16)
-    on the card, 6 Adam steps; the trajectory surrogate (defaults) through
-    ``fit_trajectory_shards`` on the same shards, 6 steps, then ``step``
+    on the card, 4 Adam steps; the trajectory surrogate (defaults) through
+    ``fit_trajectory_shards`` on the same shards, 4 steps, then ``step``
     over 512 samples of one wave against ``apply(scan="seq")``.  From the
     path itself (``_timed``): s per Adam step (the first, cold, and the
     warm ones) and s per validation ``predict`` (16 waves); s of each
@@ -2545,6 +2573,10 @@ FAMILY_FLASH = (
      None, None),
     ("flash_attention_bf16_d64_whisper_decoder", ("whisper-small decoder",), 8, 12, 12, 128, 128, 64, 64, True,
      None, None, None),
+    ("flash_attention_bf16_d128_granite", ("granite-8b prefill",), 4, 32, 8, 4096, 4096, 128, 128, True, None,
+     None, None),
+    ("flash_attention_bf16_d128_llama3", ("llama3-405b prefill",), 1, 128, 8, 8192, 8192, 128, 128, True, None,
+     None, None),
 )
 
 
@@ -2888,6 +2920,272 @@ def lm_families(dev):
     return by_path
 
 
+# lm_tail: granite-8b whole and llama3-405b at its published widths, 2 of 126 layers (10.6 G
+# parameters, 42.3 GB in fp32, mixtral's cut), bf16 compute over fp32 parameters, greedy
+TAIL_MAIN = {
+    "granite-8b": dict(cut={}, B=4, prompt=4096, new_tokens=32),
+    "llama3-405b": dict(cut={"n_layers": 2}, B=1, prompt=8192, new_tokens=32),
+}
+TAIL_CPU = dict(B=1, prompt=256, new_tokens=4)  # granite-8b full width, 2 layers, fp32: card ≡ CPU
+COMPRESSION_STEPS = 5
+COMPRESSION_TIMEOUT_S = 600
+
+
+def _prefill_then_decode(params, cfg, toks, S0, forward=True):
+    """Prefill ``toks[:, :S0]``, then decode the rest a token at a time →
+    (the logits of every position from S0 − 1 on, [B, n, V], on the host;
+    ``forward``'s logits at the same positions, or None)."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    lg, st = T.prefill(params, cfg, {"tokens": toks[:, :S0]}, cache_len=toks.shape[1])
+    out = [lg[:, 0]]
+    for i in range(S0, toks.shape[1]):
+        lg, st = T.decode_step(params, cfg, toks[:, i:i + 1], st)
+        out.append(lg[:, 0])
+    fwd = None
+    if forward:
+        with torch.no_grad():
+            fwd = T.forward(params, cfg, {"tokens": toks})[0][:, S0 - 1:].cpu()
+    return torch.stack(out, 1).cpu(), fwd
+
+
+def _tree_nbytes(tree):
+    from repro_torch.utils.tree import tree_leaves
+
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree) if hasattr(x, "element_size"))
+
+
+def lm_tail(dev):
+    """granite-8b and llama3-405b on the card.  (a) granite at full width, 2
+    layers, fp32, B 1 × 256 (+ 4 decode steps): card against CPU and
+    prefill→decode against ``forward`` on the card, 5e-5·max|logits|, greedy
+    tokens equal (the fp32 flash kernel, twice a layer).  (b) Each of
+    ``TAIL_MAIN`` at bf16 over fp32 parameters: prefill (one launch of the
+    bf16 kernel's (128, 128) instance a layer: 36 for granite, 2 for llama3),
+    3 warm prefills, then ``serving/decode.generate`` of 32 greedy tokens
+    (its prefill's launches and none more); the dry run's FLOP count for
+    the same cell (its depth, the card mesh, fp32 parameters) equal to
+    ``FlopCounterMode``'s over a warm prefill on the card, the achieved
+    TFLOP/s and its share of the dense bf16 peak; ``tree_bytes`` of the
+    card's parameters and caches equal to the bytes the card holds.
+    llama3 also prefills→decodes against ``forward`` in fp32 on the same
+    parameters (B 1 × 256 + 4, 5e-5·max|logits|).  Returns the bf16
+    launches by path."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, hlo_analysis as H
+    from repro_torch.launch.mesh import make_card_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding
+    from repro_torch.serving import decode as serve
+    from repro_torch.utils.tree import tree_leaves
+
+    cpu, card = torch.device("cpu"), make_card_mesh()
+
+    def fp32_check(name, cfg, params_gpu, params_cpu=None):
+        """prefill + decode on the card against the CPU (when given) and
+        against ``forward`` on the card, fp32 (cfg's parameters as they are)."""
+        B, S0, NEW = TAIL_CPU["B"], TAIL_CPU["prompt"], TAIL_CPU["new_tokens"]
+        toks = torch.randint(0, cfg.vocab_size, (B, S0 + NEW), generator=torch.Generator().manual_seed(1))
+        kernels.reset_launch_counts()
+        gpu, fwd = _prefill_then_decode(params_gpu, cfg, toks.to(dev), S0)
+        launches = kernels.instance_counts()
+        scale = float(gpu.abs().max())
+        row = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype, "B": B, "prompt": S0,
+               "decode_steps": NEW, "max_abs_err_vs_forward": float((gpu - fwd).abs().max()), "atol": 5e-5 * scale,
+               "flash_launches": launches}
+        if params_cpu is not None:
+            ref, _ = _prefill_then_decode(params_cpu, cfg, toks, S0, forward=False)
+            row["max_abs_err_vs_cpu"] = float((gpu - ref).abs().max())
+            row["greedy_tokens_equal"] = torch.equal(gpu.argmax(-1), ref.argmax(-1))
+            require(row["max_abs_err_vs_cpu"] <= 5e-5 * float(ref.abs().max()),
+                    f"{name}: logits on the card differ from the CPU: {row['max_abs_err_vs_cpu']}")
+            require(row["greedy_tokens_equal"], f"{name}: greedy tokens differ between card and CPU")
+        emit({"lm_tail_fp32": row})
+        require(launches == {"flash_attention_bf16": 0, "flash_attention_f32": 2 * cfg.n_layers},
+                f"{name}: fp32 prefill + forward made flash launches {launches}")
+        require(row["max_abs_err_vs_forward"] <= 5e-5 * scale,
+                f"{name}: prefill→decode differs from forward on the card: {row['max_abs_err_vs_forward']}")
+
+    cfg_s = dataclasses.replace(ARCHS["granite-8b"], n_layers=2, dtype="float32")
+    p_cpu = T.init_params(cfg_s, torch.Generator().manual_seed(0), cpu)
+    p_gpu = _tree_to(p_cpu, dev)
+    fp32_check("granite-8b", cfg_s, p_gpu, p_cpu)
+    del p_cpu, p_gpu
+
+    by_path = {}
+    for name, spec in TAIL_MAIN.items():
+        cfg = dataclasses.replace(ARCHS[name], **spec["cut"])
+        B, S0, NEW = spec["B"], spec["prompt"], spec["new_tokens"]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident_before = torch.cuda.memory_allocated()
+        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        n_params = sum(x.numel() for x in tree_leaves(params))
+        prompt = torch.randint(0, cfg.vocab_size, (B, S0), device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(1))
+        batch, C = {"tokens": prompt}, S0 + NEW
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()  # counts of this model's path only
+        t0 = time.perf_counter()
+        logits, state = T.prefill(params, cfg, batch, cache_len=C)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_launches, prefill_by_instance = kernels.instance_counts(), _by_instance()
+        require(bool(torch.isfinite(logits).all()), f"{name}: prefill logits not finite")
+        require(prefill_launches == {"flash_attention_bf16": cfg.n_layers, "flash_attention_f32": 0}
+                and prefill_by_instance == {wgmma_key(128, 128): cfg.n_layers},
+                f"{name}: prefill's flash launches {prefill_launches}, {prefill_by_instance}, not {cfg.n_layers} "
+                f"of (128, 128)")
+        by_path[f"{name} prefill"] = prefill_launches["flash_attention_bf16"]
+        # the trees the card holds, as the dry run's accounting counts them on the card's mesh
+        rules = sharding.rules_for(cfg, card, kind="prefill", global_batch=B, seq_len=S0)
+        held = {"params": (H.tree_bytes(params, T.param_specs(cfg), card, rules), _tree_nbytes(params)),
+                "caches": (H.tree_bytes(state, T.cache_specs(cfg), card, rules), _tree_nbytes(state))}
+        del logits, state
+        warm = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = T.prefill(params, cfg, batch, cache_len=C)
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+            del again
+        with FlopCounterMode(display=False) as fc:
+            T.prefill(params, cfg, batch, cache_len=C)
+        card_flops = fc.get_total_flops()
+        dry = dryrun.trace_cell(cfg, ShapeConfig(f"{name}_prefill", "prefill", S0, B), card)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = serve.generate(params, cfg, prompt, NEW)
+        torch.cuda.synchronize()
+        generate_s = time.perf_counter() - t0
+        gen_launches, gen_by_instance = kernels.instance_counts(), _by_instance()
+        peak = torch.cuda.max_memory_allocated()
+        achieved, peak_tflops = card_flops / min(warm) / 1e12, PEAK_FLOPS["torch.bfloat16"] / 1e12
+        row = {"arch": cfg.name, "layers": cfg.n_layers, "layers_published": ARCHS[name].n_layers, "params": n_params,
+               "B": B, "prompt": S0, "new_tokens": NEW, "prefill_s": prefill_s, "prefill_warm_s": warm,
+               "prefill_warm_tokens_per_s": B * S0 / min(warm), "generate_s": generate_s,
+               "generate_tokens_per_s": B * NEW / generate_s,
+               "decode_tokens_per_s_after_warm_prefill": B * NEW / (generate_s - min(warm)),
+               "peak_device_bytes": peak, "resident_before_bytes": resident_before,
+               "flash_launches_prefill": prefill_launches, "flash_launches_prefill_by_instance": prefill_by_instance,
+               "flash_launches_generate": gen_launches, "flops_card": card_flops, "flops_dryrun": dry["flops_global"],
+               "dryrun_trace_s": dry["trace_s"], "dryrun_argument_bytes": dry["memory"]["argument_bytes"],
+               "achieved_tflop_per_s": achieved, "share_of_bf16_peak": achieved / peak_tflops,
+               "tree_bytes_vs_held": held, "tokens_row0": out[0, S0:S0 + 8].tolist()}
+        print(f"{name}: prefill {B} × {S0} achieves {achieved:.1f} TFLOP/s, {100 * achieved / peak_tflops:.1f}% "
+              f"of the {peak_tflops:.0f} TFLOP/s dense bf16 peak", flush=True)
+        emit({"lm_tail": row})
+        require(tuple(out.shape) == (B, S0 + NEW) and torch.equal(out[:, :S0], prompt), f"{name}: generate's tokens")
+        require(gen_launches == prefill_launches and gen_by_instance == prefill_by_instance,
+                f"{name}: generate made flash launches {gen_launches}, not its prefill's alone")
+        require(card_flops == dry["flops_global"] > 0,
+                f"{name}: FLOPs on the card {card_flops} ≠ the dry run's {dry['flops_global']}")
+        require(all(a == b for a, b in held.values()), f"{name}: tree_bytes ≠ the bytes the card holds: {held}")
+        if name == "llama3-405b":
+            fp32_check(name, dataclasses.replace(cfg, dtype="float32"), params)
+        del params, prompt, batch, out
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def compression_worker(rank, port, device, out):
+    """One of two processes of ``compression_on_card``: a gloo group, then
+    ``compressed_mean_grads`` for ``COMPRESSION_STEPS`` steps over the leaf
+    shapes of two full-width qwen3-1.7b layers, on ``device`` and, from the
+    same seeded gradients copied to the host, on the CPU, each carrying its
+    residual; writes each step's error against the exact mean, whether card
+    ≡ CPU bitwise, and a digest of the mean (both ranks must hold the same)
+    to ``out``."""
+    import hashlib
+
+    import torch
+    import torch.distributed as torch_dist
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.compression import compressed_mean_grads, init_residual
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    torch_dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=2)
+    cfg = dataclasses.replace(ARCHS["qwen3-1.7b"], n_layers=2)
+    layers = T.init_params(cfg, torch.Generator(), torch.device("meta"))["layers"]  # shapes only
+
+    def grads(step, member):
+        g = torch.Generator(device=device).manual_seed(1000 * step + member)
+        return tree_map(lambda x: (1 + member) * torch.randn(x.shape, generator=g, device=device), layers)
+
+    def host(tree):
+        return tree_leaves(tree_map(lambda x: x.cpu(), tree))
+
+    rows, r_card, r_cpu = [], None, None
+    for step in range(COMPRESSION_STEPS):
+        g = grads(step, rank)
+        g_cpu = tree_map(lambda x: x.cpu(), g)
+        r_card, r_cpu = (r_card, r_cpu) if r_card else (init_residual(g), init_residual(g_cpu))
+        t0 = time.perf_counter()
+        mean, r_card = compressed_mean_grads(g, r_card)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mean_cpu, r_cpu = compressed_mean_grads(g_cpu, r_cpu)
+        t2 = time.perf_counter()
+        exact = tree_map(lambda a, b: (a + b) / 2, grads(step, 0), grads(step, 1))
+        got = host(mean)
+        rows.append({"step": step, "err": max(float((a - e).abs().max()) for a, e in zip(tree_leaves(mean),
+                                                                                           tree_leaves(exact))),
+                     "bound": 0.05 * max(float(e.abs().max()) for e in tree_leaves(exact)) + 1e-3,
+                     "card_cpu_bitwise": all(torch.equal(a, b) for a, b in zip(got, tree_leaves(mean_cpu))),
+                     "digest": hashlib.sha256(b"".join(a.numpy().tobytes() for a in got)).hexdigest(),
+                     "s_card": t1 - t0, "s_cpu": t2 - t1})
+        del g, g_cpu, mean, mean_cpu, exact, got
+    residual_bitwise = all(torch.equal(a, b) for a, b in zip(host(r_card), tree_leaves(r_cpu)))
+    n = sum(x.numel() for x in tree_leaves(r_cpu))
+    torch_dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump({"rank": rank, "device": str(device), "elements": n, "steps": rows,
+                   "residual_card_cpu_bitwise": residual_bitwise}, f)
+
+
+def compression_on_card(root, device="cuda"):
+    """Two processes on the one card in a gloo group (as ``campaign_mp``
+    starts its workers), ``compressed_mean_grads`` over two full-width
+    qwen3-1.7b layers' gradient shapes (CUDA tensors, 5 steps, the residual
+    carried): each step's mean within the reference test's bound of the
+    exact mean, bitwise the same processes' run on CPU tensors, and the same
+    on both ranks."""
+    from repro_torch.parallel.distributed import free_port
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    port = free_port()
+    outs = [os.path.join(root, f"rank{r}.json") for r in range(2)]
+    code = "import sys, chip_smoke; chip_smoke.compression_worker(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:])"
+    _, walls = _spawn([["-c", code, str(r), str(port), device, outs[r]] for r in range(2)], root, "compression",
+                      COMPRESSION_TIMEOUT_S)
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    emit({"compression": {"ranks": ranks, "wall_s": walls, "leaves": "two qwen3-1.7b layers' gradients"}})
+    for rk in ranks:
+        for row in rk["steps"]:
+            require(row["err"] < row["bound"], f"compression rank {rk['rank']} step {row['step']}: {row}")
+            require(row["card_cpu_bitwise"], f"compression rank {rk['rank']} step {row['step']}: card ≠ CPU")
+        require(rk["residual_card_cpu_bitwise"], f"compression rank {rk['rank']}: the residual card ≠ CPU")
+    require(all(a["digest"] == b["digest"] for a, b in zip(ranks[0]["steps"], ranks[1]["steps"])),
+            "compression: the two ranks hold different means")
+
+
 def flex_mods(window, cap):
     """``flex_attention``'s score_mod (the softcap on the scaled score) and
     mask_mod (causal, and the window) of a softcapped row, Sq = Skv."""
@@ -2913,17 +3211,6 @@ def flex_softcap(dev, S, window, cap, scale):
     block_mask = create_block_mask(mask_mod, None, None, S, S, device=dev)
     flex = torch.compile(flex_attention, dynamic=False)
     return lambda q, k, v: flex(q, k, v, score_mod=score_mod, block_mask=block_mask, scale=scale, enable_gqa=True)
-
-
-def kept_pairs(Sq, Skv, causal, window):
-    """(query, key) pairs that the causal mask (aligned at Skv − Sq) and the
-    window keep."""
-    off, kept = Skv - Sq, 0
-    for i in range(Sq):
-        hi = min(Skv, i + off + 1) if causal else Skv
-        lo = max(0, i + off - window + 1) if window else 0
-        kept += max(0, hi - lo)
-    return kept
 
 
 def flash_batch_check(dev):
@@ -2961,7 +3248,8 @@ def family_flash_rows(dev, sdpa, launches):
     """timing's rows for the bf16 flash kernel at the families' prefill
     shapes (the instance ``wgmma_instance`` picks: (256, 256) for gemma2,
     (192, 128) for MLA, (128, 128) for mixtral's window of 4,096 at a GQA
-    group of 6 and for zamba2's dh 112, (64, 64) for internvl2's GQA group of
+    group of 6, for zamba2's dh 112 and for granite-8b's and llama3-405b's
+    GQA groups of 4 and 16, (64, 64) for internvl2's GQA group of
     7 and whisper's non-causal encoder and cross attention and its causal
     decoder), laid out as the layers
     give them (q and k contiguous, v a transposed view of its projection):
@@ -3002,7 +3290,7 @@ def family_flash_rows(dev, sdpa, launches):
             require(flex_ratio <= 1.0, f"{name}: flex_attention disagrees with the plain version: {flex_ratio}")
             del out_l
         del ref32, out_p
-        flops = 2 * B * Hq * kept_pairs(Sq, S, causal, window) * (dh + dv)
+        flops = 2 * B * Hq * fa_ops.visible_pairs(Sq, S, causal, window) * (dh + dv)
         b_ms, by = bound(nbytes(q, k, v, out_k), flops, bf)
         ms = cuda_ms(lambda: fa_ops.flash_attention_cuda(q, k, v, **kw), 10)
         if window is None:
@@ -3713,6 +4001,12 @@ def main() -> int:
         # card for serve_main
         families_launches = lm_families(dev)
 
+    with Phase("lm_tail"):
+        # granite-8b whole and llama3-405b (2 of 126 layers) after the families have been
+        # freed; lm_main's qwen3 stays on the card for serve_main
+        tail_launches = lm_tail(dev)
+        compression_on_card(os.path.join(ROOT, "build", "compression"))
+
     # the train CLI's processes run beside train_cpu; train_main reads them
     cli = train_cli_start(os.path.join(ROOT, "build", "train_cli"))
     with Phase("train_cpu"):
@@ -4085,7 +4379,7 @@ def main() -> int:
         del q, k, v, out_k, out_p
         # the (256, 256) instance at gemma2-2b's (local, global) prefill shapes, (192, 128) at
         # deepseek-v2's MLA, (128, 128) at mixtral's (window 4,096, GQA group 6)
-        rows.extend(family_flash_rows(dev, sdpa, families_launches))
+        rows.extend(family_flash_rows(dev, sdpa, {**families_launches, **tail_launches}))
         # breakdown of one prefill at lm_main's shape (CUDA events)
         x = torch.randn((4, S, qwen.d_model), device=dev, generator=g).to(torch.bfloat16)
         lp = T.layer(params["layers"], 0)

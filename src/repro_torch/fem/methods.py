@@ -289,8 +289,8 @@ class FemOperators:
         return mv
 
     def _diag_add(self, alpha):
-        dt = self.cfg.dt
-        return (4.0 / dt**2 + 2.0 * _lane(alpha) / dt) * self.mass[:, None] + (2.0 / dt) * self.dash
+        c_m, c_d = newmark.a_coefficients(self.cfg.dt, _lane(alpha))
+        return c_m * self.mass[:, None] + c_d * self.dash
 
     def ebe_matvec_A(self, D, beta_e, alpha):
         """x ↦ A x in x's dtype: the fp64 outer solve and the fp32 inner one.

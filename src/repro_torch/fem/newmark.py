@@ -43,3 +43,12 @@ def advance(state: NewmarkState, du: torch.Tensor, q_new: torch.Tensor, dt: floa
     v_new = -state.v + (2.0 / dt) * du
     a_new = -state.a - (4.0 / dt) * state.v + (4.0 / dt**2) * du
     return NewmarkState(u=state.u + du, v=v_new, a=a_new, q=q_new)
+
+
+def a_coefficients(dt: float, alpha):
+    """(c_m, c_d): A = c_m·diag(m) + c_d·diag(dash) + Σ_e (1+2β_e/dt) K_e.
+
+    c_m folds the mass term and the α-Rayleigh part of C (``alpha`` a float,
+    or a tensor of one α a k-set lane); c_d is the dashpot's 2/dt factor.
+    """
+    return 4.0 / dt**2 + 2.0 * alpha / dt, 2.0 / dt

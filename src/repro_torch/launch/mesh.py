@@ -9,10 +9,18 @@ group (:func:`repro_torch.launch.bootstrap.distributed_init`) it is a
 :func:`repro_torch.campaign.runner.case_topology` turns into each
 process's contiguous block of case lanes.  Several devices in one process
 raise until a machine with several cards is supported.
+
+The production meshes of the JAX package, (16, 16) over (data, model) and
+(2, 16, 16) over (pod, data, model), and its small host mesh are
+:class:`LogicalMesh` layouts here: named axes and their sizes, no devices.
+The dry run (:mod:`repro_torch.launch.dryrun`) accounts for a cell over
+one of them, per device; nothing is placed.  :func:`make_card_mesh` is the
+one card, (1, 1).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import numpy as np
@@ -60,3 +68,55 @@ def make_case_mesh(n_devices: int | None = None, axis: str = "case", device=None
     entries = np.empty(world, dtype=object)
     entries[:] = [CaseDevice(p, device) for p in range(world)]
     return CaseMesh(entries, (axis,))
+
+
+@dataclasses.dataclass(frozen=True)
+class LogicalMesh:
+    """Named axes of ``shape`` devices, for accounting: what the JAX package's
+    ``jax.make_mesh`` describes, without the devices.  ``shape`` plays the
+    part of ``mesh.devices.shape``."""
+
+    shape: tuple[int, ...]
+    axis_names: tuple[str, ...]
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axis_names) or len(set(self.axis_names)) != len(self.axis_names):
+            raise ValueError(f"mesh shape {self.shape} over axes {self.axis_names}: one distinct name an axis")
+        if any(not isinstance(n, int) or n < 1 for n in self.shape):
+            raise ValueError(f"mesh shape {self.shape}: every axis needs a size ≥ 1")
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def sizes(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.shape))
+
+    @property
+    def name(self) -> str:
+        return "x".join(map(str, self.shape))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> LogicalMesh:
+    """(16, 16) over (data, model), or (2, 16, 16) over (pod, data, model)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return LogicalMesh(shape, axes)
+
+
+def make_host_mesh(shape=(2, 4), axes=("data", "model")) -> LogicalMesh:
+    """The JAX package's small mesh for its multi-device host tests."""
+    return LogicalMesh(tuple(shape), tuple(axes))
+
+
+def make_card_mesh() -> LogicalMesh:
+    """One card: (1, 1) over (data, model)."""
+    return LogicalMesh((1, 1), ("data", "model"))
+
+
+def parse_mesh(spec: str) -> LogicalMesh:
+    """``"1x1"``, ``"2x4"``, … over (data, model), with ``pod`` in front for
+    three sizes."""
+    shape = tuple(int(n) for n in spec.lower().split("x"))
+    return LogicalMesh(shape, ("pod", "data", "model") if len(shape) == 3 else ("data", "model"))

@@ -54,8 +54,22 @@ def zeros(shape, dtype, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def stacked(stack: tuple, spec_tree):
+    """Prepend one replicated ``"layers"`` axis a stack dimension to every
+    logical-axis tuple of ``spec_tree``: the specs of the ``init_*`` of the
+    same ``stack``."""
+    pre = ("layers",) * len(stack)
+    if isinstance(spec_tree, dict):
+        return {k: stacked(stack, v) for k, v in spec_tree.items()}
+    return pre + spec_tree
+
+
 def init_rmsnorm(d, cfg, stack: tuple = (), *, device) -> torch.Tensor:
     return ones(stack + (d,), pdt(cfg), device)
+
+
+def rmsnorm_specs(stack: tuple = ()):
+    return stacked(stack, ("embed",))
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -67,6 +81,10 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
 
 def init_layernorm(d, cfg, stack: tuple = (), *, device) -> dict:
     return {"scale": ones(stack + (d,), pdt(cfg), device), "bias": zeros(stack + (d,), pdt(cfg), device)}
+
+
+def layernorm_specs(stack: tuple = ()) -> dict:
+    return stacked(stack, {"scale": ("embed",), "bias": ("embed",)})
 
 
 def layernorm(x: torch.Tensor, p: dict, eps: float = 1e-6) -> torch.Tensor:
@@ -207,6 +225,16 @@ def init_attention(generator, cfg: ModelConfig, stack: tuple = (), *, device) ->
     return p
 
 
+def attention_specs(cfg: ModelConfig, stack: tuple = ()) -> dict:
+    """Logical axes of :func:`init_attention`'s tree, leaf for leaf."""
+    s = {"wq": ("fsdp", "heads", None), "wk": ("fsdp", "kv_heads", None), "wv": ("fsdp", "kv_heads", None),
+         "wo": ("heads", None, "fsdp")}
+    if cfg.qk_norm:
+        s["q_norm"] = (None,)
+        s["k_norm"] = (None,)
+    return stacked(stack, s)
+
+
 def attention(
     params: dict,
     x: torch.Tensor,            # [B,S,D]
@@ -277,6 +305,13 @@ def init_mla(generator, cfg: ModelConfig, stack: tuple = (), *, device) -> dict:
         "wv_b": normal(generator, stack + (r_kv, H, dv), pt, device),
         "wo": normal(generator, stack + (H, dv, D), pt, device, scale=0.02 / max(1, cfg.n_layers) ** 0.5),
     }
+
+
+def mla_specs(cfg: ModelConfig, stack: tuple = ()) -> dict:
+    """Logical axes of :func:`init_mla`'s tree, leaf for leaf."""
+    return stacked(stack, {"wq_a": ("fsdp", None), "q_norm": (None,), "wq_b": (None, "heads", None),
+                           "wkv_a": ("fsdp", None), "kv_norm": (None,), "wk_b": (None, "heads", None),
+                           "wv_b": (None, "heads", None), "wo": ("heads", None, "fsdp")})
 
 
 def mla_attention(
@@ -357,6 +392,14 @@ def init_mlp(generator, cfg: ModelConfig, d_ff: int | None = None, stack: tuple 
         "w3": normal(generator, stack + (D, Fd), pt, device),
         "w2": normal(generator, stack + (Fd, D), pt, device, scale=0.02 / max(1, cfg.n_layers) ** 0.5),
     }
+
+
+def mlp_specs(cfg: ModelConfig, stack: tuple = ()) -> dict:
+    """Logical axes of :func:`init_mlp`'s tree, leaf for leaf."""
+    s = {"w1": ("fsdp", "mlp"), "w2": ("mlp", "fsdp")}
+    if cfg.act != "gelu":
+        s["w3"] = ("fsdp", "mlp")
+    return stacked(stack, s)
 
 
 def mlp(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import normal, pdt
+from repro_torch.models.layers import normal, pdt, stacked
 
 
 def init_moe(generator: torch.Generator, cfg: ModelConfig, stack: tuple = (), *, device) -> dict:
@@ -44,6 +44,15 @@ def init_moe(generator: torch.Generator, cfg: ModelConfig, stack: tuple = (), *,
                        "w3": normal(generator, stack + (D, Fs), pt, device),
                        "w2": normal(generator, stack + (Fs, D), pt, device)}
     return p
+
+
+def moe_specs(cfg: ModelConfig, stack: tuple = ()) -> dict:
+    """Logical axes of :func:`init_moe`'s tree, leaf for leaf."""
+    s = {"router": (None, None), "w1": ("experts", "fsdp", "moe_mlp"), "w3": ("experts", "fsdp", "moe_mlp"),
+         "w2": ("experts", "moe_mlp", "fsdp")}
+    if cfg.n_shared_experts:
+        s["shared"] = {"w1": ("fsdp", "mlp"), "w3": ("fsdp", "mlp"), "w2": ("mlp", "fsdp")}
+    return stacked(stack, s)
 
 
 def _top_k(x: torch.Tensor, k: int):

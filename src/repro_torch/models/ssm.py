@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import normal, ones, pdt, rmsnorm, zeros
+from repro_torch.models.layers import normal, ones, pdt, rmsnorm, stacked, zeros
 
 
 def dims(cfg: ModelConfig):
@@ -57,6 +57,13 @@ def init_mamba2(generator, cfg: ModelConfig, stack: tuple = (), *, device) -> di
         "out_proj": normal(generator, stack + (d_inner, D), pt, device,
                            scale=0.02 / math.sqrt(max(1, cfg.n_layers))),
     }
+
+
+def mamba2_specs(stack: tuple = ()) -> dict:
+    """Logical axes of :func:`init_mamba2`'s tree, leaf for leaf."""
+    return stacked(stack, {"in_proj": ("fsdp", "mlp"), "conv_w": (None, "mlp"), "conv_b": ("mlp",),
+                           "A_log": (None,), "D": (None,), "dt_bias": (None,), "norm": ("mlp",),
+                           "out_proj": ("mlp", "fsdp")})
 
 
 def _to_heads(x: torch.Tensor, rep: int, dim: int) -> torch.Tensor:

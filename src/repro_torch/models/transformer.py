@@ -217,6 +217,46 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> di
     return params
 
 
+def _norm_specs(cfg, stack):
+    return L.rmsnorm_specs(stack) if cfg.act != "gelu" else L.layernorm_specs(stack)
+
+
+def _block_specs(cfg, stack, kind: str) -> dict:
+    """Logical axes of :func:`_init_block`'s tree, leaf for leaf."""
+    if kind == "mamba":
+        return {"mamba": S.mamba2_specs(stack), "ln": _norm_specs(cfg, stack)}
+    s = {"attn": (L.mla_specs if cfg.attn_type == "mla" else L.attention_specs)(cfg, stack)}
+    if kind == "moe":
+        s["moe"] = M.moe_specs(cfg, stack)
+    else:
+        s["mlp"] = L.mlp_specs(cfg, stack)
+    s["ln1"] = s["ln2"] = _norm_specs(cfg, stack)
+    if cfg.local_global:
+        s["post1"] = s["post2"] = _norm_specs(cfg, stack)
+    if kind == "cross":
+        s["xattn"] = L.attention_specs(cfg, stack)
+        s["lnx"] = _norm_specs(cfg, stack)
+    return s
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The logical axes of every leaf of :func:`init_params`'s tree (a tuple
+    a leaf, one entry a dimension): the spec tree the JAX package's
+    ``init_params`` returns beside its parameters, which
+    :mod:`repro_torch.parallel.sharding` maps to a mesh."""
+    specs: dict[str, Any] = {"embed": ("vocab", "fsdp")}
+    for name, stack in stack_shapes(cfg).items():
+        specs[name] = _block_specs(cfg, stack, _stack_kind(cfg, name))
+    if cfg.family == "vlm":
+        specs["patch_proj"] = ("fsdp", None)
+    if cfg.family == "encdec":
+        specs["enc_norm"] = _norm_specs(cfg, ())
+    specs["final_norm"] = _norm_specs(cfg, ())
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("fsdp", "vocab")
+    return specs
+
+
 def layer(stacked: Any, i: int) -> Any:
     """Entry ``i`` (views) of a stacked tree: a layer of ``[L,…]``; of
     ``[L/2, 2, …]``, a pair, or with ``i = (pair, sub-layer)`` a sub-layer."""
@@ -483,6 +523,38 @@ def init_decode_state(cfg: ModelConfig, B: int, cache_len: int, dtype=torch.bflo
     """Empty caches for a decode run of ``cache_len`` total positions
     (whisper: and ``enc_len`` encoder frames)."""
     return {"pos": 0, **_caches(cfg, B, cache_len, dtype, resolve_device(device), enc_len)}
+
+
+def cache_specs(cfg: ModelConfig) -> dict:
+    """The logical axes of the decode state's tensors, key for key as
+    :func:`init_decode_state` makes them (``pos``, a python int, has ``()``)."""
+    kinds = {slot.cache: slot.kind for slot in layout(cfg)}
+    specs: dict[str, Any] = {"pos": ()}
+    for key, stack in cache_stacks(cfg).items():
+        lead = ("layers",) * len(stack)
+        if key == "enc_kv":
+            specs[key] = {n: lead + ("kv_batch", "kv_heads", "enc_seq", None) for n in ("k", "v")}
+        elif kinds[key] == "mamba":
+            specs[key] = {"ssm": lead + ("kv_batch", "ssm_heads", None, None),
+                          "conv": lead + ("kv_batch", None, "mlp")}
+        elif cfg.attn_type == "mla":
+            specs[key] = {n: lead + ("kv_batch", "kv_seq", None) for n in ("c_kv", "k_rope")}
+        else:
+            specs[key] = {n: lead + ("kv_batch", "kv_heads", "kv_seq", None) for n in ("k", "v")}
+    return specs
+
+
+def batch_specs(cfg: ModelConfig, with_labels: bool = True) -> dict:
+    """The logical axes of a batch: ``tokens`` (and ``labels``), whisper's
+    ``frames``, a VLM's ``patches``."""
+    s: dict[str, Any] = {"tokens": ("batch", None)}
+    if with_labels:
+        s["labels"] = ("batch", None)
+    if cfg.family == "encdec":
+        s["frames"] = ("batch", None, None)
+    if cfg.family == "vlm":
+        s["patches"] = ("batch", None, None)
+    return s
 
 
 def _slot_cache(state: dict, slot: Slot, pos: int) -> dict:

@@ -116,11 +116,12 @@ def test_ragged_sq_skv(sq, skv):
 def _cpu_sized(case):
     """A case as the CPU runs it: every head is computed alone (in the kernels,
     the plain version and the oracle), so a case of more than 2^20 (q, k)
-    pairs a head keeps two of its query heads (and their KV heads) here."""
+    pairs a head keeps two of its query heads (and their KV heads, at least
+    one: a GQA group past 2 keeps one) here."""
     B, Hq, Hkv, Sq, Skv = case[:5]
     if Sq * Skv < 2**20:
         return case
-    return (B, 2, 2 * Hkv // Hq if Hq > Hkv else 2, *case[3:])
+    return (B, 2, max(1, 2 * Hkv // Hq) if Hq > Hkv else 2, *case[3:])
 
 
 @pytest.mark.parametrize("case", [_cpu_sized(c) for c in FLASH_FAMILY_CASES], ids=lambda c: "x".join(map(str, c[:10])))

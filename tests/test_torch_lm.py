@@ -236,6 +236,17 @@ def test_configs_are_the_reference_configs():
         assert dataclasses.asdict(cfg.reduced()) == dataclasses.asdict(REF_ARCHS[name].reduced())
 
 
+@pytest.mark.parametrize("module", sorted(n.replace("-", "_").replace(".", "_") for n in REF_ARCHS))
+def test_config_modules_are_the_reference_modules(module):
+    """Each ``configs/<arch>.py`` (granite-8b's and llama3-405b's among them)
+    gives the reference module's config."""
+    import importlib
+
+    mine = importlib.import_module(f"repro_torch.configs.{module}").config()
+    ref = importlib.import_module(f"repro.configs.{module}").config()
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref) and mine is ARCHS[ref.name]
+
+
 def test_init_params_tree_matches_reference():
     for name in NAMES:
         ref_cfg, ref_params, cfg, _ = _setup(name)

@@ -729,3 +729,90 @@ def test_train_cli_refuses_several_devices(flags, flag):
     assert e.value.code not in (0, None)
     assert f"{flag} is not ported yet" in str(e.value.code)
     assert "several devices in one process are a later slice" in str(e.value.code)
+
+
+def test_flash_on_meta_tensors_is_shape_only(monkeypatch):
+    """The flash operator's fake runs on ``meta`` tensors (the dry run's):
+    the output's shape and dtype, and neither the plain version nor the
+    kernel's wrapper runs, nor does any launch counter move."""
+    def refuse(*a, **kw):
+        raise AssertionError("ran on meta tensors")
+
+    monkeypatch.setattr(fa_ops, "flash_attention_ref", refuse)
+    monkeypatch.setattr(fa_ops, "flash_attention_cuda", refuse)
+    kernels.reset_launch_counts()
+    meta = torch.device("meta")
+    q = torch.empty((2, 8, 48, 192), dtype=torch.bfloat16, device=meta)
+    k = torch.empty((2, 2, 64, 192), dtype=torch.bfloat16, device=meta)
+    v = torch.empty((2, 2, 64, 128), dtype=torch.bfloat16, device=meta)
+    out = fa_ops.flash_attention(q, k, v, window=16, softcap=30.0, scale=0.1)
+    assert out.device == meta and out.dtype == torch.bfloat16 and tuple(out.shape) == (2, 8, 48, 128)
+    assert kernels.launch_counts()["flash_attention"] == 0 and not any(fa_ops.wgmma_launch_counts().values())
+
+
+def test_flash_on_cpu_tensors_runs_the_plain_version(monkeypatch):
+    calls = []
+    plain = fa_ops.flash_attention_ref
+
+    def recorded(*a, **kw):
+        calls.append(kw)
+        return plain(*a, **kw)
+
+    monkeypatch.setattr(fa_ops, "flash_attention_ref", recorded)
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((1, 4, 24, 16), generator=g) for _ in range(3))
+    out = fa_ops.flash_attention(q, k[:, :2], v[:, :2], window=8)
+    assert calls == [dict(causal=True, window=8, softcap=None, scale=None)]
+    assert torch.equal(out, plain(q, k[:, :2], v[:, :2], window=8))
+    assert kernels.launch_counts()["flash_attention"] == 0
+
+
+def test_flop_counter_sees_the_flash_operator():
+    """``FlopCounterMode`` counts the operator by its formula, 2·B·Hq·(visible
+    pairs)·(dh + dv), on CPU and meta tensors alike (the ops inside the
+    plain version are not counted again)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    for device in ("cpu", "meta"):
+        q = torch.zeros((2, 4, 40, 16), device=device)
+        k = torch.zeros((2, 2, 64, 16), device=device)
+        v = torch.zeros((2, 2, 64, 8), device=device)
+        with FlopCounterMode(display=False) as fc:
+            fa_ops.flash_attention(q, k, v, window=10)
+        # query i sits at key position 24 + i and sees keys (14 + i, 24 + i]: 10 each
+        assert fa_ops.visible_pairs(40, 64, True, 10) == 40 * 10
+        assert fc.get_total_flops() == 2 * 2 * 4 * 400 * (16 + 8)
+        with FlopCounterMode(display=False) as fc:
+            fa_ops.flash_attention(q, k, v, causal=False)
+        assert fc.get_total_flops() == 2 * 2 * 4 * 40 * 64 * 24
+
+
+def test_sharding_over_several_devices_raises():
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.mesh import MULTI_DEVICE
+    from repro_torch.parallel import sharding as sh
+
+    x = torch.ones(4)
+    for mesh in (M.make_host_mesh(), M.make_production_mesh(), M.make_production_mesh(multi_pod=True)):
+        with sh.use_mesh(mesh), pytest.raises(NotImplementedError, match=re.escape(MULTI_DEVICE)):
+            sh.constrain(x, "batch")
+        with pytest.raises(NotImplementedError, match=re.escape(MULTI_DEVICE)):
+            sh.shard_map(lambda a: a, mesh, None, None)
+    with sh.use_mesh(M.make_card_mesh()):
+        assert sh.constrain(x, "batch") is x
+
+
+def test_launch_tail_imports_neither_jax_nor_reference():
+    """The dry run, its accounting, the sharding rules and the compression
+    load no module of JAX or of the JAX package in a fresh interpreter."""
+    import subprocess
+    import sys
+
+    names = ["repro_torch.launch.dryrun", "repro_torch.launch.hlo_analysis", "repro_torch.parallel.sharding",
+             "repro_torch.parallel.compression", "repro_torch.configs.granite_8b", "repro_torch.configs.llama3_405b"]
+    code = (f"import sys\nfor n in {names!r}:\n    __import__(n)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    run = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr

@@ -153,3 +153,16 @@ def test_config_validation():
         methods.SeismicConfig(precond_every=0)
     assert dataclasses.replace(methods.SeismicConfig(), schedule="prefetch").schedule == "prefetch"
     assert methods.SeismicConfig().rdtype == torch.float64
+
+
+@pytest.mark.parametrize("dt,alpha", [(0.01, 0.0), (0.01, 0.37), (2.5e-3, 1.2)])
+def test_a_coefficients_match_reference(dt, alpha):
+    """``newmark.a_coefficients`` is the reference's formula, and the operators'
+    diagonal term is built from it (a k-set lane's α as a tensor)."""
+    from repro.fem import newmark as ref_newmark
+    from repro_torch.fem import newmark
+
+    assert newmark.a_coefficients(dt, alpha) == ref_newmark.a_coefficients(dt, alpha)
+    lanes = torch.tensor([alpha, 2 * alpha], dtype=torch.float64)
+    c_m, c_d = newmark.a_coefficients(dt, lanes)
+    assert torch.equal(c_m, 4.0 / dt**2 + 2.0 * lanes / dt) and c_d == 2.0 / dt
