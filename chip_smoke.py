@@ -39,16 +39,20 @@ Phases, each followed by a JSON line with its seconds:
                EBE for k ∈ {1, 2, 3} in both dtypes (E 997 puts members off
                the bulk copies' 16-byte alignment) and multispring for k 2,
                each against its plain version and bitwise against k
-               one-member launches, flags bit-equal;
+               one-member launches, flags bit-equal; the k-set multispring
+               and EBE products and one bf16 (128, 128) flash call, each
+               launched from two host threads on two CUDA streams at once,
+               bitwise the same launches made one at a time, each counted
+               exactly twice;
 4.  mesh_train qwen3-1.7b at full width, 2 of its 28 layers, B 2 × 4,096, trained
                in this process on the card and then over a (2, 2) mesh
                over (data, model) of four processes sharing the card in a
                gloo group (``mesh_train_worker``: the rules' layouts as
                DTensors, the functional all-gather staged through pinned
-               host memory): 3 steps each, the first loss, the losses and
+               host memory): 2 steps each, the first loss, the losses and
                step 1's gathered gradients within ``TRAIN_BF16_TOL`` of the
                one-process run, each process's leaves its shard shapes and
-               its 12 launches of the bf16 (128, 128) kernel at its local
+               its 8 launches of the bf16 (128, 128) kernel at its local
                B 1, Hq 8, Hkv 4, S 4,096; s/step, peak bytes, gloo's bytes
                and seconds by collective kind (step 1's forward and
                backward, metered) beside the dry run's model of them;
@@ -186,14 +190,14 @@ Phases, each followed by a JSON line with its seconds:
                layer: the loss within 1e-4 relative and each leaf within
                5e-2·max|g| of the CPU's, and the card's distance from the
                fp32 step at most twice the CPU's;
-21. train_main qwen3-1.7b at full width, 14 of its 28 layers, bf16 over fp32 parameters,
+21. train_main qwen3-1.7b at full width, 8 of its 28 layers, bf16 over fp32 parameters,
                B 2 × 4,096 from ``data.batches`` through the
                ``Prefetcher``: AdamW alone on one step's gradients, resident
                and offloaded (8 pinned blocks, ``serial`` and ``prefetch``),
                bitwise equal, with each warm apply's ms; then 3 train steps
                resident, again resident, offloaded serial and offloaded
                prefetch from the same params and batches — s per step,
-               tokens/s, peak device bytes, pinned moment bytes, 56 launches
+               tokens/s, peak device bytes, pinned moment bytes, 16 launches
                of the bf16 (128, 128) instance a step, the device's busy
                share and top ops (``torch.profiler``, the last step); the
                offloaded runs bitwise the resident one where two resident
@@ -254,10 +258,11 @@ Phases, each followed by a JSON line with its seconds:
                steps, unguarded and guarded — per chunk s/step per case, peak
                device bytes, the k-set kernels' launches (each > 0); round 0
                against kset_main's 2SET on the same waves (1e-12·max|v|);
-               (b) M 2, a checkpoint every 2 steps (14.9 GB: θ of two cases
-               is 14.16 GB), stopped after step 2 and resumed, bitwise (a)'s
-               guarded round 0, with each checkpoint's bytes and seconds to
-               copy, write, CRC and restore, and the free disk before;
+               (b) on a (16, 16, 8) basin (a full-size checkpoint is 14.96
+               GB), guarded, M 2, a checkpoint every 2 steps, stopped after
+               step 2 and resumed, bitwise the uninterrupted run there, with
+               each checkpoint's bytes and seconds to copy, write, CRC and
+               restore, and the free disk before;
 27. campaign_mp  the multi-process campaign through the CLI
                (``python -m repro_torch.launch.campaign``, one process each)
                at main's size: Proposed 2, 150 springs, k 1, 2 waves of 4
@@ -270,7 +275,24 @@ Phases, each followed by a JSON line with its seconds:
                chunk s/step per case and peak device bytes, checkpoint bytes
                and seconds, cases/s and the pair's summed rate against one
                process's;
-28. timing     each kernel at the shapes its main path gives it, against its
+28. case_mesh  two entries of the case mesh in this one process, both on the
+               one card, each in its own host thread and CUDA stream (the
+               machinery and its concurrency, not a speed-up across cards):
+               (a) Proposed 2 at main's size, kset 1 an entry, campaign_main
+               (a)'s round 0 for its 4 steps, each case within 1e-9·max|v|
+               of it, s/step per case, the summed case-steps/s over
+               campaign_main's one entry and campaign_mp's pair's ratio
+               beside it, peak device bytes, the k-set launches equal to the
+               sum of each entry's own; (b) on the (16, 16, 8) basin,
+               guarded: stopped after step 2 and resumed, bitwise the
+               uninterrupted two-entry run, one banked file a round, no
+               ``.pNN``, every carry leaf one array of both entries' lanes;
+               (c) ``ShardedEngine`` over the two entries: serve_main's
+               CNN+LSTM ensemble on its 16 requests bitwise its answers,
+               qwen3's ``DecodeEngine`` on its 8 prompts of 4,096 with its
+               greedy tokens, 28 (128, 128) launches an entry counted
+               exactly from both threads;
+29. timing     each kernel at the shapes its main path gives it, against its
                plain version, its bound and (flash) SDPA, with flash held in
                fp32 and bf16 there too and timed in both (fp32 against the
                3×TF32 bound and the fp32 cores' bound, also at gemma2-2b's
@@ -300,12 +322,12 @@ Phases, each followed by a JSON line with its seconds:
                ``torch.nn.LSTM`` (cuDNN) at B 4, T 4,000, H 1,024, forward and
                forward + backward, and ``ssm_scan`` against its loop at T ∈
                {256, 1,024, 4,096, 16,000} (``{"outside_pallas": [...]}``);
-29. plan_main  the planning and scheduling layer at main's size, 150 springs,
+30. plan_main  the planning and scheduling layer at main's size, 150 springs,
                with a calibration table written from ``timing``'s own kernel
                times (the multispring block and the fp64 EBE product as
                backend ``cuda``, their plain versions as ``torch``): (a) the
                CLI's ``--sweep`` over one soil and two wave families (one
-               group of 4 cases, 4 steps) with ``--autotune --probe
+               group of 2 cases, 4 steps) with ``--autotune --probe
                --calibration``, beside the model's choices at the default
                4 GB budget and at 70 GB; (b) ``--schedule --workers 2
                --lease-s 120 --method proposed2 --kset 1`` over two soils × 2
@@ -323,6 +345,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -556,7 +579,7 @@ def bound(nbytes_, flops, dt):
 TRAIN_FAMILIES = ("granite-8b", "gemma2-2b", "mixtral-8x22b", "deepseek-v2-236b", "mamba2-780m", "zamba2-7b",
                   "whisper-small", "internvl2-1b")
 TRAIN_NPART = 8  # train_main's moment blocks in pinned host memory
-TRAIN_MAIN_LAYERS = 14  # train_main: qwen3-1.7b's first 14 of its 28 layers (cut for the time limit)
+TRAIN_MAIN_LAYERS = 8  # train_main: qwen3-1.7b's first 8 of its 28 layers (cut for the time limit)
 # train_cpu's bf16 step, card against CPU: relative to the CPU's loss, and to max|g| per leaf
 # (readings on an H100 at 700 W: 2.5e-5 and 1.7e-2, the embedding's gradient)
 TRAIN_BF16_TOL = {"loss": 1e-4, "grad": 5e-2}
@@ -1117,11 +1140,15 @@ def campaign_main(mesh, cfg, waves, kset_v, root):
     padded), 4 steps, unguarded and guarded: per chunk s/step per case, peak
     device bytes and the k-set kernels' launches; round 0 against
     kset_main's 2SET ``kset_v`` on the same waves.  (b) the checkpointed
-    kill-and-resume, M 2, a checkpoint every 2 steps, keep 1, stopped after
-    step 2 and resumed: bitwise (a)'s guarded round 0; each checkpoint's
-    bytes and seconds to copy, write, CRC and restore; the free disk first;
-    the peak device bytes of the stopped run and of the resume, which
-    restores into the one carry it builds (no second k-set carry)."""
+    kill-and-resume on ``CAMPAIGN_SMALL_MESH`` (a full-size k-set checkpoint
+    is 14.96 GB, whose save and restore took ~44 s on an H100; PERF.md §5),
+    guarded, M 2, a checkpoint every 2 steps, keep 1, stopped after step 2
+    and resumed: bitwise the uninterrupted run on that basin; each
+    checkpoint's bytes and seconds to copy, write, CRC and restore; the
+    free disk first; the peak device bytes of the stopped run and of the
+    resume, which restores into the one carry it builds (no second k-set
+    carry).  Returns (a)'s launches and, for case_mesh, (a)'s round 0:
+    its velocities, iterations and s/step per case."""
     import shutil
 
     import numpy as np
@@ -1147,10 +1174,9 @@ def campaign_main(mesh, cfg, waves, kset_v, root):
         def on_chunk(info, chunks=chunks, last=last, resident_before=resident_before):
             counts = kernels.launch_counts()
             row = dict(info, s_per_step_per_case=info["seconds"] / ((info["t1"] - info["t0"]) * 2),
-                       peak_device_bytes=torch.cuda.max_memory_allocated() - resident_before,
+                       peak_device_bytes=info["peak_device_bytes"] - resident_before,
                        launches={k: counts[k] - last[k] for k in counts})
             last.update(counts)
-            torch.cuda.reset_peak_memory_stats()
             chunks.append(row)
             emit({"campaign_main_chunk": row, "health": guarded})
 
@@ -1184,7 +1210,11 @@ def campaign_main(mesh, cfg, waves, kset_v, root):
         "health": guard["res"].health.tolist()}})
     require(vs_kset <= 1e-12, f"campaign round 0 disagrees with kset_main's 2SET: {vs_kset}")
     require(guard["res"].health.tolist() == [0, 0, 0], "a healthy full-size case tripped its guard")
-    # (b) the checkpointed kill-and-resume at full size, guarded
+    # (b) the checkpointed kill-and-resume on the small basin, guarded
+    from repro_torch.fem import meshgen
+
+    mesh_b = meshgen.generate(*CAMPAIGN_SMALL_MESH, pad_elems_to=8)
+    obs_b = np.arange(mesh_b.n_nodes)
     d = os.path.join(root, "ckpt")
     free_before = shutil.disk_usage(root).free
     cc = CampaignConfig(kset=2, method="proposed2", checkpoint_dir=d, checkpoint_every=2, keep=1)
@@ -1199,41 +1229,328 @@ def campaign_main(mesh, cfg, waves, kset_v, root):
         torch.cuda.synchronize()
         return out, torch.cuda.max_memory_allocated() - before
 
+    ref, peak_whole = peak_from(lambda: run_campaign(mesh_b, cfg_b, waves[:2], observe=obs_b,
+                                                     campaign=CampaignConfig(kset=2, method="proposed2")))
     t0 = time.perf_counter()
-    part, peak_stopped = peak_from(lambda: run_campaign(mesh, cfg_b, waves[:2], observe=every_node, campaign=cc,
+    part, peak_stopped = peak_from(lambda: run_campaign(mesh_b, cfg_b, waves[:2], observe=obs_b, campaign=cc,
                                                         stop_after_steps=2))
     t1 = time.perf_counter()
-    full, peak_resumed = peak_from(lambda: run_campaign(mesh, cfg_b, waves[:2], observe=every_node, campaign=cc))
+    full, peak_resumed = peak_from(lambda: run_campaign(mesh_b, cfg_b, waves[:2], observe=obs_b, campaign=cc))
     t2 = time.perf_counter()
-    ref = guard["res"]
-    same = all(np.array_equal(a, b[:2]) for a, b in ((full.velocity_history, ref.velocity_history),
-                                                      (full.iters, ref.iters), (full.health, ref.health)))
+    same = all(np.array_equal(a, b) for a, b in ((full.velocity_history, ref.velocity_history),
+                                                  (full.iters, ref.iters), (full.health, ref.health)))
     records = [dict(r, call="stopped") for r in part.checkpoints] + [dict(r, call="resumed")
                                                                      for r in full.checkpoints]
     for r in records:
         for part_s in ("write_s", "crc_s", "read_s", "host_copy_s"):
             if r.get(part_s):
                 r[part_s.replace("_s", "_GB_per_s")] = r["bytes"] / r[part_s] / 1e9
-    peak_guarded = max(c["peak_device_bytes"] for c in guard["chunks"])
     ckpt_bytes = max(r["bytes"] for r in records)
     emit({"campaign_checkpoint": {
+        "mesh": list(CAMPAIGN_SMALL_MESH), "elements": mesh_b.n_elem,
         "free_disk_bytes_before": free_before, "stopped_at": part.steps_done, "resumed_from": full.resumed_from,
-        "stopped_run_s": t1 - t0, "resumed_run_s": t2 - t1, "bitwise_vs_uncheckpointed_round0": same,
+        "stopped_run_s": t1 - t0, "resumed_run_s": t2 - t1, "bitwise_vs_uncheckpointed": same,
         "peak_device_bytes_stopped": peak_stopped, "peak_device_bytes_resumed": peak_resumed,
-        "peak_device_bytes_guarded_chunk": peak_guarded, "records": records}})
+        "peak_device_bytes_uninterrupted": peak_whole, "records": records}})
     require(not part.completed and part.steps_done == 2 and full.completed and full.resumed_from == 2,
             "campaign (b) did not stop and resume at step 2")
-    require(same, "the full-size kill-and-resume is not bitwise the uninterrupted round")
+    require(same, "the kill-and-resume is not bitwise the uninterrupted run")
     # a second k-set carry on the card would add the checkpoint's bytes again
-    require(peak_resumed < peak_guarded + ckpt_bytes / 2,
-            f"the resume held more than one k-set carry: peak {peak_resumed} B vs {peak_guarded} B uninterrupted")
+    require(peak_resumed < peak_whole + ckpt_bytes / 2,
+            f"the resume held more than one k-set carry: peak {peak_resumed} B vs {peak_whole} B uninterrupted")
     shutil.rmtree(root, ignore_errors=True)
-    return plain["launches"]
+    return plain["launches"], {"v0": v0, "iters": plain["res"].iters[:2].tolist(),
+                               "s_per_step_per_case": plain["chunks"][0]["s_per_step_per_case"]}
+
+
+def _flat_tensors(x):
+    """The tensors of a kernel wrapper's output, in a fixed order."""
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in _flat_tensors(x[k])]
+    if isinstance(x, (tuple, list)):
+        return [t for y in x for t in _flat_tensors(y)]
+    return [x]
+
+
+def concurrent_launch_check(dev):
+    """The k-set multispring (fp64), the k-set EBE products (fp64, fp32) and
+    one bf16 (128, 128) flash call, each launched from two host threads on
+    two CUDA streams at once: every output bitwise the same launch made one
+    at a time on the default stream, and each kernel's count up by exactly
+    two.  The case mesh's entries launch so (``launch.mesh.EntryPool``)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.fem import multispring as ms
+    from repro_torch.kernels.ebe_matvec import ops as ebe_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.multispring import ops as ms_ops
+
+    rng = np.random.default_rng(11)
+    g = torch.Generator(device=dev).manual_seed(11)
+    k, P, S = 2, 4096, 150
+    prm = ms.SpringParams(*(torch.tensor(rng.uniform(lo, hi, P), dtype=torch.float64, device=dev)
+                            for lo, hi in ((5e7, 5e8), (5e-4, 5e-3), (0.7, 1.0), (1e8, 1e9))))
+    n, w = (torch.tensor(a, dtype=torch.float64, device=dev) for a in ms.spring_directions(S))
+    st = {key: v.expand(k, P, S).clone() for key, v in ms.init_state(P, S, torch.float64, device=dev).items()}
+    eps = torch.tensor(rng.normal(scale=8e-4, size=(k, P, 6)), dtype=torch.float64, device=dev)
+    E, N = 20_000, 30_000
+    conn = torch.randint(0, N, (E, 10), device=dev, generator=g, dtype=torch.int32)
+    ebe = {}
+    for dt in (torch.float64, torch.float32):
+        Q = torch.randn((k, E, 4, 6, 6), dtype=torch.float64, device=dev, generator=g)
+        ebe[dt] = (torch.randn((k, N, 3), dtype=dt, device=dev, generator=g), conn,
+                   (Q @ Q.transpose(-1, -2)).to(dt).contiguous(),
+                   torch.randn((E, 3, 3), dtype=dt, device=dev, generator=g),
+                   torch.rand((E, 4), dtype=dt, device=dev, generator=g),
+                   torch.rand((k, E), dtype=dt, device=dev, generator=g) + 0.5)
+    q = torch.randn((1, 8, 1024, 128), device=dev, generator=g).bfloat16()
+    kv = torch.randn((1, 4, 1024, 128), device=dev, generator=g).bfloat16()
+    calls = {
+        "multispring_kset": (lambda: ms_ops.multispring_kset_cuda(eps, st, prm, n, w),
+                             lambda: kernels.launch_counts()["multispring_kset"]),
+        "ebe_matvec_kset_f64": (lambda: ebe_ops.ebe_matvec_kset_cuda(*ebe[torch.float64]),
+                                lambda: kernels.launch_counts()["ebe_matvec_kset_f64"]),
+        "ebe_matvec_kset_f32": (lambda: ebe_ops.ebe_matvec_kset_cuda(*ebe[torch.float32]),
+                                lambda: kernels.launch_counts()["ebe_matvec_kset_f32"]),
+        "flash_attention_bf16 (128, 128)": (lambda: fa_ops.flash_attention_cuda(q, kv, kv),
+                                            lambda: fa_ops.wgmma_launch_counts()[(128, 128)]),
+    }
+    torch.cuda.synchronize()
+    rows = {}
+    for name, (fn, count) in calls.items():
+        one = _flat_tensors(fn())
+        torch.cuda.synchronize()
+        before = count()
+        outs, start = [None, None], threading.Barrier(2)
+
+        def run(i, fn=fn, outs=outs, start=start):
+            stream = torch.cuda.Stream(dev)
+            with torch.cuda.device(dev), torch.cuda.stream(stream):
+                start.wait()
+                outs[i] = _flat_tensors(fn())
+                stream.synchronize()
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        require(all(o is not None for o in outs), f"{name}: a thread's launch failed")
+        same = [all(torch.equal(a, b) for a, b in zip(o, one)) and len(o) == len(one) for o in outs]
+        rows[name] = {"bitwise_vs_one_at_a_time": same, "launches": count() - before}
+        require(all(same), f"{name}: a launch from a second thread and stream differs from the serial launch")
+        require(count() - before == 2, f"{name}: two threads' launches counted {count() - before}")
+        del one, outs
+    emit({"check": "concurrent_launches", "threads": 2, "streams": 2, "kernels": rows})
+
+
+# case_mesh (b): the kill-and-resume over two entries on a smaller basin, so that its
+# checkpoint stays small (the full-size k-set checkpoint's save and restore took ~44 s on an
+# H100, PERF.md §5); campaign_main (b) runs there too
+CAMPAIGN_SMALL_MESH = (16, 16, 8)  # 12,288 TET10; θ of a case 0.295 GB at 150 springs
+# case_mesh (b)'s pair of distinct devices, a CPU entry beside a card entry: crs_check's mesh,
+# small enough for the CPU's plain versions
+CASE_MESH_MIXED_MESH = (8, 8, 4)  # 1,536 TET10
+
+
+def mixed_pair(cfg, waves, card, d):
+    """case_mesh (b) over a CPU entry and a card entry on
+    ``CASE_MESH_MIXED_MESH``, a checkpoint every 2 steps in ``d``: stopped
+    after step 2 and resumed (the carry restored onto both devices, an
+    operator set a device), each entry's case bitwise its own one-entry run
+    on that entry's device."""
+    import numpy as np
+    import torch
+
+    from repro_torch.campaign import CampaignConfig, run_campaign
+    from repro_torch.fem import meshgen
+    from repro_torch.launch.mesh import CaseDevice, CaseMesh
+
+    mesh_m = meshgen.generate(*CASE_MESH_MIXED_MESH, pad_elems_to=8)
+    mixed = CaseMesh(np.array([CaseDevice(0, torch.device("cpu")), CaseDevice(0, card)], dtype=object))
+    ccm = CampaignConfig(kset=1, method="proposed2", checkpoint_dir=d, checkpoint_every=2, keep=1)
+    run_m = functools.partial(run_campaign, mesh_m, cfg, observe=np.arange(mesh_m.n_nodes))
+    t0 = time.perf_counter()
+    alone = [run_m(waves[e:e + 1], device=dev, campaign=CampaignConfig(kset=1, method="proposed2"))
+             for e, dev in enumerate((torch.device("cpu"), card))]
+    part_m = run_m(waves, device_mesh=mixed, campaign=ccm, stop_after_steps=2)
+    full_m = run_m(waves, device_mesh=mixed, campaign=ccm)
+    same_m = [all(np.array_equal(getattr(full_m, k)[e], getattr(alone[e], k)[0])
+                  for k in ("velocity_history", "iters", "health")) for e in range(2)]
+    out = {"mesh": list(CASE_MESH_MIXED_MESH), "elements": mesh_m.n_elem, "entries": ["cpu", str(card)],
+           "seconds": time.perf_counter() - t0, "stopped_at": part_m.steps_done,
+           "resumed_from": full_m.resumed_from, "bitwise_vs_one_entry_per_device": same_m,
+           "max_abs_v": float(np.abs(full_m.velocity_history).max()), "iters": full_m.iters.tolist()}
+    emit({"case_mesh_b_mixed": out})
+    require(not part_m.completed and part_m.steps_done == 2 and full_m.completed and full_m.resumed_from == 2,
+            "case_mesh (b) over a CPU and a card entry did not stop and resume at step 2")
+    require(all(same_m) and out["max_abs_v"] > 0,
+            f"case_mesh (b): an entry of the CPU and card pair differs from its one-entry run: {same_m}")
+
+
+def case_mesh(mesh, cfg, waves, one_entry, mp_ratio, served, root):
+    """The case mesh over two entries in this one process, both on the one
+    card, each in its own host thread and on its own CUDA stream (the
+    machinery and its concurrency, not a speed-up across cards):
+
+    (a) Proposed 2 at main's size, kset 1 an entry (a round of 2), over
+    ``waves`` (campaign_main (a)'s round 0) for its 4 steps: each case
+    within 1e-9·max|v| of campaign_main (a)'s round 0 (kset 2 on one
+    entry), s/step per case, the summed case-steps/s against campaign_main
+    (a)'s one entry and against campaign_mp's two processes, peak device
+    bytes, and each entry's k-set launches from its own iterations, whose
+    sum the counters must give exactly;
+    (b) on ``CAMPAIGN_SMALL_MESH``, guarded, a checkpoint every 2 steps:
+    stopped after step 2 and resumed, bitwise the uninterrupted two-entry
+    run, one banked file a round and no ``.pNN`` (the reference's layout of
+    one process), every carry leaf one array of the two entries' lanes; then
+    the same over a CPU entry and a card entry on ``CASE_MESH_MIXED_MESH``
+    (an operator set a device, the carry restored onto both devices), each
+    entry's case bitwise its own one-entry run on that entry's device;
+    (c) ``ShardedEngine`` over the two entries: serve_main's CNN+LSTM
+    ensemble on its 16 requests bitwise its unsharded answers, and qwen3's
+    ``DecodeEngine`` on its 8 prompts of 4,096 with the unsharded greedy
+    tokens, each entry's prefill launching the (128, 128) instance once a
+    layer, counted exactly from both threads.  Returns the launches of (a)
+    and (c)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.campaign import CampaignConfig, run_campaign
+    from repro_torch.fem import meshgen
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.mesh import CaseDevice, CaseMesh
+    from repro_torch.serving import ShardedEngine
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    card = torch.device("cuda", torch.cuda.current_device())
+    two = CaseMesh(np.array([CaseDevice(0, card), CaseDevice(0, card)], dtype=object))
+    every_node = np.arange(mesh.n_nodes)
+
+    # (a) main's size, two entries of kset 1
+    chunks = []
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()  # counts of the main path's run only
+    t0 = time.perf_counter()
+    res = run_campaign(mesh, cfg, waves[:2], observe=every_node, device_mesh=two,
+                       campaign=CampaignConfig(kset=1, method="proposed2"), on_chunk=chunks.append)
+    run_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = max(c["peak_device_bytes"] for c in chunks) - resident
+    v, v0 = res.velocity_history, one_entry["v0"]
+    scale = float(np.abs(v0).max())
+    err = float(np.abs(v - v0).max())
+    it = res.iters  # [2 cases, 4 steps]: case e is entry e's lane
+    per_entry = [{"multispring": 1, "multispring_kset": it.shape[1], "ebe_matvec_kset_f64": int((2 + it[e]).sum()),
+                  "ebe_matvec_kset_f32": int((8 * (1 + it[e])).sum())} for e in range(2)]
+    expected = {name: sum(p[name] for p in per_entry) for name in per_entry[0]}
+    s_case = [c["seconds"] / ((c["t1"] - c["t0"]) * 2) for c in chunks]
+    rate_two = 1 / float(np.mean(s_case))
+    rate_one = 1 / one_entry["s_per_step_per_case"]
+    a = {"mesh": [64, 64, 12], "nspring": cfg.nspring, "entries": 2, "kset_per_entry": 1, "steps": waves.shape[1],
+         "run_s": run_s, "s_per_step_per_case": s_case, "case_steps_per_s": rate_two,
+         "one_entry_case_steps_per_s": rate_one, "summed_over_one_entry": rate_two / rate_one,
+         "campaign_mp_pair_over_one_process": mp_ratio, "peak_device_bytes": peak, "resident_before_bytes": resident,
+         "max_abs_err_v": err, "rel_err_v": err / scale, "tol": 1e-9, "iters": it.tolist(),
+         "iters_one_entry": one_entry["iters"], "launches": launches, "launches_expected": expected,
+         "launches_expected_per_entry": per_entry}
+    emit({"case_mesh_a": a})
+    require(res.completed and v.shape == v0.shape and scale > 0, f"case_mesh (a): {v.shape} against {v0.shape}")
+    require(err <= 1e-9 * scale, f"case_mesh (a): two entries {err / scale} off one entry's round 0")
+    require(all(launches[name] == n for name, n in expected.items())
+            and launches["ebe_matvec_f64"] == launches["ebe_matvec_f32"] == 0,
+            f"case_mesh (a): launches {launches}, expected {expected}")
+    del res
+
+    # (b) the kill-and-resume over the two entries, on the small basin
+    mesh_b = meshgen.generate(*CAMPAIGN_SMALL_MESH, pad_elems_to=8)
+    obs_b = np.arange(mesh_b.n_nodes)
+    cfg_b = dataclasses.replace(cfg, health=True)
+    d = os.path.join(root, "ckpt")
+    cc = CampaignConfig(kset=1, method="proposed2", checkpoint_dir=d, checkpoint_every=2, keep=1)
+    run_b = functools.partial(run_campaign, mesh_b, cfg_b, waves[:2], observe=obs_b, device_mesh=two)
+    t0 = time.perf_counter()
+    whole = run_b(campaign=CampaignConfig(kset=1, method="proposed2"))
+    part = run_b(campaign=cc, stop_after_steps=2)
+    stopped_files = sorted(os.listdir(d))
+    with open(os.path.join(d, "step_000000002", "manifest.json")) as f:
+        man = json.load(f)
+    carry_dims = sorted({np.load(os.path.join(d, "step_000000002", "carry", f"{i:05d}.npy"), mmap_mode="r").shape[:1]
+                         for i in range(len(man["leaves"]["carry"]))})
+    full = run_b(campaign=cc)
+    b_s = time.perf_counter() - t0
+    same = all(np.array_equal(x, y) for x, y in ((full.velocity_history, whole.velocity_history),
+                                                  (full.iters, whole.iters), (full.health, whole.health)))
+    b = {"mesh": list(CAMPAIGN_SMALL_MESH), "elements": mesh_b.n_elem, "theta_GB_per_case": mesh_b.n_elem * 4
+         * cfg.nspring * 40 / 1e9, "seconds": b_s, "stopped_at": part.steps_done, "resumed_from": full.resumed_from,
+         "bitwise_vs_uninterrupted": same, "files_stopped": stopped_files, "files_done": sorted(os.listdir(d)),
+         "rounds": sorted(os.listdir(os.path.join(d, "rounds"))), "carry_leading_dims": carry_dims,
+         "checkpoints": [dict(r, call="stopped") for r in part.checkpoints]
+         + [dict(r, call="resumed") for r in full.checkpoints], "health": full.health.tolist()}
+    emit({"case_mesh_b": b})
+    require(not part.completed and part.steps_done == 2 and full.completed and full.resumed_from == 2,
+            "case_mesh (b) did not stop and resume at step 2")
+    require(same, "case_mesh (b): the resumed two-entry campaign is not bitwise the uninterrupted one")
+    require(stopped_files == ["step_000000002"] and b["rounds"] == ["round_00000.npz"]
+            and not any(".p" in name for name in b["files_done"]), f"case_mesh (b): checkpoint layout {b}")
+    require(carry_dims == [(2,)] or carry_dims == [(), (2,)], f"case_mesh (b): carry leaves {carry_dims}")
+    del whole, part, full
+
+    # (b) again over two distinct devices: a CPU entry and a card entry
+    mixed_pair(cfg_b, waves[:2], card, os.path.join(root, "ckpt_mixed"))
+
+    # (c) ShardedEngine over the two entries
+    eng, x, ys, scores, eng_ms = served["surrogate"]
+    sh = ShardedEngine(eng, two)
+    t0 = time.perf_counter()
+    got = sh.infer(x)
+    cnn_s = time.perf_counter() - t0
+    dec, prompts, toks, dec_ms = served["decode"]
+    shd = ShardedEngine(dec, two)
+    kernels.reset_launch_counts()
+    before = fa_ops.wgmma_launch_counts()[(128, 128)]
+    t0 = time.perf_counter()
+    got_toks = shd.infer(prompts).y
+    dec_s = time.perf_counter() - t0
+    flash = kernels.instance_counts()
+    flash_128 = fa_ops.wgmma_launch_counts()[(128, 128)] - before
+    n_layers = dec.cfg.n_layers
+    # each entry computes its slice at the replica's buckets (half the inner engine's): the rows of one
+    # unsharded batch of serve_main's, whose infer ms stand beside (same run, one host thread)
+    c = {"surrogate": {"requests": len(x), "seconds": cnn_s, "replicas": len({id(r) for r in sh.replicas}),
+                       "buckets": eng.buckets, "entry_buckets": sh.replicas[0].buckets,
+                       "unsharded_batch_infer_ms": eng_ms, "bitwise_unsharded": bool(np.array_equal(got.y, ys)),
+                       "scores_equal": bool(np.array_equal(got.score, scores))},
+         "decode": {"prompts": list(prompts.shape), "seconds": dec_s, "buckets": dec.buckets,
+                    "entry_buckets": shd.replicas[0].buckets, "unsharded_batch_infer_ms": dec_ms,
+                    "tokens_equal_unsharded": bool(np.array_equal(got_toks, toks)), "flash_launches": flash,
+                    "wgmma_128x128": flash_128, "expected": 2 * n_layers}}
+    emit({"case_mesh_c": c})
+    require(c["surrogate"]["bitwise_unsharded"] and c["surrogate"]["scores_equal"],
+            "case_mesh (c): the sharded ensemble differs from its unsharded answers")
+    require(c["decode"]["tokens_equal_unsharded"], "case_mesh (c): the sharded decode's tokens differ")
+    require(flash == {"flash_attention_bf16": 2 * n_layers, "flash_attention_f32": 0} and flash_128 == 2 * n_layers,
+            f"case_mesh (c): flash launches {flash}, (128, 128) {flash_128}, not {n_layers} an entry")
+    shutil.rmtree(root, ignore_errors=True)
+    return {**launches, "flash_attention_bf16": flash["flash_attention_bf16"]}
 
 
 # campaign_mp: the campaign CLI at main's size (Proposed 2, 150 springs, k 1), 2 waves of
 # 4 steps (cut from 5 waves, then 3, to fit the run's time limit: no lane pads now), a checkpoint
-# every 2: one process, then two processes on the one card
+# every 2: one process, then two processes on the one card.  The one process, the reference,
+# checkpoints at round boundaries only (``--ckpt-every 0``: it banks its rounds without writing
+# a 7.5 GB carry twice; chunking does not change a step's arithmetic)
 CAMPAIGN_MP_FLAGS = ["--waves", "2", "--nt", "4", "--mesh-n", "64x64x12", "--nspring", "150",
                      "--method", "proposed2", "--kset", "1", "--ckpt-every", "2"]
 CAMPAIGN_MP_TIMEOUT_S = {"one": 300, "pair_stopped": 240, "pair_resumed": 300}
@@ -1318,7 +1635,9 @@ def campaign_mp(root):
     test_two_process_campaign_kill_resume_and_world_size`` on the CPU), the
     union of ``OUT/p00`` and ``OUT/p01`` is the one-process shards, a
     one-process manager refuses the pair's checkpoints, and every worker
-    launched the FEM kernels.  Returns the workers' summed launches."""
+    launched the FEM kernels.  Returns the workers' summed launches and the
+    pair's summed case-steps/s over one process's, each side's s/step taken
+    over whole rounds (its chunks weighted by their steps)."""
     import shutil
 
     import numpy as np
@@ -1339,7 +1658,7 @@ def campaign_mp(root):
     one_ck, one_out = os.path.join(root, "one_ckpt"), os.path.join(root, "one_out")
     mp_ck, mp_out = os.path.join(root, "mp_ckpt"), os.path.join(root, "mp_out")
     cli = ["-m", "repro_torch.launch.campaign", *CAMPAIGN_MP_FLAGS]
-    (one,), (one_s,) = _spawn([cli + ["--ckpt-dir", one_ck, "--out", one_out]], root, "one",
+    (one,), (one_s,) = _spawn([cli + ["--ckpt-dir", one_ck, "--out", one_out, "--ckpt-every", "0"]], root, "one",
                               CAMPAIGN_MP_TIMEOUT_S["one"])
     for name in os.listdir(one_ck):  # its banked rounds are what the pair is held to; the steps free the disk
         if name.startswith("step_"):
@@ -1396,9 +1715,17 @@ def campaign_mp(root):
     def s_step(rs):
         return [c["s_per_step_per_case"] for c in rs["chunk"]]
 
+    def over_rounds(chunks):
+        """s/step per case over whole rounds, each chunk weighted by its steps: the one process's
+        4-step chunks and the pair's 2-step ones cover the same steps, one fresh carry a round"""
+        return (sum(c["s_per_step_per_case"] * (c["t1"] - c["t0"]) for c in chunks)
+                / sum(c["t1"] - c["t0"] for c in chunks))
+
     one_steps = s_step(recs["one"][0])
     pair_steps = [s_step(recs["pair_stopped"][p]) + s_step(recs["pair_resumed"][p]) for p in range(2)]
-    med = lambda v: float(np.median(v))  # noqa: E731
+    one_rate = 1 / over_rounds(recs["one"][0]["chunk"])
+    pair_rates = [1 / over_rounds(recs["pair_stopped"][p]["chunk"] + recs["pair_resumed"][p]["chunk"])
+                  for p in range(2)]
     out = {
         "flags": CAMPAIGN_MP_FLAGS, "before": before, "checkpoint_files": on_disk,
         "one": {"wall_s": one_s, "cases_per_s": n_waves / one_s, "s_per_step_per_case": one_steps,
@@ -1407,7 +1734,7 @@ def campaign_mp(root):
         "pair": {"wall_s_stopped": stopped_s, "wall_s_resumed": resumed_s,
                  "cases_per_s": n_waves / (max(stopped_s) + max(resumed_s)),
                  "s_per_step_per_case": pair_steps,
-                 "summed_case_steps_per_s_over_one": sum(1 / med(v) for v in pair_steps) * med(one_steps),
+                 "summed_case_steps_per_s_over_one": sum(pair_rates) / one_rate,
                  "peak_device_bytes": [[c.get("peak_device_bytes") for k in ("pair_stopped", "pair_resumed")
                                         for c in recs[k][p]["chunk"]] for p in range(2)],
                  "checkpoints": [[dict(c, run=k) for k in ("pair_stopped", "pair_resumed")
@@ -1431,7 +1758,7 @@ def campaign_mp(root):
     for p, w in enumerate(worker):
         require(all(w[k] > 0 for k in ("multispring", *KSET_KERNELS)), f"campaign_mp: worker {p} launched {w}")
     shutil.rmtree(root, ignore_errors=True)
-    return summed
+    return summed, out["pair"]["summed_case_steps_per_s_over_one"]
 
 
 # surrogate_check: the CNN+LSTM (n_c 2, n_lstm 2, kernel 9, latent 16, T 64) and the
@@ -1800,7 +2127,7 @@ def surrogate_timing(cuda_ms):
         lib.bias_hh_l0.zero_()
         ours, theirs = model._lstm_layer(p, x), lib(x)[0]
         err = float((ours - theirs).abs().max())
-        fwd_ms = cuda_ms(lambda: model._lstm_layer(p, x), 2)
+        fwd_ms = cuda_ms(lambda: model._lstm_layer(p, x), 1)
         lib_fwd_ms = cuda_ms(lambda: lib(x), 10)
     pg = {k: v.clone().requires_grad_(True) for k, v in p.items()}
     xg = x.clone().requires_grad_(True)
@@ -1811,7 +2138,7 @@ def surrogate_timing(cuda_ms):
     def lib_fb():
         return torch.autograd.grad(lib(xg)[0].sum(), [xg, *lib.parameters()])
 
-    fb_ms, lib_fb_ms = cuda_ms(ours_fb, 2), cuda_ms(lib_fb, 10)
+    fb_ms, lib_fb_ms = cuda_ms(ours_fb, 1), cuda_ms(lib_fb, 10)
     flops = 2 * B * T * (H + H) * 4 * H  # the two products a step; the gates' elementwise work aside
     rows.append({"part": "lstm_layer", "B": B, "T": T, "H": H, "max_abs_diff_vs_cudnn": err,
                  "forward_ms": fwd_ms, "cudnn_forward_ms": lib_fwd_ms,
@@ -1900,7 +2227,9 @@ def serve_check(root, dev, keep_feedback=None):
     surrogate and trajectory engines (two members each: y within
     1e-5·max|y|, score within 1e-5, equal signatures), batched ≡
     per-request bitwise, ``ShardedEngine`` ≡ its engine bitwise with its
-    signature, a repeat served from the cache with no ``infer``;
+    signature, over one entry and over two entries on the card (each
+    entry's replica at half the engine's buckets), a repeat served from the
+    cache with no ``infer``;
     ``DecodeEngine`` on reduced qwen3 (fp32: the fp32 flash kernel) with the
     CPU's tokens, a single prompt padded to the bucket giving its batched
     row, and on reduced gemma2, mixtral and deepseek-v2 with the CPU's tokens
@@ -1921,6 +2250,7 @@ def serve_check(root, dev, keep_feedback=None):
     from repro_torch import kernels
     from repro_torch.configs import ARCHS
     from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.mesh import CaseDevice, CaseMesh
     from repro_torch.models import transformer as T
     from repro_torch.serving import (DecodeEngine, MicroBatcher, ResultCache, ShardedEngine, SurrogateEngine,
                                      TrajectoryEngine)
@@ -1952,6 +2282,10 @@ def serve_check(root, dev, keep_feedback=None):
         sh = sharded.infer(x)
         sharded_same = (np.array_equal(sh.y, got.y) and np.array_equal(sh.score, got.score)
                         and sharded.signature() == card.signature())
+        # two entries on the card: each pads its 3 rows to a bucket of 4, the engine its 5 to 8
+        pair = ShardedEngine(card, CaseMesh(np.array([CaseDevice(0, card.device)] * 2, dtype=object)))
+        sp = pair.infer(x)
+        pair_same = np.array_equal(sp.y, got.y) and np.array_equal(sp.score, got.score)
         with MicroBatcher(card, max_batch=8, max_wait_ms=2.0, cache=ResultCache(8)) as mb:
             r1 = mb.submit("k", x[:1]).result(timeout=60)
             r2 = mb.submit("k", x[:1]).result(timeout=60)
@@ -1960,10 +2294,12 @@ def serve_check(root, dev, keep_feedback=None):
         rows[name] = {"max_rel_err_y": y_err, "max_abs_err_score": s_err, "tol": 1e-5,
                       "signature_equal": card.signature() == host.signature(),
                       "batched_vs_per_request_bitwise": solo_same, "sharded_bitwise_same_signature": sharded_same,
+                      "two_entries_half_buckets_bitwise": pair_same, "entry_buckets": pair.replicas[0].buckets,
                       "repeat_from_cache_without_infer": cached, "y_host_numpy": isinstance(got.y, np.ndarray)}
         require(y_err <= 1e-5 and s_err <= 1e-5, f"{name} engine: card ≠ CPU: {rows[name]}")
         require(rows[name]["signature_equal"], f"{name} engine: card and CPU signatures differ")
-        require(solo_same and sharded_same and cached and rows[name]["y_host_numpy"], f"{name}: {rows[name]}")
+        require(solo_same and sharded_same and pair_same and cached and rows[name]["y_host_numpy"],
+                f"{name}: {rows[name]}")
 
     # DecodeEngine on reduced qwen3 (fp32), card against CPU
     cfg = ARCHS["qwen3-1.7b"].reduced()
@@ -2100,7 +2436,9 @@ def serve_main(root, dev, trained, lm_params, qwen):
     the serve CLI at full width.  Per server: requests/s and
     rows/s, infer ms per batch (first, warm), the batcher's wait ms, cache
     hits, peak device bytes above what was resident; tokens/s for decode.
-    Returns the bf16 flash launches of the path."""
+    Returns the bf16 flash launches of the path, and for case_mesh (c) the
+    ensemble engine with its 16 requests and answers and the decode engine
+    with its prompts and tokens."""
     import shutil
 
     import numpy as np
@@ -2120,7 +2458,7 @@ def serve_main(root, dev, trained, lm_params, qwen):
     routed_requests = [(s.signature(), s.waves().astype(np.float32), s) for s in scenarios]
     require(len(scenarios) == max_batch and all(x.shape == (1, *waves.shape[1:]) for _, x, _ in routed_requests),
             f"the sweep's {len(scenarios)} scenarios are not one batch of shard-shaped waves")
-    out = {}
+    out, served = {}, {}
     for name, mod, cls, save in (("surrogate", model, SurrogateEngine, train.save_surrogate),
                                  ("trajectory", seqmodel, TrajectoryEngine, trajectory.save_trajectory)):
         cfg, params, scale = trained["cnn" if name == "surrogate" else "trajectory"]
@@ -2180,6 +2518,8 @@ def serve_main(root, dev, trained, lm_params, qwen):
                 and plan.n_scenarios == len(scenarios), f"{name}: the feedback log does not read back its scenarios")
         require(bool(np.isfinite(ys).all()) and all(r.score > 0 for r in first), f"{name}: non-finite or score 0")
         require(bitwise, f"{name}: a row alone ≠ its batched row")
+        if name == "surrogate":
+            served[name] = (engine, waves, ys, np.asarray([r.score for r in first]), out[name]["infer_ms"])
         del engine, solo
     emit({"serve_main_surrogates": out})
 
@@ -2232,6 +2572,7 @@ def serve_main(root, dev, trained, lm_params, qwen):
             f"offloaded decode's flash launches {off_launches}")
     require(toks.shape == (n_dec, NEW) and out["solo_equals_batched_row"], "decode: a prompt alone ≠ its row")
     require(out["offloaded"]["tokens_equal_resident"], "offloaded KV's tokens differ from the resident engine's")
+    served["decode"] = (engine, prompts, toks, out["infer_ms"])
     del engine, off
 
     # the serve CLI at qwen3-1.7b's full width (its own parameters)
@@ -2250,7 +2591,7 @@ def serve_main(root, dev, trained, lm_params, qwen):
     shutil.rmtree(root, ignore_errors=True)
     return {"serve_main_decode": served_launches["flash_attention_bf16"],
             "serve_main_offloaded": off_launches["flash_attention_bf16"],
-            "serve_main_cli": cli_launches["flash_attention_bf16"]}
+            "serve_main_cli": cli_launches["flash_attention_bf16"]}, served
 
 
 # plan_check: the planner, autotuner and scheduler at crs_check's mesh, 12 springs: a
@@ -2260,7 +2601,8 @@ PLAN_CHECK_SWEEP = {"base": {"n_cases": 2, "nt": 6, "mesh_n": [8, 8, 4], "nsprin
 # plan_main at main's size and 150 springs: (a) one soil, two wave families, 2 cases each,
 # 4 steps, autotuned with the probe; (b) two soils × 2 cases, 4 steps, through two queue workers
 PLAN_MAIN_BASE = {"n_cases": 2, "nt": 4, "mesh_n": [64, 64, 12], "nspring": 150}
-PLAN_MAIN_SWEEP_A = {"base": PLAN_MAIN_BASE, "axes": {"wave.family": ["band_noise", "ricker"]}}
+# (a) one case a wave family (two before the time limit's cut): a group of 2
+PLAN_MAIN_SWEEP_A = {"base": dict(PLAN_MAIN_BASE, n_cases=1), "axes": {"wave.family": ["band_noise", "ricker"]}}
 PLAN_MAIN_SWEEP_B = {"base": PLAN_MAIN_BASE, "axes": {"soil.vs": [[0.8, 1.0], [1.0, 1.0]]}}
 PLAN_TIME_FIELDS = ("wall_s", "cases_per_s")
 
@@ -2465,7 +2807,7 @@ def calibration_table(path, rows, device_name):
 def plan_main(root, dev, calibration, mesh):
     """The planning and scheduling layer at main's size, 150 springs:
     (a) the CLI's ``--sweep`` over one soil and two wave families (one
-    compile group of 4 cases, 4 steps), ``--autotune --probe --calibration``
+    compile group of 2 cases, 4 steps), ``--autotune --probe --calibration``
     (the table ``timing`` measured), beside the model's choices at the
     default 4 GB budget and at 70 GB; (b) ``--schedule --workers 2 --lease-s
     120 --method proposed2 --kset 1`` over two soils × 2 cases: one group per
@@ -2486,10 +2828,11 @@ def plan_main(root, dev, calibration, mesh):
     # (a) the autotuned sweep, in-process
     cfg = sc.Scenario(nspring=PLAN_MAIN_BASE["nspring"]).sim_config()
     cal = autotune.pipeline.load_kernel_calibration(calibration)
-    model = {f"device_gb_{gb:g}": dataclasses.asdict(autotune.choose(mesh, cfg, n_cases=4, device_gb=gb,
+    n_a = 2 * PLAN_MAIN_SWEEP_A["base"]["n_cases"]
+    model = {f"device_gb_{gb:g}": dataclasses.asdict(autotune.choose(mesh, cfg, n_cases=n_a, device_gb=gb,
                                                                       calibration=cal))
              for gb in (autotune.DEFAULT_DEVICE_GB, 70.0)}
-    scored, shortlist = _shortlist(mesh, cfg, 4, cal)
+    scored, shortlist = _shortlist(mesh, cfg, n_a, cal)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     resident = torch.cuda.memory_allocated()
@@ -2515,7 +2858,7 @@ def plan_main(root, dev, calibration, mesh):
                 "resident_before_bytes": resident, "launches": launches, "peak_abs_v": peak_v,
                 "report": [ln for ln in lines if "group" in ln]}
     ch = g["choice"]
-    require(len(m["groups"]) == 1 and m["n_cases"] == 4, f"plan_main (a): {m['n_cases']} cases")
+    require(len(m["groups"]) == 1 and m["n_cases"] == n_a, f"plan_main (a): {m['n_cases']} cases")
     require(ch["source"] == "probe" and ch["probed_case_s"] > 0 and ch["calibration"] == "cuda"
             and (ch["modeled_case_s"], ch["method"], ch["npart"], ch["kset"]) in shortlist,
             f"plan_main (a): the probe's choice {ch} is not in the shortlist {shortlist}")
@@ -3215,7 +3558,7 @@ def compression_on_card(root, device="cuda"):
             "compression: the two ranks hold different means")
 
 
-MESH_TRAIN = dict(shape=(2, 2), n_layers=2, B=2, S=4096, steps=3)  # qwen3-1.7b's widths, 2 of its 28 layers
+MESH_TRAIN = dict(shape=(2, 2), n_layers=2, B=2, S=4096, steps=2)  # qwen3-1.7b's widths, 2 of its 28 layers
 MESH_TRAIN_TIMEOUT_S = 420
 
 
@@ -3769,6 +4112,7 @@ def main() -> int:
             require(tuple(out_k.shape) == (B, Hq, Sq, dv), "flash output shape")
             require(ratio <= 1.0, f"flash_attention bf16 disagrees at {case}: {ratio} of its limit")
         emit(flash_batch_check(dev))
+        concurrent_launch_check(dev)
 
     with Phase("mesh_train"):
         # early, while this process holds little host memory: four more processes share the
@@ -4278,7 +4622,7 @@ def main() -> int:
 
     with Phase("serve_main"):
         # lm_main's qwen3-1.7b parameters serve the decode server
-        serve_launches = serve_main(os.path.join(ROOT, "build", "serve_main"), dev, trained, params, qwen)
+        serve_launches, served = serve_main(os.path.join(ROOT, "build", "serve_main"), dev, trained, params, qwen)
         del trained
         torch.cuda.empty_cache()
 
@@ -4361,14 +4705,21 @@ def main() -> int:
         # so the campaign's rounds have the card as kset_main had it
         kset_carry = tree_map(lambda x: x.cpu(), kset_carry)
         torch.cuda.empty_cache()
-        campaign_launches = campaign_main(mesh, cfg, kset_waves(3, 4, cfg.dt), kset_v,
-                                          os.path.join(ROOT, "build", "campaign_main"))
+        campaign_launches, one_entry = campaign_main(mesh, cfg, kset_waves(3, 4, cfg.dt), kset_v,
+                                                     os.path.join(ROOT, "build", "campaign_main"))
         del kset_v
 
     with Phase("campaign_mp"):
         # the CLI in one and in two worker processes on the card beside this one,
         # with kset_main's carry still on the host
-        campaign_mp_launches = campaign_mp(os.path.join(ROOT, "build", "campaign_mp"))
+        campaign_mp_launches, mp_ratio = campaign_mp(os.path.join(ROOT, "build", "campaign_mp"))
+
+    with Phase("case_mesh"):
+        # two entries of the case mesh in this process, both on the one card
+        case_mesh_launches = case_mesh(mesh, cfg, kset_waves(3, 4, cfg.dt), one_entry, mp_ratio, served,
+                                       os.path.join(ROOT, "build", "case_mesh"))
+        del served, one_entry
+        torch.cuda.empty_cache()
         kset_carry = tree_map(lambda x: x.to(dev), kset_carry)
 
     with Phase("timing"):
@@ -4612,7 +4963,7 @@ def main() -> int:
                      "replaces": "src/repro/kernels/flash_attention/flash_attention.py:83",
                      "launches": (prefill_by_kernel["flash_attention_bf16"] + offload_launches["flash_attention_bf16"]
                                   + sum(serve_launches.values()) + train_cpu_bf16_launches + train_main_launches
-                                  + mesh_train_launches),
+                                  + mesh_train_launches + case_mesh_launches["flash_attention_bf16"]),
                      "max_abs_err": err,
                      "ms": fa_ms, "plain_ms": cuda_ms(lambda: fa_ops.flash_attention_ref(q, k, v), 2),
                      "bound_ms": b_fa, "bound_by": by,
@@ -4630,8 +4981,11 @@ def main() -> int:
                                                      "train_cpu qwen3-1.7b (one train step, bf16, remat)":
                                                          train_cpu_bf16_launches,
                                                      "train_main": train_main_launches,
-                                                     "mesh_train (4 processes of a (2, 2) mesh, 3 steps, local B 1, "
-                                                     "Hq 8, Hkv 4)": mesh_train_launches}}})
+                                                     "mesh_train (4 processes of a (2, 2) mesh, 2 steps, local B 1, "
+                                                     "Hq 8, Hkv 4)": mesh_train_launches,
+                                                     "case_mesh (c) (ShardedEngine over two entries, qwen3 "
+                                                     "DecodeEngine, 8 prompts of 4,096)":
+                                                         case_mesh_launches["flash_attention_bf16"]}}})
         del q, k, v, out_k, out_p
         # the (256, 256) instance at gemma2-2b's (local, global) prefill shapes, (192, 128) at
         # deepseek-v2's MLA, (128, 128) at mixtral's (window 4,096, GQA group 6)
@@ -4771,7 +5125,8 @@ def main() -> int:
             if r["name"] in plan_launches["plan_check"]:
                 r["detail"]["launches_by_path"] = {**{p: c[r["name"]] for p, c in plan_launches.items()},
                                                    "plan_main_b": "in the worker processes, not counted",
-                                                   "campaign_mp": campaign_mp_launches[r["name"]]}
+                                                   "campaign_mp": campaign_mp_launches[r["name"]],
+                                                   "case_mesh": case_mesh_launches[r["name"]]}
         print(smi, flush=True)
         emit({"kernel_detail": {r["name"]: r["detail"] for r in rows}})
         emit({"kernels": [{k: v for k, v in r.items() if k != "detail"} for r in rows]})

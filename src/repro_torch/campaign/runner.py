@@ -1,21 +1,28 @@
-"""Ensemble campaigns with checkpoint/resume (the paper's §3 run), one card
-a process.
+"""Ensemble campaigns with checkpoint/resume (the paper's §3 run) over the
+entries of a case mesh.
 
 A campaign advances ``M`` independent earthquake cases through the chosen
 solution method in *rounds* of ``B = kset × n_dev`` cases, where ``n_dev``
-counts the processes on the case mesh (one device each):
+counts the entries of the case mesh (:mod:`repro_torch.launch.mesh`), each
+a process and a device:
 
-* each process owns the contiguous block of ``kset`` lanes of every round
-  that :func:`case_topology` gives it, and advances it as one native k-set
-  (``methods.make_ensemble_step``): every carry leaf leads with the member
-  axis, and each matvec and multispring pass is one k-set kernel launch for
-  all members (the paper's 2SET, Algorithm 4).  Cases never communicate, so
-  processes exchange nothing but barriers (:mod:`repro_torch.parallel.
-  distributed`): node-parallelism as the paper runs its production
-  ensemble;
+* each entry owns a contiguous block of ``kset`` lanes of every round (entry
+  ``d`` lanes ``d·kset … d·kset + kset − 1``) and advances it as one native
+  k-set (``methods.make_ensemble_step``): every carry leaf leads with the
+  member axis, and each matvec and multispring pass is one k-set kernel
+  launch for all members (the paper's 2SET, Algorithm 4).  A process runs
+  each entry it owns (:func:`case_topology`) with its carry on the entry's
+  device, in a host thread and on a CUDA stream of its own (the CG loops
+  sync the host once an iteration, so entries sharing a thread would run
+  one after another); entries on one device share its operators.  Cases
+  never communicate, so processes exchange nothing but barriers
+  (:mod:`repro_torch.parallel.distributed`): node-parallelism as the paper
+  runs its production ensemble;
 * time stepping is chunked at ``checkpoint_every`` steps; at every chunk
   boundary the campaign state — round index, time index, the k-set carry
-  and this round's observations — goes through
+  (this process's entries' carries as one array a leaf,
+  :func:`repro_torch.training.checkpoint.spread`) and this round's
+  observations — goes through
   :class:`~repro_torch.training.checkpoint.CheckpointManager`, so a killed
   campaign resumes *bit-identically*.  Several processes checkpoint their
   own shards (``step_<n>.pNN/``) and process 0 commits the step between
@@ -34,15 +41,17 @@ The port's counterpart of the JAX package's ``campaign/runner.py``, with
 its checkpoint layout and signature rules.  It differs where PyTorch
 differs from a device mesh and ``jit``:
 
-* one device a process: a mesh with several devices in one process raises
-  (``exec_mesh`` is always ``None``);
+* the reference ``shard_map``s one program over a process's local mesh; the
+  port runs one k-set a local entry, each in its thread (``exec_mesh`` is
+  the :class:`~repro_torch.launch.mesh.CaseMesh` of those entries).  An
+  exception in an entry's thread is raised in the caller;
 * a chunk is a python loop over the step, not a compiled ``scan``;
 * each round starts from a fresh initial carry, built when the round
   starts, and a checkpoint at a round boundary (``t == 0``) stores no carry:
   that carry is the initial one, a function of what the signature covers.
   A resume restores a mid-round carry in place into a fresh one.  So one
-  k-set carry lives on the device at a time: at full size it is 14.9 GB of
-  θ for two members.
+  k-set carry an entry lives on the device at a time: at full size it is
+  14.9 GB of θ for two members.
 """
 from __future__ import annotations
 
@@ -59,9 +68,9 @@ import torch
 from repro_torch.core import health as health_mod
 from repro_torch.core.stream import pad_kset
 from repro_torch.fem import backend as fem_backend, methods
-from repro_torch.launch.mesh import MULTI_DEVICE
+from repro_torch.launch.mesh import CaseMesh, EntryPool, entry_device
 from repro_torch.parallel import distributed as dist
-from repro_torch.training.checkpoint import CheckpointCorruptError, CheckpointManager
+from repro_torch.training.checkpoint import CheckpointCorruptError, CheckpointManager, spread, unspread
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,10 +144,12 @@ class CampaignResult(NamedTuple):
 class CaseTopology:
     """Which slice of every round this process owns, and how to execute it.
 
-    ``n_dev``      devices on the case axis, one a process.
+    ``n_dev``      entries on the case axis (over every process).
     ``offset``     first case lane (within a round) owned by this process.
-    ``local``      cases per round owned here (``kset``).
-    ``exec_mesh``  always ``None``: one device a process, no mesh.
+    ``local``      cases per round owned here (``kset × local entries``).
+    ``exec_mesh``  the process's own entries, which it runs one a thread
+                   (``None`` → a single local entry, run on the caller's
+                   thread).
     """
 
     n_dev: int
@@ -153,35 +164,57 @@ def case_topology(device_mesh, kset: int) -> CaseTopology:
     """This process's case ownership on ``device_mesh``.
 
     ``None`` is one device owning every lane.  A mesh (``launch.mesh.
-    make_case_mesh``) lists one entry a device, each with the
-    ``process_index`` that owns it; this process owns the contiguous block
-    of lanes on its entries, in mesh order (process-major).  A mesh that
-    skips this process, gives processes unequal device counts or
-    interleaves them raises :class:`ValueError`; several devices in one
-    process raise :class:`NotImplementedError` (one device a process)."""
+    make_case_mesh``) lists its entries, each with the ``process_index``
+    that owns it; this process owns the contiguous block of lanes on its
+    entries, in mesh order (process-major), and runs them as its local
+    mesh.  A mesh that skips this process, gives processes unequal entry
+    counts or interleaves them raises :class:`ValueError`."""
     if device_mesh is None:
         return CaseTopology(1, 0, 1, 0, kset, None)
     devs = list(device_mesh.devices.flat)
     procs = sorted({d.process_index for d in devs})
+    if len(procs) == 1:
+        return CaseTopology(len(devs), 0, 1, 0, kset * len(devs), device_mesh if len(devs) > 1 else None)
     me = dist.process_index()
-    if len(procs) > 1:
-        if me not in procs:
-            raise ValueError(f"case mesh spans processes {procs} but process {me} owns none "
-                             f"of its devices — every process must participate")
-        counts = {p: sum(1 for d in devs if d.process_index == p) for p in procs}
-        if len(set(counts.values())) != 1:
-            raise ValueError(f"case mesh is unbalanced across processes ({counts}); equal "
-                             f"per-process device counts are required for uniform rounds")
-        mine = [i for i, d in enumerate(devs) if d.process_index == me]
-        if mine != list(range(mine[0], mine[0] + len(mine))):
-            raise ValueError("case mesh interleaves processes; build it with "
-                             "launch.mesh.make_case_mesh (process-major device order)")
-    else:
-        mine = list(range(len(devs)))
+    if me not in procs:
+        raise ValueError(f"case mesh spans processes {procs} but process {me} owns none "
+                         f"of its devices — every process must participate")
+    counts = {p: sum(1 for d in devs if d.process_index == p) for p in procs}
+    if len(set(counts.values())) != 1:
+        raise ValueError(f"case mesh is unbalanced across processes ({counts}); equal "
+                         f"per-process device counts are required for uniform rounds")
+    mine = [i for i, d in enumerate(devs) if d.process_index == me]
+    if mine != list(range(mine[0], mine[0] + len(mine))):
+        raise ValueError("case mesh interleaves processes; build it with "
+                         "launch.mesh.make_case_mesh (process-major device order)")
+    exec_mesh = None
     if len(mine) > 1:
-        raise NotImplementedError(f"case_topology over {len(mine)} devices in one process: {MULTI_DEVICE}")
-    return CaseTopology(n_dev=len(devs), process_index=me if len(procs) > 1 else 0, process_count=len(procs),
-                        offset=kset * mine[0], local=kset, exec_mesh=None)
+        local = np.empty(len(mine), dtype=object)
+        local[:] = [devs[i] for i in mine]
+        exec_mesh = CaseMesh(local, tuple(device_mesh.axis_names))
+    return CaseTopology(n_dev=len(devs), process_index=me, process_count=len(procs),
+                        offset=kset * mine[0], local=kset * len(mine), exec_mesh=exec_mesh)
+
+
+def entry_devices(topo: CaseTopology, device_mesh, device=None) -> list[torch.device]:
+    """The device of each entry this process runs, in lane order: an
+    entry's own device, or ``device`` (``None``: the card) where the entry
+    names none."""
+    if topo.exec_mesh is not None:
+        entries = list(topo.exec_mesh.devices.flat)
+    elif device_mesh is not None:
+        entries = [d for d in device_mesh.devices.flat if d.process_index == topo.process_index][:1]
+    else:
+        entries = [None]
+    return [entry_device(e, device) for e in entries]
+
+
+def _sync(devices, n_ent: int) -> None:
+    """Wait for every CUDA device of ``devices`` when several entries run:
+    what this thread made there is read on the entries' own streams."""
+    for dev in devices:
+        if dev.type == "cuda" and n_ent > 1:
+            torch.cuda.synchronize(dev)
 
 
 def _chunk_bounds(nt: int, every: int) -> list[tuple[int, int]]:
@@ -279,10 +312,9 @@ def make_campaign_chunk(
     obs_idx,
     *,
     kset: int,
-    device_mesh=None,
 ):
-    """``(chunk_fn, new_carry)``: the campaign's chunk, and a function that
-    builds a fresh ``kset``-member carry on ``ops.device``.
+    """``(chunk_fn, new_carry)``: one entry's chunk of the campaign, and a
+    function that builds a fresh ``kset``-member carry on ``ops.device``.
 
     ``chunk_fn(box, wave_chunk)`` advances the k-set carry handed over in
     the one-element list ``box`` through ``wave_chunk [kset, ct, 3]`` (a
@@ -291,7 +323,8 @@ def make_campaign_chunk(
     the device, ``iters`` on the host.  The chunk empties ``box``, so the
     caller holds no reference to the chunk's first carry: at full size a
     k-set carry is 14.9 GB, and a caller's reference would keep it on the
-    card beside every later step's.
+    card beside every later step's.  A process runs one such chunk for each
+    case-mesh entry it owns (:func:`run_campaign`).
 
     With ``ops.cfg.health`` the k-set step is wrapped by
     :func:`repro_torch.core.health.guard_step`: the carry becomes
@@ -299,7 +332,6 @@ def make_campaign_chunk(
     together — and a case whose step goes non-finite is frozen at its last
     healthy carry, so NaN cannot march forward in time.
     """
-    case_topology(device_mesh, kset)  # one device a process
     step = methods.ensemble_step(ops, method)
     guarded = bool(ops.cfg.health)
     if guarded:
@@ -339,19 +371,23 @@ def run_campaign(
     """Run (or resume) an ensemble campaign over ``waves`` on ``device``
     (``None`` → the card; the CPU only when asked).
 
-    ``device_mesh`` is ``None`` (one process, one device) or the case mesh
-    of a multi-process launch (``launch.mesh.make_case_mesh()``): every
-    process then calls ``run_campaign`` with the same arguments, owns the
-    case slice :func:`case_topology` gives it, runs it on its own
-    ``device`` and returns only its own cases (``CampaignResult.
-    case_indices``).  ``stop_after_steps``
-    aborts the campaign at the first chunk boundary at or past that many
-    global time steps *after* writing its checkpoint — the fault-injection
-    hook of the kill-and-resume tests (a real SIGKILL anywhere is no worse:
-    the previous checkpoint is atomic on disk).  ``on_chunk(info)``, when
-    given, is called after each chunk (its observations copied to the host,
-    so the device has finished it) with ``round``, the chunk's steps ``t0``
-    and ``t1``, and its wall ``seconds``.
+    ``device_mesh`` is ``None`` (one device) or a case mesh
+    (``launch.mesh.make_case_mesh()``): this process runs each entry it
+    owns (:func:`case_topology`) on the entry's device (``device`` where
+    the entry names none), each in its own host thread and CUDA stream.  A
+    mesh spanning several processes makes this a multi-process campaign:
+    every process calls ``run_campaign`` with the same arguments and
+    returns only its own cases (``CampaignResult.case_indices``).
+    ``stop_after_steps`` aborts the campaign at the first chunk boundary at
+    or past that many global time steps *after* writing its checkpoint —
+    the fault-injection hook of the kill-and-resume tests (a real SIGKILL
+    anywhere is no worse: the previous checkpoint is atomic on disk).
+    ``on_chunk(info)``, when given, is called after each chunk (its
+    observations copied to the host, so the devices have finished it) with
+    ``round``, the chunk's steps ``t0`` and ``t1``, its wall ``seconds``,
+    and on cards ``peak_device_bytes``: the peaks of the entries' cards,
+    summed, over the chunk (the cards' peak statistics are reset once the
+    operators are built and after each call).
     """
     waves = np.asarray(waves)
     M, nt = waves.shape[0], waves.shape[1]
@@ -371,14 +407,36 @@ def run_campaign(
     obs = np.asarray(observe if observe is not None else mesh.surface[:1])
     n_obs = len(obs)
 
-    ops = fem_backend.make_operators(mesh, cfg, device=device)
-    chunk_fn, new_carry = make_campaign_chunk(ops, campaign.method, obs, kset=topo.local)
+    # ---- the entries: one operator set a device, one chunk and carry an entry
+    devices = entry_devices(topo, device_mesh, device)
+    n_ent, kset = len(devices), campaign.kset
+    ops_of: dict[torch.device, methods.FemOperators] = {}
+    for dev in devices:
+        if dev not in ops_of:
+            ops_of[dev] = fem_backend.make_operators(mesh, cfg, device=dev)
+            if n_ent > 1 and campaign.method != "proposed2":
+                ops_of[dev].bcsr  # made on first use: before the entries' threads share it
+    chunks = [make_campaign_chunk(ops_of[dev], campaign.method, obs, kset=kset) for dev in devices]
+    waves_of = {dev: torch.as_tensor(padded, dtype=cfg.rdtype, device=dev) for dev in ops_of}
+    _sync(ops_of, n_ent)  # the constants above are made on this thread's streams, read on the entries'
+    pool = EntryPool(devices)
+    cards = sorted({d.index for d in devices if d.type == "cuda"}) if on_chunk is not None else []
+    for c in cards:  # each chunk's peak is its own (the operators' constants stay in it)
+        torch.cuda.reset_peak_memory_stats(c)
     bounds = _chunk_bounds(nt, campaign.checkpoint_every)
-    wave_all = torch.as_tensor(padded, dtype=cfg.rdtype, device=ops.device)
     vdt = np.dtype(str(cfg.rdtype).removeprefix("torch."))
-    sig = _campaign_sig(campaign, cfg, waves, B, obs, ops.kernel_backend.describe())
+    sig = _campaign_sig(campaign, cfg, waves, B, obs, ops_of[devices[0]].kernel_backend.describe())
     mgr = (CheckpointManager(campaign.checkpoint_dir, keep=campaign.keep, process_index=topo.process_index,
                              process_count=topo.process_count) if campaign.checkpoint_dir else None)
+
+    def new_carries():
+        return pool.map(lambda ch: ch[1](), chunks)
+
+    def joined(carries):  # the entries' carries as one tree: each leaf one array of every local lane
+        return carries[0] if n_ent == 1 else spread(carries)
+
+    def parted(carry):
+        return [carry] if n_ent == 1 else [unspread(carry, d) for d in range(n_ent)]
 
     # ---- resume ------------------------------------------------------------
     # Mutable campaign state splits in two: completed rounds are immutable
@@ -386,13 +444,14 @@ def run_campaign(
     # what still changes (the in-flight carry + this round's partial
     # observations), so checkpoint volume stays O(round), not O(campaign).
     r0, t0 = 0, 0
-    carry = template = None  # ``template``: a fresh carry that a mid-round checkpoint restores into
+    carries = None  # one k-set carry an entry
     guarded = bool(cfg.health)
     done_rounds: list[tuple] = []  # (vel, iters, health|None, nonconverged|None) per completed round
     cur_vel: list[np.ndarray] = []
     cur_iters: list[np.ndarray] = []
     resumed_from = None
     if mgr is not None:
+        template = None  # fresh carries that a mid-round checkpoint restores into
         meta_like = {"meta": {"sig": sig, "round": np.zeros((), np.int64), "t": np.zeros((), np.int64)}}
         bad_steps: set[int] = set()
         while True:
@@ -410,7 +469,7 @@ def run_campaign(
                 )
             r_ck, t_ck = int(head["meta"]["round"]), int(head["meta"]["t"])
             if t_ck > 0 and template is None:
-                template = new_carry()
+                template = joined(new_carries())
             try:
                 st = mgr.restore(ckpt_step, {
                     "carry": template if t_ck > 0 else None,  # a round boundary stores no carry
@@ -430,7 +489,7 @@ def run_campaign(
                 continue
             r0, t0 = r_ck, t_ck
             if t0 > 0:
-                carry = st.pop("carry")  # ``template``'s tensors, filled
+                carries = parted(st.pop("carry"))  # ``template``'s tensors, filled
             for rr in range(r0):
                 done_rounds.append(_load_banked_round(campaign.checkpoint_dir, rr, r0, topo))
             if t0 > 0:
@@ -438,6 +497,8 @@ def run_campaign(
                 cur_iters = [np.asarray(st["iters"])]
             resumed_from = ckpt_step
             break
+        template = None  # a carry restored into it is ``carries``; a partly filled one is dropped
+        _sync(ops_of, n_ent)  # restored on this thread's streams, read on the entries'
 
     def _save(r_next: int, t_next: int, carry_next, blocking: bool = False):
         if mgr is None:
@@ -454,54 +515,69 @@ def run_campaign(
         # validates: all processes must have saved the same (round, t)
         mgr.save(r_next * nt + t_next, state, blocking=blocking, meta={"round": int(r_next), "t": int(t_next)})
 
-    template = None  # a carry restored into it is ``carry``; a partly filled one is dropped
+    box: list = [None] * n_ent  # each entry's carry, handed to its chunk and taken back
+
+    def run_entry(d: int, lo: int, a: int, b: int):
+        handed = [box[d] if box[d] is not None else chunks[d][1]()]  # the chunk holds the only reference
+        box[d] = None
+        wave = waves_of[devices[d]][lo + d * kset: lo + (d + 1) * kset, a:b]
+        box[d], (vel, iters) = chunks[d][0](handed, wave)
+        return vel.cpu().numpy(), iters.numpy().astype(np.int64)
 
     # ---- rounds ------------------------------------------------------------
     steps_done = r0 * nt + t0
     completed = r0 >= n_rounds
     stopped = False
-    for r in range(r0, n_rounds):
-        if r > r0:
-            carry = None  # free the last round's carry before building the next
-            cur_vel, cur_iters, t0 = [], [], 0
-        if carry is None:
-            carry = new_carry()
-        lo = r * B + topo.offset
-        wave_r = wave_all[lo: lo + topo.local]
-        for a, b in bounds:
-            if b <= t0:
-                continue  # already restored past this chunk
-            a = max(a, t0)
-            tc = time.perf_counter()
-            box, carry = [carry], None  # the chunk holds the only reference
-            carry, (vel, iters) = chunk_fn(box, wave_r[:, a:b])
-            cur_vel.append(vel.cpu().numpy())
-            cur_iters.append(iters.numpy().astype(np.int64))
-            if on_chunk is not None:
-                on_chunk({"round": r, "t0": a, "t1": b, "seconds": time.perf_counter() - tc})
-            steps_done = r * nt + b
-            if b == nt:  # round complete → bank it once
-                round_vel = np.concatenate(cur_vel, axis=1)
-                round_iters = np.concatenate(cur_iters, axis=1)
-                if guarded:  # final guarded carry = (inner, word, ncg)
-                    round_health = carry[1].numpy().astype(np.int32)
-                    round_ncg = carry[2].numpy().astype(np.int64)
+    if carries is not None:
+        box[:] = carries
+    carries = None
+    try:
+        for r in range(r0, n_rounds):
+            if r > r0:
+                box[:] = [None] * n_ent  # free the last round's carries before building the next
+                cur_vel, cur_iters, t0 = [], [], 0
+            lo = r * B + topo.offset
+            for a, b in bounds:
+                if b <= t0:
+                    continue  # already restored past this chunk
+                a = max(a, t0)
+                tc = time.perf_counter()
+                outs = pool.map(run_entry, range(n_ent), [lo] * n_ent, [a] * n_ent, [b] * n_ent)
+                cur_vel.append(np.concatenate([v for v, _ in outs]))
+                cur_iters.append(np.concatenate([it for _, it in outs]))
+                if on_chunk is not None:
+                    info = {"round": r, "t0": a, "t1": b, "seconds": time.perf_counter() - tc}
+                    if cards:
+                        info["peak_device_bytes"] = sum(torch.cuda.max_memory_allocated(c) for c in cards)
+                    on_chunk(info)
+                    for c in cards:
+                        torch.cuda.reset_peak_memory_stats(c)
+                steps_done = r * nt + b
+                if b == nt:  # round complete → bank it once
+                    round_vel = np.concatenate(cur_vel, axis=1)
+                    round_iters = np.concatenate(cur_iters, axis=1)
+                    if guarded:  # final guarded carry = (inner, word, ncg)
+                        round_health = np.concatenate([c[1].cpu().numpy() for c in box]).astype(np.int32)
+                        round_ncg = np.concatenate([c[2].cpu().numpy() for c in box]).astype(np.int64)
+                    else:
+                        round_health = round_ncg = None
+                    done_rounds.append((round_vel, round_iters, round_health, round_ncg))
+                    if mgr is not None:
+                        _bank_round(campaign.checkpoint_dir, r, round_vel, round_iters, topo, round_health,
+                                    round_ncg)
+                    cur_vel, cur_iters = [], []
+                    completed = r + 1 == n_rounds
+                    _save(r + 1, 0, None, blocking=completed)
                 else:
-                    round_health = round_ncg = None
-                done_rounds.append((round_vel, round_iters, round_health, round_ncg))
-                if mgr is not None:
-                    _bank_round(campaign.checkpoint_dir, r, round_vel, round_iters, topo, round_health, round_ncg)
-                cur_vel, cur_iters = [], []
-                completed = r + 1 == n_rounds
-                _save(r + 1, 0, None, blocking=completed)
-            else:
-                _save(r, b, carry)
-            if stop_after_steps is not None and steps_done >= stop_after_steps and not completed:
-                stopped = True
+                    _save(r, b, joined(box))
+                if stop_after_steps is not None and steps_done >= stop_after_steps and not completed:
+                    stopped = True
+                    break
+            if stopped or completed:
                 break
-        if stopped or completed:
-            break
-    carry = None
+    finally:
+        box[:] = [None] * n_ent
+        pool.close()
     if mgr is not None:
         mgr.wait()
 

@@ -50,6 +50,7 @@
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
+#include <mutex>
 
 namespace {
 
@@ -58,6 +59,7 @@ constexpr int kNNode = 10;
 constexpr int kDof = kNNode * 3;      // 30 values of u_e and f_e
 constexpr int kDElem = kNPoint * 36;  // 144 values of D per element
 constexpr int kMaxTile = 64;          // elements per tile (4 threads each)
+constexpr int kMaxDevices = 64;       // device ordinals with a configuration of their own
 
 // Shared-memory layout, for one tile of `te` elements.  Every range starts
 // on a 16-byte boundary when te is a multiple of 4.
@@ -397,24 +399,37 @@ ebe_kernel(Args<T> a, const T* __restrict__ gradn, int te, T* __restrict__ out) 
 template <typename T, bool KSET>
 int launch_instance(const Args<T>& args, const T* gradn, int tile_e, long long tiles, T* out, void* stream) {
   const size_t smem = Smem<T>{tile_e}.total();
-  // per instance: the shared-memory ceiling once, blocks per SM per tile size
-  static int sms = 0;
-  static int per_sm[kMaxTile / 4 + 1] = {};
-  if (sms == 0) {
-    cudaError_t e = cudaFuncSetAttribute(ebe_kernel<T, KSET>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(Smem<T>{kMaxTile}.total()));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    int dev = 0;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-      return static_cast<int>(e);
-  }
-  int& occ = per_sm[tile_e / 4];
-  if (occ == 0) {
-    const cudaError_t e =
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, ebe_kernel<T, KSET>, 4 * tile_e, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (occ < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  // per instance and per device (the launching thread's current one): the
+  // shared-memory ceiling once, its SM count, and blocks per SM per tile
+  // size; under a lock, since several host threads may launch at once
+  static std::mutex mu;
+  static int sms_of[kMaxDevices] = {};
+  static int per_sm[kMaxDevices][kMaxTile / 4 + 1] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  int sms = 0, occ = 0;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (sms_of[dev] == 0) {
+      e = cudaFuncSetAttribute(ebe_kernel<T, KSET>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(Smem<T>{kMaxTile}.total()));
+      if (e != cudaSuccess) return static_cast<int>(e);
+      if ((e = cudaDeviceGetAttribute(&sms_of[dev], cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+        return static_cast<int>(e);
+    }
+    int& cached = per_sm[dev][tile_e / 4];
+    if (cached == 0) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&cached, ebe_kernel<T, KSET>, 4 * tile_e, smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      if (cached < 1) {
+        cached = 0;
+        return static_cast<int>(cudaErrorInvalidConfiguration);
+      }
+    }
+    sms = sms_of[dev];
+    occ = cached;
   }
   const int grid = tiles < occ * sms ? static_cast<int>(tiles) : occ * sms;
   ebe_kernel<T, KSET><<<grid, 4 * tile_e, smem, static_cast<cudaStream_t>(stream)>>>(args, gradn, tile_e, out);

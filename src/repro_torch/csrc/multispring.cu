@@ -45,12 +45,14 @@
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
+#include <mutex>
 
 namespace {
 
 constexpr int kNRed = 28;     // 6 σ + 21 D (upper triangle) + 1 frac, padded to 32 below
 constexpr int kChunk = 160;   // springs a warp stages in shared memory per round
 constexpr int kMaxWarps = 8;  // points (warps) per block: 256 threads leave 255 registers a thread
+constexpr int kMaxDevices = 64;  // device ordinals with a configuration of their own
 
 // One warp's staged spring state.
 template <typename T>
@@ -241,12 +243,23 @@ int launch(const void* eps, const void* grev, const void* trev, const void* gpre
            void* ngrev, void* ntrev, void* ngprev, void* ngmax, void* ndir, void* nvirg,
            void* stream) {
   if (tile_p < 1 || tile_p > kMaxWarps || k < 1) return static_cast<int>(cudaErrorInvalidValue);
-  static bool configured = false;  // per instantiation: the shared-memory ceiling, once
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(ms_update_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(kMaxWarps * sizeof(Staged<T>)));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
+  // per instantiation and per device (an attribute set on one device does
+  // not reach another): the shared-memory ceiling, once; under a lock, since
+  // several host threads may launch at once
+  static std::mutex mu;
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (!configured[dev]) {
+      e = cudaFuncSetAttribute(ms_update_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kMaxWarps * sizeof(Staged<T>)));
+      if (e != cudaSuccess) return static_cast<int>(e);
+      configured[dev] = true;
+    }
   }
   const long long points = (long long)k * P;
   if (points > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);

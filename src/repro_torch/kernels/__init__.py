@@ -6,11 +6,17 @@ kernels.  Importing this package builds and loads nothing.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
+_COUNT_LOCK = threading.Lock()  # one for every counter: an add updates a counter and its parents
+
 
 class LaunchCounter:
     """Count of kernel launches made by one wrapper.  A counter made with a
     ``parent`` counts one instance of a kernel (a dtype with a kernel of its
-    own) and adds each launch to its parent's count too."""
+    own) and adds each launch to its parent's count too.  Adds from several
+    host threads (the entries of a case mesh) are counted exactly."""
 
     def __init__(self, name: str, parent: "LaunchCounter | None" = None):
         self.name = name
@@ -21,14 +27,30 @@ class LaunchCounter:
             parent.parts.append(self)
 
     def add(self) -> None:
-        self.n += 1
-        if self.parent is not None:
-            self.parent.add()
+        with _COUNT_LOCK:
+            c = self
+            while c is not None:
+                c.n += 1
+                c = c.parent
 
     def reset(self) -> None:
+        with _COUNT_LOCK:
+            self._zero()
+
+    def _zero(self) -> None:
         self.n = 0
         for part in self.parts:
-            part.reset()
+            part._zero()
+
+
+def on_device(dev):
+    """The context a wrapper launches its kernel in: ``dev`` made the host
+    thread's current CUDA device, so the launch and the stream it is given
+    belong to the device the tensors live on, whatever device the calling
+    thread had current."""
+    import torch
+
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
 def check_arg(kernel: str, name: str, x, shape, dtype, device) -> None:

@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -106,9 +107,17 @@ _ENTRY_POINTS = {
 }
 
 
-@functools.lru_cache(maxsize=1)
+_LOAD_LOCK = threading.Lock()  # host threads of a case mesh may ask at once: one builds, the others wait
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, with argtypes set on every entry point."""
+    with _LOAD_LOCK:
+        return _load()
+
+
+@functools.lru_cache(maxsize=1)
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for base, (suffixes, argtypes) in _ENTRY_POINTS.items():
         for suffix in suffixes:

@@ -1,6 +1,7 @@
 """Binding of ``csrc/ebe_matvec.cu`` (ctypes, plain C interface).
 
-Launches on the current CUDA stream; the output is allocated here with
+Launches on the tensors' device (made the thread's current one for the
+launch) and on that device's current stream; the output is allocated here with
 ``torch.empty``; every argument is checked before its pointer is passed.
 The fp64 (outer flexible CG, rhs ``C·v``) and fp32 (inner PCG) launches are
 counted separately, and the k-set launches (k members in one launch) apart
@@ -12,7 +13,7 @@ import torch
 
 from repro_torch.fem import quadrature as quad
 from repro_torch.fem.assembly import gradn_ref
-from repro_torch.kernels import LaunchCounter, check_arg
+from repro_torch.kernels import LaunchCounter, check_arg, on_device
 
 TILE_E = 16  # elements per tile of the persistent grid (4 threads each)
 TILE_E_RANGE = (4, 64)  # and a multiple of 4: every tile's bulk copies stay 16-byte aligned
@@ -73,11 +74,12 @@ def _launch(x, conn, D, Jinv, wdet, coef, tile_e, k):
     out = torch.empty((*lead, E, quad.NNODE, 3), dtype=dt, device=dev)
     f64 = dt == torch.float64
     fn = getattr(_build.library(), "ebe_matvec_" + ("f64" if f64 else "f32"))
-    err = fn(
-        x.data_ptr(), conn.data_ptr(), D.data_ptr(), Jinv.data_ptr(), wdet.data_ptr(),
-        None if coef is None else coef.data_ptr(), gradn.data_ptr(), E, x.shape[-2], 1 if k is None else k,
-        tile_e, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with on_device(dev):
+        err = fn(
+            x.data_ptr(), conn.data_ptr(), D.data_ptr(), Jinv.data_ptr(), wdet.data_ptr(),
+            None if coef is None else coef.data_ptr(), gradn.data_ptr(), E, x.shape[-2], 1 if k is None else k,
+            tile_e, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check(err, "ebe_matvec")
     if k is None:
         (counter_f64 if f64 else counter_f32).add()

@@ -10,7 +10,8 @@ The dtype alone chooses the kernel, and both are hand-written:
   products), which holds the reference's fp32 tolerance where one TF32
   pass does not; K and V come by cp.async through a two-stage ring.
 
-Each launches on the current CUDA stream; the output ``[B,Hq,Sq,dv]`` is
+Each launches on the tensors' device (made the thread's current one for
+the launch) and on that device's current stream; the output ``[B,Hq,Sq,dv]`` is
 allocated here with ``torch.empty``.  q, k and v are passed with their batch,
 head and row strides, so the transposed projections of the attention layer
 go in without a copy; the last dimension must have unit stride.  TMA needs
@@ -22,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import LaunchCounter
+from repro_torch.kernels import LaunchCounter, on_device
 
 MAX_HEAD_DIM = 256
 # the wgmma kernel's instances, (DK, DV): Q·Kᵀ's depth and P·V's width
@@ -156,11 +157,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, c
     out = torch.empty((B, Hq, Sq, v.shape[3]), dtype=dt, device=dev)
     inst = wgmma_instance(q.shape[3], v.shape[3]) if dt == torch.bfloat16 else None
     dims = (q.shape[3], v.shape[3], *inst) if inst else (dh, dv)
-    err = getattr(_build.library(), ENTRY[dt])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, Hkv, Sq, Skv, *dims,
-        *tma_strides(q), *tma_strides(k), *tma_strides(v),
-        scale, int(causal), int(window or 0), float(softcap or 0.0), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with on_device(dev):
+        err = getattr(_build.library(), ENTRY[dt])(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, Hkv, Sq, Skv, *dims,
+            *tma_strides(q), *tma_strides(k), *tma_strides(v),
+            scale, int(causal), int(window or 0), float(softcap or 0.0),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check(err, "flash_attention")
     (WGMMA_COUNTERS[inst] if inst else COUNTERS[dt]).add()
     return out if out.shape[3] == dv else out[..., :dv].contiguous()

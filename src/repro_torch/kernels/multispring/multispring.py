@@ -1,6 +1,7 @@
 """Binding of ``csrc/multispring.cu`` (ctypes, plain C interface).
 
-Launches on the current CUDA stream; outputs are allocated here with
+Launches on the tensors' device (made the thread's current one for the
+launch) and on that device's current stream; outputs are allocated here with
 ``torch.empty``; every argument is checked before its pointer is passed.
 The k-set launches (k members' points in one launch) are counted apart
 from the one-member ones.
@@ -10,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.fem.multispring import FLAG_KEYS, STATE_KEYS, SpringParams
-from repro_torch.kernels import LaunchCounter, check_arg
+from repro_torch.kernels import LaunchCounter, check_arg, on_device
 
 TILE_P = 4  # evaluation points (one warp each) per CUDA block
 TILE_P_RANGE = (1, 8)  # the kernel's launch bound: 256 threads
@@ -65,14 +66,15 @@ def _launch(eps, state, params, n, w, tile_p, k):
     frac = torch.empty((*lead, P), dtype=dt, device=dev)
     new = {key: torch.empty_like(state[key]) for key in STATE_KEYS}
     fn = getattr(_build.library(), "ms_update_" + ("f64" if dt == torch.float64 else "f32"))
-    err = fn(
-        eps.data_ptr(), *(state[key].data_ptr() for key in STATE_KEYS),
-        params.G0.data_ptr(), params.gamma_r.data_ptr(), params.beta.data_ptr(),
-        params.bulk.data_ptr(), n.data_ptr(), w.data_ptr(), float(params.g_min_frac),
-        P, S, 1 if k is None else k, tile_p, sig.data_ptr(), D.data_ptr(), frac.data_ptr(),
-        *(new[key].data_ptr() for key in STATE_KEYS),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with on_device(dev):
+        err = fn(
+            eps.data_ptr(), *(state[key].data_ptr() for key in STATE_KEYS),
+            params.G0.data_ptr(), params.gamma_r.data_ptr(), params.beta.data_ptr(),
+            params.bulk.data_ptr(), n.data_ptr(), w.data_ptr(), float(params.g_min_frac),
+            P, S, 1 if k is None else k, tile_p, sig.data_ptr(), D.data_ptr(), frac.data_ptr(),
+            *(new[key].data_ptr() for key in STATE_KEYS),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check(err, "multispring")
     (counter if k is None else counter_kset).add()
     return sig, D, new, frac

@@ -20,6 +20,15 @@ join/leave freely and the surrogate can train on shards mid-sweep::
     PYTHONPATH=src python -m repro_torch.launch.campaign --sweep sweep.json \\
         --schedule --worker-id w0 --out shards/ --ckpt-dir DIR
 
+Several devices in one process — the case mesh: ``--devices N`` runs the
+first N cards of ``torch.cuda.device_count()`` (default: every card),
+``--host-devices N`` N CPU entries; each entry owns ``--kset`` lanes of
+every round (rounds of ``kset × N``) and runs in a host thread and on a
+CUDA stream of its own::
+
+    PYTHONPATH=src python -m repro_torch.launch.campaign --waves 100 --nt 16000 \\
+        --kset 1 --devices 2 --ckpt-dir DIR --ckpt-every 500 --out shards/
+
 Multi-process campaigns — one command per process, the same flags but
 ``--process-id``; each process owns a contiguous slice of every round's
 cases, runs it on its own device and writes ``OUT/pNN/``::
@@ -120,11 +129,19 @@ Flags (as the JAX package's ``repro.launch.campaign``)
 ``--cpu-backend``
     Run on the CPU (the same as ``--device cpu``): the rehearsal of a
     multi-process launch without a card.
+``--devices / --host-devices``
+    The case mesh of one process: the first ``N`` cards (``--devices``;
+    default every card, one a process under a process group; more than
+    there are exit non-zero with the reference's ``requested N devices,
+    have M``), or ``N`` CPU entries (``--host-devices``, the reference's
+    forced host devices).  One process runs them all, an entry a host
+    thread; with ``--num-processes P`` every process owns as many, and the
+    mesh has ``P × N`` entries.  (The train CLI's ``--host-devices`` is
+    another thing: it launches one process a device, as its DTensor mesh
+    needs.)
 
 Each chunk prints a ``[chunk]`` line, each checkpoint a ``[checkpoint]``
 line and the run its kernel launches (``[launches]``), as JSON objects.
-Several devices in one process (``--devices``/``--host-devices`` above 1)
-are not ported yet: those flags exit non-zero saying so.
 """
 from __future__ import annotations
 
@@ -136,9 +153,6 @@ import numpy as np
 
 from repro_torch.kernels.ebe_matvec.ebe_matvec import TILE_E
 from repro_torch.kernels.multispring.multispring import TILE_P
-
-MULTI_DEVICE_SLICE = ("several devices in one process are a later slice (ROADMAP.md queue 1 item 2: the case mesh "
-                      "in one process); the port runs one device a process")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -195,8 +209,10 @@ def _parser() -> argparse.ArgumentParser:
     # the multi-process topology (repro_torch.launch.bootstrap)
     ap.add_argument("--cpu-backend", action="store_true", help="run on the CPU (multi-process rehearsal)")
     ap.add_argument("--devices", type=int, default=0,
-                    help="devices on the case axis: one a process (several in one process are not ported)")
-    ap.add_argument("--host-devices", type=int, default=0, help="not ported (the port has one device a process)")
+                    help="cards on the case axis (default: all visible), one host thread each in this process")
+    ap.add_argument("--host-devices", type=int, default=0,
+                    help="N CPU entries on the case axis, one host thread each in this process (the train CLI's "
+                         "--host-devices launches processes instead)")
     ap.add_argument("--coordinator", default=None, help="process 0's torch.distributed store, host:port")
     ap.add_argument("--num-processes", type=int, default=1)
     ap.add_argument("--process-id", type=int, default=0)
@@ -205,18 +221,19 @@ def _parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args, tag: str) -> None:
     """Exit non-zero, before any process group or device is touched, naming
-    the first flag whose mode the port lacks or the reference refuses.  The
-    port has one device a process, so the case mesh of ``N`` processes has
-    ``N`` devices."""
+    the first flag whose mode the port lacks or the reference refuses.
+    Under a process group each process owns ``--host-devices`` CPU entries
+    or one device, so the global case mesh has ``num_processes`` times as
+    many."""
     n_proc = args.num_processes
     if args.cpu_backend and args.device not in (None, "cpu"):
         raise SystemExit(f"{tag} --cpu-backend runs on the CPU; drop --device {args.device}")
-    if n_proc > 1 and args.devices and args.devices != n_proc:
+    if args.host_devices and args.device not in (None, "cpu"):
+        raise SystemExit(f"{tag} --host-devices {args.host_devices} runs CPU entries; drop --device {args.device}")
+    n_global = n_proc * max(1, args.host_devices)
+    if n_proc > 1 and args.devices and args.devices != n_global:
         raise SystemExit(f"{tag} --devices {args.devices} with {n_proc} processes: a multi-host campaign must "
-                         f"use every device on the global case mesh ({n_proc}); drop --devices")
-    for flag, n in (("--devices", 0 if n_proc > 1 else args.devices), ("--host-devices", args.host_devices)):
-        if n > 1:
-            raise SystemExit(f"{tag} {flag} {n} is not ported yet: {MULTI_DEVICE_SLICE}")
+                         f"use every device on the global case mesh ({n_global}); drop --devices")
     if n_proc > 1 and (args.sweep or args.scenario or args.scenarios):
         raise SystemExit(f"{tag} --scenario/--sweep are single-process for now (multi-host campaigns take the "
                          f"plain flag path); drop the distributed flags")
@@ -236,7 +253,7 @@ def main(argv=None, result: dict | None = None) -> int:
     multi = args.num_processes > 1
     tag = f"[campaign p{args.process_id}]" if multi else "[campaign]"
     _refuse_unported(args, tag)
-    if args.cpu_backend:
+    if args.cpu_backend or args.host_devices:
         args.device = "cpu"
     if args.trajectories and args.obs_every < 1:
         raise SystemExit(f"{tag} --obs-every must be ≥ 1, got {args.obs_every}")
@@ -250,28 +267,28 @@ def main(argv=None, result: dict | None = None) -> int:
 
     import json
 
-    import torch
-
     from repro_torch import kernels
     from repro_torch.campaign import CampaignConfig, run_campaign
     from repro_torch.core import faults, health as health_mod
     from repro_torch.device import resolve_device
     from repro_torch.fem import backend as fem_backend, meshgen
     from repro_torch.launch.bootstrap import DistributedArgs, distributed_init
-    from repro_torch.launch.mesh import make_case_mesh
     from repro_torch.surrogate.dataset import (EnsembleConfig, random_band_limited_waves, save_shards,
                                                simulation_config)
 
     device = resolve_device(args.device)  # no card and no --device cpu: raise before joining the group
     distributed_init(DistributedArgs(coordinator=args.coordinator, num_processes=args.num_processes,
                                      process_id=args.process_id, cpu_backend=args.cpu_backend))
-    n_proc, pid = args.num_processes, args.process_id
-    dmesh = make_case_mesh(device=device) if multi else None
+    pid = args.process_id
+    dmesh = _case_mesh(args, tag, device)
+    n_dev = 1 if dmesh is None else dmesh.devices.size
+    local = n_dev // args.num_processes  # this process's entries
     cfg = EnsembleConfig(n_waves=args.waves, nt=args.nt, mesh_n=tuple(int(x) for x in args.mesh_n.split("x")),
                          nspring=args.nspring, seed=args.seed, kset=args.kset)
     print(f"{tag} {args.waves} waves × {args.nt} steps, method={args.method}, "
-          f"{n_proc} device(s) × kset={args.kset} → rounds of {args.kset * n_proc}"
-          + (f" across {n_proc} processes" if multi else "") + f" on {device}", flush=True)
+          f"{n_dev} device(s) × kset={args.kset} → rounds of {args.kset * n_dev}"
+          + (f" across {args.num_processes} processes" if multi else "") + f" on {device}"
+          + (f" ({local} entries here, a host thread each)" if local > 1 else ""), flush=True)
     sim = simulation_config(cfg, backend=args.kernel_backend, ebe_backend=args.ebe_backend,
                             ms_backend=args.ms_backend, tile_e=args.tile_e, tile_p=args.tile_p,
                             warm_start=args.warm_start, precond_every=args.precond_every, health=args.health)
@@ -285,17 +302,11 @@ def main(argv=None, result: dict | None = None) -> int:
         waves = faults.apply_wave_fault(inject, waves)
         print(f"{tag} [inject] {inject.describe()}")
     obs = mesh.surface[len(mesh.surface) // 2: len(mesh.surface) // 2 + 1]
-    on_card = device.type == "cuda"
 
     def on_chunk(info):
-        row = dict(info, s_per_step_per_case=info["seconds"] / ((info["t1"] - info["t0"]) * args.kset))
-        if on_card:
-            row["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
-            torch.cuda.reset_peak_memory_stats(device)
+        row = dict(info, s_per_step_per_case=info["seconds"] / ((info["t1"] - info["t0"]) * args.kset * local))
         print(f"{tag} [chunk] {json.dumps(row)}", flush=True)
 
-    if on_card:
-        torch.cuda.reset_peak_memory_stats(device)
     res = run_campaign(
         mesh, sim, waves, observe=obs,
         campaign=CampaignConfig(kset=args.kset, method=args.method, seed=args.seed,
@@ -351,6 +362,17 @@ def main(argv=None, result: dict | None = None) -> int:
     return 0
 
 
+def _case_mesh(args, tag, device):
+    """The case mesh the flags name (``None``: one device), or exit
+    non-zero with the reference's message where it asks for more devices
+    than there are."""
+    from repro_torch.launch.mesh import make_case_mesh
+
+    try:
+        return make_case_mesh(args.devices or None, device=device, host_devices=args.host_devices)
+    except ValueError as e:
+        raise SystemExit(f"{tag} {e}") from e
+
 
 def _sim_knobs(args) -> dict:
     """CLI kernel-backend + solver-amortization flags → SeismicConfig fields."""
@@ -386,21 +408,23 @@ def _run_scenarios(args, tag, result) -> int:
         )
         plan = sc.make_plan([scn])
     device = resolve_device(args.device)
+    dmesh = _case_mesh(args, tag, device)
     kb = fem_backend.resolve(methods.SeismicConfig(
         backend=args.kernel_backend, ebe_backend=args.ebe_backend, ms_backend=args.ms_backend,
         tile_e=args.tile_e, tile_p=args.tile_p), device=device)
     print(f"{tag} plan: {plan.n_scenarios} scenario(s) in {len(plan.groups)} "
           f"compile group(s), {plan.n_cases} case(s) on {device}"
+          + (f" × {dmesh.devices.size} entries" if dmesh is not None else "")
           + (" [autotune]" if args.autotune else f" method={args.method}"))
     print(f"{tag} kernel backend: {kb.describe()} "
           f"warm_start={args.warm_start} precond_every={args.precond_every}")
     if args.schedule:
-        return _run_scheduled(args, tag, plan, device, result)
+        return _run_scheduled(args, tag, plan, device, dmesh, result)
     run = sc.run_plan(
         plan, autotune=args.autotune, probe=args.probe,
         method=args.method, kset=args.kset, health=args.health,
         calibration=args.calibration, **_sim_knobs(args),
-        device=device, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+        device=device, device_mesh=dmesh, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
         out_dir=args.out, shard_size=args.shard_size,
         stop_after_steps=args.stop_after_steps,
         log=lambda m: print(f"{tag} {m}"),
@@ -459,6 +483,9 @@ def _worker_cmd(args, worker: str) -> list:
     for flag, on in (("--autotune", args.autotune), ("--probe", args.probe)):
         if on:
             cmd.append(flag)
+    for flag, n in (("--host-devices", args.host_devices), ("--devices", args.devices)):
+        if n:
+            cmd += [flag, str(n)]
     return cmd
 
 
@@ -474,7 +501,7 @@ def _child_env() -> dict:
     return env
 
 
-def _run_scheduled(args, tag, plan, device, result) -> int:
+def _run_scheduled(args, tag, plan, device, dmesh, result) -> int:
     """--schedule: the elastic queue path (worker child, or parent pool)."""
     import subprocess
     import threading
@@ -486,7 +513,7 @@ def _run_scheduled(args, tag, plan, device, result) -> int:
 
     if args.worker_id:  # ---- I am one worker of a user-managed pool ----
         s = sched.run_worker(
-            plan, worker=args.worker_id, scheduler=cfg, device=device,
+            plan, worker=args.worker_id, scheduler=cfg, device=device, device_mesh=dmesh,
             ckpt_dir=args.ckpt_dir, out_dir=args.out,
             shard_size=args.shard_size, max_jobs=args.max_jobs,
             stop_after_steps=args.stop_after_steps,

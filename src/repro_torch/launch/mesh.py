@@ -10,14 +10,16 @@ are the ones ``--host-devices N`` launches
 each process takes the card, and several processes may share one.
 
 The JAX package shards a campaign's case axis over a 1-D device mesh that
-spans every process of a ``jax.distributed`` launch.  The port runs one
-device in each process: with one process the case "mesh" is no mesh at
-all (``None``, which the runner reads as "one device"); under a process
-group (:func:`repro_torch.launch.bootstrap.distributed_init`) it is a
-:class:`CaseMesh` of one entry a process, in process-major order, which
-:func:`repro_torch.campaign.runner.case_topology` turns into each
-process's contiguous block of case lanes.  Several devices in one process
-raise until a machine with several cards is supported.
+spans every process of a ``jax.distributed`` launch.  The port's case mesh
+(:func:`make_case_mesh`) is a :class:`CaseMesh`: a list of
+:class:`CaseDevice` entries, each a process and a torch device, in
+process-major order.  A process may own several entries: the cards of
+``torch.cuda.device_count()``, or ``host_devices`` CPU entries (the
+reference's forced host devices).  The runner
+(:func:`repro_torch.campaign.runner.case_topology`) gives each process the
+contiguous block of case lanes on its entries and runs each entry it owns
+in a host thread of its own, on a CUDA stream of its own.  One entry in all
+is no mesh (``None``, "one device").
 
 The dry run (:mod:`repro_torch.launch.dryrun`) accounts for a cell over
 the production meshes without running it: there they are
@@ -29,20 +31,20 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable
 
 import numpy as np
 
-MULTI_DEVICE = ("the port runs a campaign on one device a process; the case mesh over several devices in one "
-                "process is not ported yet (ROADMAP.md queue 1 item 2: the case mesh in one process)")
 PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")), True: ((2, 16, 16), ("pod", "data", "model"))}
 
 
 @dataclasses.dataclass(frozen=True)
 class CaseDevice:
     """One entry of a :class:`CaseMesh`: the process that owns it and the
-    device it runs on, as the launch names it (every process of a launch
-    resolves the same flags, each to its own card)."""
+    device it runs on (``None``: the card, resolved by the runner).  Every
+    process of a launch resolves the same flags, so it lists its peers'
+    entries on devices named as its own."""
 
     process_index: int
     device: Any
@@ -50,34 +52,112 @@ class CaseDevice:
 
 @dataclasses.dataclass(frozen=True)
 class CaseMesh:
-    """The case axis over the processes of a launch: ``devices`` is a numpy
-    object array of :class:`CaseDevice`, one a process, process-major."""
+    """The case axis: ``devices`` is a numpy object array of
+    :class:`CaseDevice`, process-major (each process's entries together)."""
 
     devices: np.ndarray
     axis_names: tuple = ("case",)
 
 
-def make_case_mesh(n_devices: int | None = None, axis: str = "case", device=None):
-    """The case mesh of this launch.  One process: ``None`` (one device).
-    Under a process group: a :class:`CaseMesh` over every process, each
-    entry on ``device`` (``None``: the card, resolved by the runner).
-    ``n_devices`` may name that many devices (the world size); more devices
-    than processes raise :class:`NotImplementedError`."""
+def local_case_devices(device=None, host_devices: int = 0) -> list:
+    """The case-mesh devices this process owns: ``host_devices`` CPU entries
+    when that is above 0; else ``device`` itself when it names one device
+    (``"cpu"``, ``"cuda:1"``) or when the process is one of a group (each
+    owns one device); else (``None`` or ``"cuda"``) every card of
+    ``torch.cuda.device_count()``, or one entry left to the runner (which
+    refuses it) where there is none."""
+    import torch
+
+    from repro_torch.parallel import distributed as dist
+
+    if host_devices > 0:
+        return [torch.device("cpu")] * host_devices
+    if dist.process_count() > 1 or (device is not None and (torch.device(device).type != "cuda"
+                                                            or torch.device(device).index is not None)):
+        return [device]
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return [torch.device("cuda", i) for i in range(n)] or [device]
+
+
+def make_case_mesh(n_devices: int | None = None, axis: str = "case", device=None, host_devices: int = 0):
+    """The case mesh of this launch: every process's entries
+    (:func:`local_case_devices`: one process owns every card, a process of
+    a group its own device; either owns ``host_devices`` CPU entries when
+    that is above 0), process-major, cut to the first ``n_devices``
+    (default: all).  More than there are raise the reference's
+    :class:`ValueError`; under a process group the mesh spans every device
+    of every process.  One entry in all is ``None``."""
     from repro_torch.parallel import distributed as dist
 
     world = dist.process_count()
-    n = world if n_devices is None else n_devices
+    local = local_case_devices(device, host_devices)
+    total = world * len(local)
+    n = total if n_devices is None else n_devices
     if n < 1:
         raise ValueError(f"n_devices must be ≥ 1, got {n}")
-    if n != world:
-        if n > world:
-            raise NotImplementedError(f"make_case_mesh({n}) over {world} process(es): {MULTI_DEVICE}")
-        raise ValueError(f"make_case_mesh({n}) under {world} processes: the case mesh spans every process")
-    if world == 1:
+    if n > total:
+        raise ValueError(f"requested {n} devices, have {total}")
+    if world > 1 and n != total:
+        raise ValueError(f"make_case_mesh({n}) under {world} processes of {len(local)} device(s) each: the case "
+                         f"mesh spans every device of every process ({total})")
+    if n == 1:
         return None
-    entries = np.empty(world, dtype=object)
-    entries[:] = [CaseDevice(p, device) for p in range(world)]
+    entries = np.empty(n, dtype=object)
+    entries[:] = [CaseDevice(p, d) for p in range(world) for d in local][:n]
     return CaseMesh(entries, (axis,))
+
+
+def entry_device(entry, device=None):
+    """The torch device an entry runs on, its index fixed: the entry's own
+    device, or ``device`` (``None``: the card) where it names none."""
+    import torch
+
+    from repro_torch.device import resolve_device
+
+    own = getattr(entry, "device", None)
+    dev = resolve_device(device if own is None else own)
+    return torch.device("cuda", torch.cuda.current_device()) if dev.type == "cuda" and dev.index is None else dev
+
+
+class EntryPool:
+    """Runs a function once for each entry of a process's case mesh, each in
+    its own host thread, under the entry's device and a CUDA stream of its
+    own (on the CPU: the thread alone); one entry runs on the caller's
+    thread, under what is current there.  :meth:`map` returns the results
+    in entry order and raises in the caller what an entry's call raised
+    (after every entry's call has ended)."""
+
+    def __init__(self, devices: list):
+        import torch
+
+        self.devices = list(devices)
+        several = len(self.devices) > 1
+        self.streams = [torch.cuda.Stream(d) if several and d.type == "cuda" else None for d in self.devices]
+        self._pool = ThreadPoolExecutor(len(self.devices)) if several else None
+
+    def _call(self, i: int, fn: Callable, args: tuple):
+        import torch
+
+        if self.streams[i] is None:
+            return fn(*args)
+        with torch.cuda.device(self.devices[i]), torch.cuda.stream(self.streams[i]):
+            return fn(*args)
+
+    def map(self, fn: Callable, *arg_lists) -> list:
+        calls = list(zip(*arg_lists))
+        if self._pool is None:
+            return [fn(*calls[0])]
+        futures = [self._pool.submit(self._call, i, fn, a) for i, a in enumerate(calls)]
+        for i, e in enumerate([f.exception() for f in futures]):
+            if e is not None:
+                e.add_note(f"raised in case-mesh entry {i} on {self.devices[i]}")
+                raise e
+        return [f.result() for f in futures]
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown()
+            self._pool = None
 
 
 @dataclasses.dataclass(frozen=True)

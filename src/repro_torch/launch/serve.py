@@ -42,9 +42,12 @@ consecutive-failure circuit breaker, and ``--inject
 fail_infer_every_n=N,limit=K`` deterministically rehearses the whole
 degradation path (split-retry isolation, breaker trip and heal).
 
-``--shard`` wraps the engine in ``ShardedEngine`` over the one-device case
-mesh; ``--host-devices`` above 1 (the JAX package's multi-device server)
-exits non-zero: the multi-device slice is not ported yet.
+``--shard`` wraps the engine in ``ShardedEngine`` over the case mesh: every
+card (``torch.cuda.device_count()``), or with ``--host-devices N`` N CPU
+entries (the reference's forced host devices), all in this one process:
+one replica of the engine a device, each entry's slice of a batch in a
+host thread of its own.  (The train CLI's ``--host-devices`` launches one
+process a device instead, as its DTensor mesh needs.)
 """
 from __future__ import annotations
 
@@ -81,8 +84,11 @@ def _build_parser():
     ap.add_argument("--inject", default=None, metavar="SPEC",
                     help="deterministic fault injection (repro_torch.core.faults): "
                          "'fail_infer_every_n=N[,limit=K]' makes every Nth infer raise (at most K times)")
-    ap.add_argument("--shard", action="store_true", help="ShardedEngine over the case mesh (one device)")
-    ap.add_argument("--host-devices", type=int, default=0, help="devices of the case mesh: 1 (more are not ported)")
+    ap.add_argument("--shard", action="store_true",
+                    help="shard the batch axis over the case mesh: every card, or --host-devices CPU entries")
+    ap.add_argument("--host-devices", type=int, default=0,
+                    help="N CPU entries on the case mesh, one host thread each in this process (the train CLI's "
+                         "--host-devices launches processes instead)")
     # surrogate workload
     ap.add_argument("--ckpt", default=None, help="surrogate checkpoint dir (surrogate.train.save_surrogate)")
     ap.add_argument("--scenario", action="append", default=[], help="catalog scenario to serve (repeatable)")
@@ -109,7 +115,9 @@ def _stack(args, engine):
     from repro_torch.serving import FeedbackLog, MicroBatcher, ResultCache, ShardedEngine
 
     if args.shard:
-        engine = ShardedEngine(engine)
+        from repro_torch.launch.mesh import make_case_mesh
+
+        engine = ShardedEngine(engine, make_case_mesh(device=engine.device.type, host_devices=args.host_devices))
         print(f"{TAG} sharding batch axis over {engine.n_devices} device(s)")
     inject = faults.parse(args.inject)
     if inject is not None:
@@ -268,9 +276,11 @@ def main(argv=None, result: dict | None = None) -> int:
     passes a ``result`` dict gets the batcher's ``stats`` (and, per engine,
     the served results, the feedback plan or the generated tokens)."""
     args = _build_parser().parse_args(argv)
-    if args.host_devices > 1:
-        raise SystemExit(f"{TAG} --host-devices {args.host_devices} is not ported yet: the port serves on one "
-                         f"device (serving under a mesh is ROADMAP.md queue 1 item 2)")
+    if args.host_devices:
+        if args.device not in (None, "cpu"):
+            raise SystemExit(f"{TAG} --host-devices {args.host_devices} serves on CPU entries; drop --device "
+                             f"{args.device}")
+        args.device = "cpu"
     from repro_torch.serving.engine import _engine_device
 
     device = _engine_device(args.device)

@@ -51,7 +51,9 @@ def _build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--reduced", action="store_true", help="tiny same-family config (B 8 × 128 tokens)")
     ap.add_argument("--mesh", default=None, help="e.g. 2x2 → data×model, 2x2x2 → pod×data×model")
     ap.add_argument("--multi-pod", action="store_true", help="the (2, 16, 16) mesh: 512 processes")
-    ap.add_argument("--host-devices", type=int, default=0, help="launch this many CPU processes, one a device")
+    ap.add_argument("--host-devices", type=int, default=0,
+                    help="launch this many CPU processes, one a device, as the DTensor mesh needs (the campaign "
+                         "and serve CLIs' --host-devices are CPU entries in one process instead)")
     ap.add_argument("--offload-optimizer", action="store_true", help="Adam moments in pinned host memory")
     ap.add_argument("--npart", type=int, default=8, help="moment blocks of the offloaded optimizer")
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(), "repro_torch_train_ckpt"))

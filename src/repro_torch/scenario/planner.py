@@ -365,16 +365,17 @@ def run_group(
     in-flight, **excluded from shard output**, and recorded in
     ``stats["health"]["diverged"]`` — the planner manifest's quarantine
     record, which the elastic scheduler's quarantine round consumes.
-    ``device_mesh`` is ``None`` (one device) or the case mesh of a
-    multi-process launch (``launch.mesh.make_case_mesh()``), one device a
-    process: each process then runs its slice of the group's cases.  Shards
-    are refused there: every process would write the same
+    ``device_mesh`` is ``None`` (one device) or a case mesh
+    (``launch.mesh.make_case_mesh()``): rounds of ``kset × entries``, each
+    entry of this process in a host thread of its own, and under several
+    processes each process runs its slice of the group's cases.  Shards are
+    refused over several processes: every process would write the same
     ``out_dir/<scenario>/``.
     """
     from repro_torch.campaign import CampaignConfig, case_topology, run_campaign
     from repro_torch.scenario import autotune as _autotune
 
-    topo = case_topology(device_mesh, 1)  # several devices in one process raise
+    topo = case_topology(device_mesh, 1)
     if out_dir and topo.process_count > 1:
         raise ValueError(f"run_group over {topo.process_count} processes with out_dir: every process would "
                          f"write the same {out_dir}/<scenario>/ shards; run one process, or pass no out_dir")

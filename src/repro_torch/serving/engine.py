@@ -21,9 +21,10 @@ cache (:mod:`repro_torch.serving.cache`) and active-learning feedback loop
     prefill through the flash kernel, then resident or host-offloaded KV
     decode).
 ``ShardedEngine``
-    wraps any engine and pads its batch to a multiple of the case mesh's
-    devices.  The port shards over one device, so it is a pass-through; a
-    mesh over more devices is not ported yet.
+    wraps any engine and shards its batch axis over the case mesh
+    (:func:`repro_torch.launch.mesh.make_case_mesh`): one replica of the
+    inner engine a device, each entry's contiguous slice of the padded batch
+    run in a host thread and on a CUDA stream of its own.
 
 Each engine runs on ``device`` (``None``: the card), fixed when it is
 built: ``infer`` is called from the batcher's thread, whose current device
@@ -134,9 +135,10 @@ class _EnsembleEngine:
 
     ``infer`` pads the batch to a :func:`~repro_torch.surrogate.model.
     pick_bucket` size, runs every member's ``predict`` on it, and reduces
-    over the members at the padded shape; the rows past the batch are
-    sliced off last.  The score is the RMS deviation of the members from
-    their mean, normalized by the mean's RMS; a single member scores 0.
+    over the members at the padded shape, each row's score on its own; the
+    rows past the batch are sliced off last.  The score is the RMS
+    deviation of the members from their mean, normalized by the mean's RMS;
+    a single member scores 0.
     """
 
     kind = ""
@@ -170,6 +172,17 @@ class _EnsembleEngine:
     def _predict(self, m, x):
         raise NotImplementedError
 
+    def replica(self, device, buckets: Optional[Sequence[int]] = None) -> "_EnsembleEngine":
+        """This engine on ``device``, padding to ``buckets`` (``None``: its
+        own): the same members (copied there), config and signature."""
+        dev, buckets = _engine_device(device), tuple(sorted(buckets or self.buckets))
+        if dev == self.device and buckets == self.buckets:
+            return self
+        twin = type(self)(self.cfg, self.members, scale=self.scale, buckets=buckets, nt=self.nt,
+                          step=self.step, device=dev)
+        twin._sig = self._sig
+        return twin
+
     # -- protocol -----------------------------------------------------------
     def signature(self) -> str:
         if self._sig is None:
@@ -194,8 +207,11 @@ class _EnsembleEngine:
         preds = torch.stack([self._predict(m, x) for m in self.members])  # [M, Bp, T, 3]
         mean = preds.mean(dim=0)
         if len(self.members) > 1:
-            dev = ((preds - mean[None]) ** 2).mean(dim=(0, 2, 3)).sqrt()
-            ref = (mean ** 2).mean(dim=(1, 2)).sqrt()
+            # a reduction a row, each over one contiguous block of the same shape: on the card a
+            # reduction's order follows its count of outputs, which would tie a row's score to Bp
+            rows = preds.transpose(0, 1).contiguous()  # [Bp, M, T, 3]
+            dev = torch.stack([((rows[i] - mean[i]) ** 2).mean() for i in range(len(rows))]).sqrt()
+            ref = torch.stack([(mean[i] ** 2).mean() for i in range(len(rows))]).sqrt()
             score = dev / (ref + 1e-12)
         else:
             score = torch.zeros((x.shape[0],), dtype=mean.dtype, device=mean.device)
@@ -301,6 +317,18 @@ class DecodeEngine:
         self.kv_prefetch = int(kv_prefetch)
         self._sig: Optional[str] = None
 
+    def replica(self, device, buckets: Optional[Sequence[int]] = None) -> "DecodeEngine":
+        """This engine on ``device``, padding to ``buckets`` (``None``: its
+        own): the same parameters (copied there), knobs and signature."""
+        dev, buckets = _engine_device(device), tuple(sorted(buckets or self.buckets))
+        if dev == self.device and buckets == self.buckets:
+            return self
+        twin = DecodeEngine(self.cfg, self.params, n_new=self.n_new, prompt_len=self.prompt_len, serve=self.serve,
+                            buckets=buckets, kv_schedule=self.kv_schedule, kv_prefetch=self.kv_prefetch,
+                            device=dev)
+        twin._sig = self._sig
+        return twin
+
     def signature(self) -> str:
         if self._sig is None:
             self._sig = _signature({
@@ -340,28 +368,51 @@ class DecodeEngine:
 class ShardedEngine:
     """Shard any engine's batch axis over the case mesh.
 
-    Pads the batch to a multiple of the mesh size (``pad_kset`` repeats of
-    the last row), runs the inner engine and slices outputs and scores back
-    to the true batch.  The port shards over one device (``mesh`` is
-    ``None``), so the multiple is 1; a mesh raises.
+    Pads the batch to a multiple of the mesh's entries (``pad_kset``
+    repeats of the last row), gives entry ``d`` the ``d``-th contiguous
+    slice and runs it through the inner engine's replica on the entry's
+    device (entries on one device share a replica), each entry in a host
+    thread and on a CUDA stream of its own; the slices' outputs and scores
+    are concatenated and cut back to the true batch.  A replica pads its
+    slice to a bucket of ``ceil(b / N)`` for each inner bucket ``b`` over
+    ``N`` entries, so the entries together compute what the inner engine
+    would (the reference's ``NamedSharding`` gives each device ``b / N``
+    rows), not ``N`` whole buckets.  Every engine pads a batch to a bucket
+    before any computation and computes each row on its own, so a row's
+    result does not depend on the slice it rides in: sharded ≡ unsharded,
+    bitwise on the CPU and on the card (``chip_smoke.py``'s ``case_mesh``).
 
-    The signature is the *inner* engine's: sharding is an execution detail
-    that must not change results, so sharded and unsharded servers share
-    cache entries.
+    ``device_mesh`` defaults to every card of the inner engine's device
+    type (:func:`~repro_torch.launch.mesh.make_case_mesh`; the CPU: one
+    entry), and must be this process's.  An entry that names no device
+    runs on the inner engine's.  The signature is the *inner* engine's:
+    sharding is an execution detail that must not change results, so
+    sharded and unsharded servers share cache entries.
     """
 
     def __init__(self, inner, device_mesh=None):
-        from repro_torch.launch.mesh import MULTI_DEVICE
+        from repro_torch.launch.mesh import EntryPool, entry_device, make_case_mesh
 
-        if device_mesh is not None:
-            raise NotImplementedError(f"ShardedEngine over {device_mesh!r}: {MULTI_DEVICE}; serving under a mesh "
-                                      f"is ROADMAP.md queue 1 item 2")
         self.inner = inner
-        self.mesh = None  # one device
+        self.mesh = device_mesh if device_mesh is not None else make_case_mesh(device=inner.device.type)
+        entries = [None] if self.mesh is None else list(self.mesh.devices.flat)
+        if self.mesh is not None and self.mesh.devices.ndim != 1:
+            raise ValueError(f"ShardedEngine shards one batch axis; got a {self.mesh.devices.ndim}-D mesh "
+                             f"{self.mesh.devices.shape}")
+        if len({getattr(e, "process_index", 0) for e in entries}) > 1:
+            raise ValueError("ShardedEngine runs the entries of one process; this case mesh spans several")
+        devices = [entry_device(e, inner.device) for e in entries]
+        shard_buckets = tuple(sorted({-(-b // len(devices)) for b in inner.buckets}))
+        replicas = {}
+        for dev in devices:
+            if dev not in replicas:
+                replicas[dev] = inner.replica(dev, shard_buckets)
+        self.replicas = [replicas[dev] for dev in devices]
+        self._pool = EntryPool(devices)
 
     @property
     def n_devices(self) -> int:
-        return 1
+        return len(self.replicas)
 
     @property
     def buckets(self):
@@ -371,10 +422,15 @@ class ShardedEngine:
         return self.inner.signature()
 
     def warmup(self) -> None:
-        self.inner.warmup()
+        for eng in {id(r): r for r in self.replicas}.values():
+            eng.warmup()
 
     def infer(self, x) -> InferResult:
         B = x.shape[0]
         x, _valid = pad_kset(x, self.n_devices)
-        res = self.inner.infer(x)
-        return InferResult(y=res.y[:B], score=res.score[:B])
+        n = x.shape[0] // self.n_devices
+        parts = self._pool.map(lambda eng, lo: eng.infer(x[lo:lo + n]), self.replicas,
+                               range(0, x.shape[0], n))
+        y = np.concatenate([p.y for p in parts])
+        score = np.concatenate([p.score for p in parts])
+        return InferResult(y=y[:B], score=score[:B])

@@ -90,6 +90,7 @@ def generate(
     method: str = "proposed2",
     *,
     device=None,
+    device_mesh=None,
     checkpoint_dir: Optional[str] = None,
     checkpoint_every: int = 0,
     trajectories: bool = False,
@@ -98,7 +99,9 @@ def generate(
     """→ (waves [N,nt,3], responses at the max-response point).
 
     Cases advance as a :mod:`repro_torch.campaign` on ``device`` (``None`` →
-    the card): ``cfg.kset`` members per round (the paper's 2SET, sized by
+    the card), with the case axis over ``device_mesh`` when given (a case
+    mesh of this process: every entry in a host thread of its own):
+    ``cfg.kset`` members per round and entry (the paper's 2SET, sized by
     how many state sets fit), checkpointed into ``checkpoint_dir`` so an
     interrupted generation resumes bit-identically.
     ``n_waves`` need not divide the round size — the tail is padded+masked.
@@ -128,7 +131,7 @@ def generate(
             kset=max(1, cfg.kset), method=method, seed=cfg.seed,
             checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
         ),
-        device=device,
+        device=device, device_mesh=device_mesh,
     )
     responses = res.velocity_history[:, :, 0, :]
     if trajectories:

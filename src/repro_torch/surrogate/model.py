@@ -23,7 +23,9 @@ runs on the same batches give the same params.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Any
 
 import torch
@@ -79,11 +81,31 @@ def init_params(cfg: SurrogateConfig, generator: torch.Generator, *, device=None
     return tree_map(lambda t: t.to(dev), p)
 
 
+_EXACT_LOCK = threading.Lock()
+_exact: list = []  # the flags' context while some thread is inside exact_convs, and how many are
+
+
+@contextlib.contextmanager
 def exact_convs():
     """cuDNN in full fp32 (no TF32) with deterministic algorithms and no
     autotuning: the surrogate's forward and backward run under it.  No-op
-    for CPU tensors."""
-    return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False)
+    for CPU tensors.  cuDNN's flags are global: the first thread in sets
+    them and the last one out restores them, so the replicas of a sharded
+    engine (one host thread each) all convolve under them."""
+    with _EXACT_LOCK:
+        if not _exact:
+            ctx = torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False)
+            ctx.__enter__()
+            _exact[:] = [ctx, 0]
+        _exact[1] += 1
+    try:
+        yield
+    finally:
+        with _EXACT_LOCK:
+            _exact[1] -= 1
+            if _exact[1] == 0:
+                _exact.pop(0).__exit__(None, None, None)
+                _exact.clear()
 
 
 def _conv1d(x, w, b, stride=1):
@@ -175,9 +197,10 @@ def pick_bucket(n: int, buckets=PREDICT_BUCKETS) -> int:
 
 
 def check_params_on(params, dev: torch.device) -> None:
-    """Refuse a param tree that does not live on ``dev``."""
+    """Refuse a param tree that does not live on ``dev`` (a CPU tensor
+    names no index: ``cpu:0`` is the CPU)."""
     where = leaves_in_insertion_order(params)[0].device
-    if where.type != dev.type or (dev.index is not None and where.index != dev.index):
+    if where.type != dev.type or (dev.type == "cuda" and dev.index is not None and where.index != dev.index):
         raise ValueError(f"params live on {where}, not on {dev}: move them first")
 
 

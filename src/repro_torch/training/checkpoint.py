@@ -43,6 +43,14 @@ On-disk layout::
                                    iff this file exists (``whole_leaves``:
                                    true for a whole-leaf step)
 
+A campaign over several case-mesh entries in one process keeps a k-set
+carry on each entry's device.  :func:`spread` joins them into one tree of
+:class:`Spread` leaves, each saved as one global array (the entries' blocks
+concatenated along the member axis, in entry order, as the reference's
+carry over a local mesh is one array) and restored in place block by block
+into each entry's tensors on its device; :func:`unspread` takes entry
+``d``'s tree back out.
+
 Leaves are named as ``jax.tree_util.keystr`` names them: ``['key']`` for a
 dict key, ``[i]`` for a list or tuple index, ``.field`` for a NamedTuple
 field (and ``.blocks[j][i]`` for a :class:`~repro_torch.core.hetmem.
@@ -54,6 +62,7 @@ fills ``like``'s tensors instead of allocating new ones.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -69,7 +78,7 @@ import torch
 
 from repro_torch.core.hetmem import PartitionedState
 from repro_torch.parallel.distributed import make_barrier
-from repro_torch.utils.tree import leaves_with_paths
+from repro_torch.utils.tree import leaves_with_paths, tree_flatten, tree_map
 
 _CRC_CHUNK = 1 << 26  # bytes per read while checksumming (bounds host memory)
 
@@ -113,8 +122,40 @@ def _paths(tree: Any) -> list[tuple[str, Any]]:
     return leaves_with_paths(tree)
 
 
+@dataclasses.dataclass(frozen=True)
+class Spread:
+    """One leaf over the entries of a case mesh: ``parts[d]`` is entry
+    ``d``'s block of the member axis, a tensor on that entry's device."""
+
+    parts: tuple
+
+
+def spread(trees: list) -> Any:
+    """One tree of the entries' trees (of one structure): each tensor leaf a
+    :class:`Spread` of the entries' tensors; any other leaf (the lagged
+    preconditioner's step counter, a python int) the same in every tree,
+    and taken once."""
+    flat = [tree_flatten(t) for t in trees]
+    leaves = []
+    for group in zip(*(f for f, _ in flat)):
+        if isinstance(group[0], torch.Tensor):
+            leaves.append(Spread(tuple(group)))
+        elif any(g != group[0] for g in group[1:]):
+            raise ValueError(f"a leaf that is not a tensor differs between entries: {group}")
+        else:
+            leaves.append(group[0])
+    return flat[0][1].unflatten(leaves)
+
+
+def unspread(tree: Any, d: int) -> Any:
+    """Entry ``d``'s tree of a :func:`spread` tree."""
+    return tree_map(lambda x: x.parts[d] if isinstance(x, Spread) else x, tree)
+
+
 def _to_host(leaf: Any) -> np.ndarray:
     """A host numpy copy of ``leaf`` that nothing else shares."""
+    if isinstance(leaf, Spread):
+        return np.concatenate([_to_host(p) for p in leaf.parts])
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach()
         return (leaf.cpu() if leaf.device.type != "cpu" else leaf.clone()).numpy()
@@ -176,6 +217,13 @@ def _like_leaf(arr: np.ndarray, like: Any, in_place: bool, name: str, sharding=N
                                                                                      like.placements)
         dev = like.to_local().device if hasattr(like, "to_local") else like.device
         return from_global(arr, mesh, pl, dev)
+    if isinstance(like, Spread):
+        bounds = np.cumsum([0] + [p.shape[0] for p in like.parts])
+        if arr.shape[:1] != (bounds[-1],):
+            raise ValueError(f"checkpoint leaf {name}: {arr.shape} on disk, {bounds[-1]} members over "
+                             f"{len(like.parts)} entries to restore into")
+        return Spread(tuple(_like_leaf(np.ascontiguousarray(arr[a:b]), p, in_place, name)
+                            for a, b, p in zip(bounds[:-1], bounds[1:], like.parts)))
     if isinstance(like, torch.Tensor):
         t = torch.from_numpy(arr)
         if in_place:

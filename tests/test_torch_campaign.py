@@ -160,19 +160,25 @@ def test_campaign_rejects_foreign_checkpoint(meshes, tmp_path):
     assert np.array_equal(on_cpu, _campaign_sig(cc, cfg, waves, 2, obs, "ebe=torch,ms=torch,tile_e=16,tile_p=4"))
 
 
-def test_case_topology_one_device_only():
-    """One process has one device: no mesh, and a mesh with two devices in
-    this process raises (the multi-process mesh is
-    tests/test_torch_campaign_distributed.py's)."""
+def test_case_topology_one_device_only(meshes):
+    """One device is no mesh.  Two entries in this process own rounds of
+    ``2·kset`` and run as its local mesh; more devices than this process
+    has raise the reference's message.  Two CPU entries at kset 2 over two
+    waves: entry 0 holds the one-entry run's k-set, lane for lane, so its
+    cases are bitwise that run's (entry 1 holds padding repeats only)."""
     assert case_topology(None, 3) == CaseTopology(1, 0, 1, 0, 3, None)
     assert launch_mesh.make_case_mesh() is None and launch_mesh.make_case_mesh(1) is None
     two_here = launch_mesh.CaseMesh(np.array([launch_mesh.CaseDevice(0, "cpu")] * 2, dtype=object))
-    with pytest.raises(NotImplementedError, match="one device"):
-        case_topology(two_here, 2)
-    with pytest.raises(NotImplementedError, match="one device"):
+    assert case_topology(two_here, 2) == CaseTopology(2, 0, 1, 0, 4, two_here)
+    with pytest.raises(ValueError, match="requested 2 devices, have 1"):
         launch_mesh.make_case_mesh(2)
-    with pytest.raises(NotImplementedError, match="one device"):
-        run_campaign(None, _cfg(), _waves(2, 4), device="cpu", device_mesh=two_here)
+    _, mesh = meshes
+    waves = _waves(2, 4)
+    one = _run(mesh, _cfg(), waves, campaign=CampaignConfig(kset=2))
+    two = _run(mesh, _cfg(), waves, campaign=CampaignConfig(kset=2), device_mesh=two_here)
+    assert two.completed and two.rounds_done == 1 and two.case_indices.tolist() == [0, 1]
+    assert np.array_equal(two.velocity_history, one.velocity_history)
+    assert np.array_equal(two.iters, one.iters)
 
 
 # ---------------------------------------------------------------------------

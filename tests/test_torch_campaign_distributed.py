@@ -65,9 +65,11 @@ class _Mesh:
 def test_case_topology_single_process():
     assert case_topology(None, kset=3) == CaseTopology(1, 0, 1, 0, 3, None)
     assert case_topology(_Mesh([0]), kset=2) == CaseTopology(1, 0, 1, 0, 2, None)
-    # the reference runs several devices of one process on a local mesh; the port has one device a process
-    with pytest.raises(NotImplementedError, match="one device"):
-        case_topology(_Mesh([0, 0]), kset=2)
+    # several devices of one process: its local mesh, as the reference's
+    m = _Mesh([0, 0])
+    t = case_topology(m, kset=2)
+    assert (t.n_dev, t.offset, t.local, t.process_count) == (2, 0, 4, 1)
+    assert t.exec_mesh is m  # single-process mesh used as-is
 
 
 def test_case_topology_multi_process_ownership(monkeypatch):
@@ -98,8 +100,17 @@ def test_case_mesh_follows_the_process_group(monkeypatch):
     assert [(d.process_index, d.device) for d in m.devices.flat] == [(0, "cpu"), (1, "cpu")]
     assert [d.process_index for d in launch_mesh.make_case_mesh(2).devices.flat] == [0, 1]
     assert case_topology(m, kset=1) == CaseTopology(2, 0, 2, 0, 1, None)
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(ValueError, match="requested 3 devices, have 2"):
         launch_mesh.make_case_mesh(3)
+    # two CPU entries a process: four in all, process-major; this one owns the first two
+    m4 = launch_mesh.make_case_mesh(device="cpu", host_devices=2)
+    assert [d.process_index for d in m4.devices.flat] == [0, 0, 1, 1]
+    t = case_topology(m4, kset=2)
+    assert (t.n_dev, t.process_index, t.process_count, t.offset, t.local) == (4, 0, 2, 0, 4)
+    assert [d.process_index for d in t.exec_mesh.devices.flat] == [0, 0]
+    monkeypatch.setattr(dist, "process_index", lambda: 1)
+    t = case_topology(m4, kset=2)
+    assert (t.offset, t.local) == (4, 4) and [d.process_index for d in t.exec_mesh.devices.flat] == [1, 1]
 
 
 def test_a_group_member_without_a_spanning_mesh_refuses_a_checkpoint_dir(tmp_path, monkeypatch):

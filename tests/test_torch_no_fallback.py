@@ -138,6 +138,18 @@ def test_cuda_bindings_refuse_cpu_tensors():
     q = torch.zeros(1, 2, 4, 8)
     with pytest.raises(ValueError, match="CUDA"):
         fa_ops.flash_attention_cuda(q, q[:, :1], q[:, :1])
+    # tensors on a device other than the thread's current one (here: ``meta``): refused as well, and the
+    # context a wrapper launches in makes only a CUDA device current
+    with pytest.raises(ValueError, match="CUDA tensors, got meta"):
+        ms_ops.multispring_cuda(torch.zeros(P, 6, dtype=torch.float64, device="meta"),
+                                {k: v.to("meta") for k, v in st.items()},
+                                ms.SpringParams(*(torch.ones(P, dtype=torch.float64, device="meta") for _ in range(4))),
+                                n.to("meta"), w.to("meta"))
+    qm = q.to("meta")
+    with pytest.raises(ValueError, match="CUDA tensors, got meta"):
+        fa_ops.flash_attention_cuda(qm, qm[:, :1], qm[:, :1])
+    with kernels.on_device(torch.device("cpu")), kernels.on_device(torch.device("meta")):
+        pass
     assert kernels.launch_counts()["multispring"] == 0
     assert kernels.launch_counts()["flash_attention"] == 0
     assert kernels.launch_counts()["ebe_matvec_f32"] == 0
@@ -504,9 +516,10 @@ SWEEP = '{"base": {"n_cases": 2, "nt": 6, "mesh_n": [2, 2, 2]}}'
     # the reference launcher's multi-process refusals
     (["--scenario", "ricker-soft-basin", "--num-processes", "2", "--coordinator", "localhost:1234"],
      "--scenario/--sweep are single-process for now"),
-    # several devices in one process: not ported yet
-    (["--devices", "2"], "--devices 2 is not ported yet"),
-    (["--host-devices", "2"], "--host-devices 2 is not ported yet"),
+    # several devices in one process: more than there are, with the reference's message
+    (["--devices", "2"], "requested 2 devices, have 1"),
+    (["--host-devices", "2", "--devices", "3"], "requested 3 devices, have 2"),
+    (["--host-devices", "2", "--device", "cuda"], "--host-devices 2 runs CPU entries; drop --device cuda"),
     (["--devices", "3", "--num-processes", "2", "--coordinator", "localhost:1234"],
      "a multi-host campaign must use every device on the global case mesh (2)"),
     (["--cpu-backend", "--device", "cuda"], "--cpu-backend runs on the CPU; drop --device cuda"),
@@ -529,8 +542,8 @@ def test_unported_campaign_modes_exit_nonzero(flags, message, capsys):
         cli.main(["--device", "cpu", *flags])
     assert e.value.code not in (0, None)
     assert message in str(e.value.code)
-    if "not ported yet" in message:
-        assert "several devices in one process are a later slice" in str(e.value.code)
+    if "requested" in message:  # the case mesh's refusal, before any campaign runs
+        assert "[campaign]" in str(e.value.code)
 
 
 def test_one_process_topology_and_its_limits(monkeypatch):
@@ -668,12 +681,14 @@ def test_serving_engines_and_cli_raise_without_a_card(tmp_path):
 
 @pytest.mark.parametrize("n", [2, 4])
 def test_serve_cli_multi_device_exits_nonzero(n):
+    """``--host-devices N`` names CPU entries: asked for with the card, the
+    serve CLI exits non-zero saying so, before any engine is built."""
     from repro_torch.launch import serve
 
     with pytest.raises(SystemExit) as e:
-        serve.main(["--device", "cpu", "--host-devices", str(n)])
+        serve.main(["--device", "cuda", "--host-devices", str(n), "--shard"])
     assert e.value.code not in (0, None)
-    assert f"--host-devices {n}" in str(e.value.code) and "not ported yet" in str(e.value.code)
+    assert f"--host-devices {n} serves on CPU entries; drop --device cuda" in str(e.value.code)
 
 
 def test_flash_cuda_entry_refuses_inputs_that_need_a_gradient():

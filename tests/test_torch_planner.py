@@ -218,14 +218,19 @@ def test_write_manifest_survives_concurrent_writers(tmp_path):
 
 
 def test_run_group_refuses_a_device_mesh(tmp_path):
-    """Several devices in one process raise; a process mesh with ``out_dir``
+    """Several devices in one process run rounds of ``kset × 2``: the
+    group's two cases sit in entry 0's k-set as in the one-device run, so
+    its responses are bitwise that run's.  A process mesh with ``out_dir``
     is refused (every process would write the same shards)."""
     from repro_torch.launch.mesh import CaseDevice, CaseMesh
 
     group = sc.make_plan(_spec(sc)).groups[0]
     two_here = CaseMesh(np.array([CaseDevice(0, "cpu")] * 2, dtype=object))
-    with pytest.raises(NotImplementedError, match="one device"):
-        sc.run_group(group, device="cpu", device_mesh=two_here)
+    one, _ = sc.run_group(group, device="cpu")
+    two, st = sc.run_group(dataclasses.replace(group, choice=None), device="cpu", device_mesh=two_here)
+    assert st["completed"] and sorted(two) == sorted(one)
+    for name in one:
+        np.testing.assert_array_equal(two[name].responses, one[name].responses)
     two_processes = CaseMesh(np.array([CaseDevice(0, "cpu"), CaseDevice(1, "cpu")], dtype=object))
     with pytest.raises(ValueError, match="every process would write the same"):
         sc.run_group(group, device="cpu", device_mesh=two_processes, out_dir=str(tmp_path / "out"))

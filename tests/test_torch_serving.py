@@ -27,12 +27,13 @@ from repro.surrogate import train as ref_train
 from repro.surrogate import trajectory as ref_traj
 from repro_torch import convert
 from repro_torch.configs import ARCHS
-from repro_torch.launch.mesh import make_case_mesh
+from repro_torch.launch.mesh import CaseDevice, CaseMesh, make_case_mesh
 from repro_torch.serving import (DecodeEngine, Engine, InferResult, MicroBatcher, ResultCache, ServeConfig,
                                  ShardedEngine, SurrogateEngine, TrajectoryEngine)
 from repro_torch.serving.batcher import CircuitOpenError, DeadlineExceededError, NonFiniteOutputError, Request
 from repro_torch.serving.engine import _params_digest
 from repro_torch.surrogate import model, seqmodel, train, trajectory
+from repro_torch.utils.tree import tree_leaves
 
 NT = 16
 FAMILIES = {
@@ -161,15 +162,114 @@ def test_params_digest_names_bf16_as_the_reference():
 
 
 def test_sharded_engine_identity_and_shared_signature():
+    """One CPU device is one entry: the inner engine itself.  A mesh of more
+    devices than there are raises the reference's message, a 2-D mesh and
+    one spanning processes are refused."""
     _, eng = _engines("surrogate")
     sh = ShardedEngine(eng)
     x = waves(3)
     np.testing.assert_array_equal(sh.infer(x).y, eng.infer(x).y)
     assert sh.signature() == eng.signature() and sh.n_devices == 1 and sh.buckets == eng.buckets
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ShardedEngine(eng, make_case_mesh(2))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ShardedEngine(eng, object())
+    assert sh.replicas == [eng]
+    with pytest.raises(ValueError, match="requested 2 devices, have 1"):
+        ShardedEngine(eng, make_case_mesh(2, device="cpu"))
+    flat = make_case_mesh(device="cpu", host_devices=4)
+    with pytest.raises(ValueError, match="one batch axis"):
+        ShardedEngine(eng, CaseMesh(flat.devices.reshape(2, 2)))
+    with pytest.raises(ValueError, match="spans several"):
+        ShardedEngine(eng, CaseMesh(np.array([CaseDevice(0, "cpu"), CaseDevice(1, "cpu")], dtype=object)))
+
+
+@pytest.mark.parametrize("family", ["surrogate", "trajectory"])
+@pytest.mark.parametrize("B", [1, 3, 5, 7])
+def test_sharded_engine_over_two_cpu_entries_is_bitwise_unsharded(family, B):
+    """Two CPU entries in this process, one replica for both (the inner
+    engine's members, not copied, padding to half its buckets): each entry
+    runs its slice of the padded batch in its own thread, and at odd batch
+    sizes the answers are bitwise the unsharded engine's, with its
+    signature and buckets."""
+    _, eng = _engines(family)
+    sh = ShardedEngine(eng, make_case_mesh(device="cpu", host_devices=2))
+    rep = sh.replicas[0]
+    assert sh.n_devices == 2 and sh.replicas == [rep, rep] and rep.device == eng.device
+    assert rep.buckets == tuple(-(-b // 2) for b in eng.buckets) and rep.buckets != eng.buckets
+    assert all(a is b for a, b in zip(tree_leaves(rep.members), tree_leaves(eng.members)))
+    assert sh.signature() == eng.signature() and sh.buckets == eng.buckets
+    x = waves(B, seed=B)
+    got, want = sh.infer(x), eng.infer(x)
+    assert got.y.shape[0] == got.score.shape[0] == B
+    np.testing.assert_array_equal(got.y, want.y)
+    np.testing.assert_array_equal(got.score, want.score)
+
+
+@pytest.mark.parametrize("family", ["surrogate", "trajectory"])
+def test_sharded_engine_over_two_distinct_devices_holds_a_replica_each(family):
+    """Entries on two distinct device objects (``cpu`` and ``cpu:0``): a
+    replica each, the second made by ``replica`` on its own device, and at
+    an odd batch the answers bitwise the unsharded engine's."""
+    _, eng = _engines(family)
+    two = CaseMesh(np.array([CaseDevice(0, torch.device("cpu")), CaseDevice(0, torch.device("cpu", 0))],
+                            dtype=object))
+    sh = ShardedEngine(eng, two)
+    assert [r.device for r in sh.replicas] == [torch.device("cpu"), torch.device("cpu", 0)]
+    assert sh.replicas[0] is not sh.replicas[1] and all(r.buckets == (4,) for r in sh.replicas)
+    x = waves(5, seed=11)
+    got, want = sh.infer(x), eng.infer(x)
+    np.testing.assert_array_equal(got.y, want.y)
+    np.testing.assert_array_equal(got.score, want.score)
+
+
+def test_sharded_engine_raises_an_entry_failure_in_the_caller():
+    """An exception in an entry's thread fails the call that ran it, naming
+    the entry; nothing falls back to running the batch in series."""
+    _, eng = _engines("surrogate")
+
+    class Flaky:
+        device, buckets = eng.device, eng.buckets
+
+        def __init__(self):
+            self.calls = 0
+
+        def replica(self, device, buckets=None):
+            return self
+
+        def infer(self, x):
+            self.calls += 1
+            if x[0, 0, 0] > 1e3:
+                raise FloatingPointError("poisoned row")
+            return eng.infer(x)
+
+    inner = Flaky()
+    sh = ShardedEngine(inner, make_case_mesh(device="cpu", host_devices=2))
+    x = waves(4)
+    x[2, 0, 0] = 1e4  # entry 1's slice
+    with pytest.raises(FloatingPointError, match="poisoned row") as e:
+        sh.infer(x)
+    assert any("case-mesh entry 1" in n for n in getattr(e.value, "__notes__", []))
+    assert inner.calls == 2
+
+
+def test_engine_replica_on_its_own_device_is_itself():
+    _, eng = _engines("trajectory")
+    assert eng.replica("cpu") is eng
+
+
+def test_serve_cli_shards_over_two_host_devices(tmp_path):
+    """``--shard --host-devices 2``: the surrogate served over two CPU entries
+    answers as the unsharded server does, bitwise."""
+    from repro_torch.launch import serve
+
+    _, _, cfg, port = _members("surrogate", 1)
+    train.save_surrogate(str(tmp_path / "cnn"), cfg, port[0], scale=1.5, step=3)
+    flags = ["--engine", "surrogate", "--ckpt", str(tmp_path / "cnn"), "--scenario", "ricker-soft-basin",
+             "--scenario", "chirp-stiff-shelf", "--cache-size", "0", "--max-batch", "2"]
+    sharded, plain = {}, {}
+    assert serve.main(flags + ["--shard", "--host-devices", "2"], sharded) == 0
+    assert serve.main(flags + ["--device", "cpu"], plain) == 0
+    assert len(sharded["served"]) == len(plain["served"]) == 2
+    for (_, name, a), (_, name_b, b) in zip(sharded["served"], plain["served"]):
+        assert name == name_b
+        np.testing.assert_array_equal(a.y, b.y)
 
 
 # ---------------------------------------------------------------------------
@@ -199,6 +299,20 @@ def test_decode_engine_matches_reference_and_pads(lm):
     np.testing.assert_array_equal(eng.infer(prompt[:1]).y, want.y[:1])
     with pytest.raises(ValueError, match="expects prompts"):
         eng.infer(prompt[:, :3])  # wrong prompt length
+
+
+@pytest.mark.parametrize("B", [3, 5])
+def test_decode_engine_sharded_over_two_cpu_entries_gives_the_same_tokens(lm, B):
+    """Greedy tokens of ``DecodeEngine`` sharded over two CPU entries equal
+    the unsharded engine's, at odd batch sizes."""
+    *_, cfg, params, _ = lm
+    eng = DecodeEngine(cfg, params, n_new=3, prompt_len=4, buckets=(2, 4), device="cpu")
+    sh = ShardedEngine(eng, make_case_mesh(device="cpu", host_devices=2))
+    prompts = np.random.default_rng(B).integers(0, cfg.vocab_size, (B, 4)).astype(np.int32)
+    got, want = sh.infer(prompts), eng.infer(prompts)
+    assert got.y.shape == (B, 3) and got.y.dtype == np.int32
+    np.testing.assert_array_equal(got.y, want.y)
+    assert sh.signature() == eng.signature()
 
 
 def test_decode_engine_offloaded_kv_gives_resident_tokens(lm):
