@@ -44,18 +44,25 @@ Phases, each followed by a JSON line with its seconds:
                launched from two host threads on two CUDA streams at once,
                bitwise the same launches made one at a time, each counted
                exactly twice;
-4.  mesh_train qwen3-1.7b at full width, 2 of its 28 layers, B 2 × 4,096, trained
-               in this process on the card and then over a (2, 2) mesh
-               over (data, model) of four processes sharing the card in a
-               gloo group (``mesh_train_worker``: the rules' layouts as
-               DTensors, the functional all-gather staged through pinned
-               host memory): 2 steps each, the first loss, the losses and
-               step 1's gathered gradients within ``TRAIN_BF16_TOL`` of the
-               one-process run, each process's leaves its shard shapes and
-               its 8 launches of the bf16 (128, 128) kernel at its local
-               B 1, Hq 8, Hkv 4, S 4,096; s/step, peak bytes, gloo's bytes
-               and seconds by collective kind (step 1's forward and
-               backward, metered) beside the dry run's model of them;
+4.  mesh_train two cells, each trained in this process on the card and
+               then over a (2, 2) mesh over (data, model) of four processes
+               sharing the card in a gloo group (``mesh_train_worker``: the
+               rules' layouts as DTensors, the functional all-gather staged
+               through pinned host memory), bf16 over fp32 parameters,
+               remat: qwen3-1.7b at full width, 2 of its 28 layers, B 2 ×
+               4,096, step 1's metered gradients and 1 timed train step,
+               its 4 launches a step of the bf16 (128, 128) kernel at its
+               local B 1, Hq 8, Hkv 4, S 4,096; then whisper-small whole
+               (12 + 12 layers), B 4 × (1,500 frames, 128 tokens), step
+               1's metered gradients alone, its 72 launches of the (64, 64)
+               instance at its local B 2, 6 heads (the encoder's, the
+               decoder's and the cross attention's, forward and
+               recompute).  For each: the first
+               loss, the losses and step 1's gathered gradients within
+               ``TRAIN_BF16_TOL`` of the one-process run, each process's
+               leaves its shard shapes, no fp32 flash; s/step, peak bytes,
+               gloo's bytes and seconds by collective kind (step 1's
+               forward and backward, metered) beside the dry run's model;
 5.  cpu        the FEM port on the card against the port on the CPU;
 6.  prefetch   ``schedule="prefetch"`` and ``"donate"`` ≡ ``"serial"`` bitwise
                on the card;
@@ -2938,12 +2945,12 @@ FAMILY_FLASH = (
      None, None, None),
     ("flash_attention_bf16_d64_internvl2", ("internvl2-1b prefill",), 4, 14, 2, 4096, 4096, 64, 64, True, None,
      None, None),
-    ("flash_attention_bf16_d64_whisper_encoder", ("whisper-small encoder",), 8, 12, 12, 1500, 1500, 64, 64, False,
-     None, None, None),
-    ("flash_attention_bf16_d64_whisper_cross", ("whisper-small cross",), 8, 12, 12, 128, 1500, 64, 64, False, None,
-     None, None),
-    ("flash_attention_bf16_d64_whisper_decoder", ("whisper-small decoder",), 8, 12, 12, 128, 128, 64, 64, True,
-     None, None, None),
+    ("flash_attention_bf16_d64_whisper_encoder", ("whisper-small encoder", "mesh_train whisper-small encoder"), 8,
+     12, 12, 1500, 1500, 64, 64, False, None, None, None),
+    ("flash_attention_bf16_d64_whisper_cross", ("whisper-small cross", "mesh_train whisper-small cross"), 8, 12, 12,
+     128, 1500, 64, 64, False, None, None, None),
+    ("flash_attention_bf16_d64_whisper_decoder", ("whisper-small decoder", "mesh_train whisper-small decoder"), 8,
+     12, 12, 128, 128, 64, 64, True, None, None, None),
     ("flash_attention_bf16_d128_granite", ("granite-8b prefill",), 4, 32, 8, 4096, 4096, 128, 128, True, None,
      None, None),
     ("flash_attention_bf16_d128_llama3", ("llama3-405b prefill",), 1, 128, 8, 8192, 8192, 128, 128, True, None,
@@ -3558,37 +3565,62 @@ def compression_on_card(root, device="cuda"):
             "compression: the two ranks hold different means")
 
 
-MESH_TRAIN = dict(shape=(2, 2), n_layers=2, B=2, S=4096, steps=2)  # qwen3-1.7b's widths, 2 of its 28 layers
-MESH_TRAIN_TIMEOUT_S = 420
+MESH_SHAPE = (2, 2)
+# the cells of mesh_train, in the order they run: qwen3-1.7b's widths at 2 of its 28 layers, then
+# whisper-small whole (12 encoder and 12 decoder layers) on 1,500 frames a row; a cell's steps are the
+# train steps timed after step 1's metered gradients (whisper's figures are step 1's)
+MESH_TRAIN = {"qwen3-1.7b": dict(n_layers=2, B=2, S=4096, steps=1),  # steps cut from 3, 2 for the time limit
+              "whisper-small": dict(n_layers=None, B=4, S=128, steps=0)}
+MESH_TRAIN_TIMEOUT_S = 480
 
 
-def _mesh_train_setup(dev):
-    """qwen3-1.7b at full width cut to ``MESH_TRAIN``'s depth, its fp32
-    parameters drawn on ``dev`` from a seeded generator there, and the first
-    batch of the seeded bigram stream (numpy): the same in every process."""
+def _mesh_train_setup(dev, name):
+    """Cell ``name`` of ``MESH_TRAIN``: the config at full width (cut to the
+    cell's depth), its fp32 parameters drawn on ``dev`` from a seeded
+    generator there, and the first batch of the seeded bigram stream with
+    its frontend input (numpy): the same in every process."""
     import torch
 
     from repro_torch.configs import ARCHS
     from repro_torch.models import transformer as T
     from repro_torch.training import data as D
 
-    cfg = dataclasses.replace(ARCHS["qwen3-1.7b"], n_layers=MESH_TRAIN["n_layers"])
+    cell = MESH_TRAIN[name]
+    cfg = ARCHS[name] if cell["n_layers"] is None else dataclasses.replace(ARCHS[name], n_layers=cell["n_layers"])
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    batch = next(D.batches(D.DataConfig(vocab_size=cfg.vocab_size, seq_len=MESH_TRAIN["S"],
-                                        global_batch=MESH_TRAIN["B"])))
+    batch = next(D.batches(D.DataConfig(vocab_size=cfg.vocab_size, seq_len=cell["S"], global_batch=cell["B"],
+                                        frontend=cfg.frontend, d_model=cfg.d_model,
+                                        n_frontend_tokens=cfg.n_frontend_tokens)))
     return cfg, params, batch
+
+
+def _mesh_flash_calls(name):
+    """Cell ``name``'s flash calls on a process of the (2, 2) mesh, by the
+    attention they serve: (their local (q, k) shapes, its rows of the batch
+    and its heads; the calls a step, each layer's forward and its recompute
+    in the backward)."""
+    from repro_torch.configs import ARCHS
+
+    cfg, cell = ARCHS[name], MESH_TRAIN[name]
+    b, hq, hkv = cell["B"] // MESH_SHAPE[0], cfg.n_heads // MESH_SHAPE[1], cfg.n_kv_heads // MESH_SHAPE[1]
+    if cfg.family != "encdec":
+        return {"self": ([[b, hq, cell["S"], cfg.hd], [b, hkv, cell["S"], cfg.hd]], 2 * cell["n_layers"])}
+    enc, dec = cfg.n_frontend_tokens, cell["S"]
+    return {"encoder": ([[b, hq, enc, cfg.hd], [b, hkv, enc, cfg.hd]], 2 * cfg.encoder_layers),
+            "decoder": ([[b, hq, dec, cfg.hd], [b, hkv, dec, cfg.hd]], 2 * cfg.n_layers),
+            "cross": ([[b, hq, dec, cfg.hd], [b, hkv, enc, cfg.hd]], 2 * cfg.n_layers)}
 
 
 def mesh_train_worker(rank, port, root):
     """One of ``mesh_train``'s four processes on the card: it imports and
     joins the gloo group, then waits for ``root/go`` (the parent's
-    one-process run goes on meanwhile, with the card to itself), then the
-    (2, 2) mesh over (data, model), ``_mesh_train_setup``'s parameters laid
-    out by the rules and its batch's rows; step 1's gradients under
-    ``CollectiveMeter`` (rank 0 saves them gathered, fp32), then
-    ``MESH_TRAIN["steps"]`` train steps timed (the launch counts set to 0
-    just before and read just after); writes its figures to
-    ``root/rank<k>.json``."""
+    one-process runs go on meanwhile, with the card to themselves), then,
+    for each cell of ``MESH_TRAIN`` in turn, the (2, 2) mesh over (data,
+    model), ``_mesh_train_setup``'s parameters laid out by the rules and its
+    batch's rows; step 1's gradients under ``CollectiveMeter`` (rank 0
+    saves them gathered, fp32), then the cell's train steps timed (the
+    launch counts set to 0 just before step 1 and read after the last
+    step); writes its figures to ``root/rank<k>.json``."""
     t_start = time.perf_counter()
     import torch
 
@@ -3613,9 +3645,7 @@ def mesh_train_worker(rank, port, root):
     waited_s = time.perf_counter() - t_start - booted_s
     torch.cuda.set_device(0)
     dev = torch.device("cuda")
-    cfg, params, batch = _mesh_train_setup(dev)
-    mesh = make_auto_mesh(MESH_TRAIN["shape"], ("data", "model"), "cuda")
-    rules = sh.rules_for(cfg, mesh, kind="train", global_batch=MESH_TRAIN["B"], seq_len=MESH_TRAIN["S"])
+    mesh = make_auto_mesh(MESH_SHAPE, ("data", "model"), "cuda")
     where = {"backend": torch.distributed.get_backend(), "coordinates": mesh_coordinates(mesh), "device": str(dev),
              "device_name": torch.cuda.get_device_name(0)}
     print(f"[mesh_train] process {rank}: {json.dumps(where)}", flush=True)
@@ -3623,70 +3653,89 @@ def mesh_train_worker(rank, port, root):
     flash = L.flash_attention
 
     def recorded(q, k, v, **kw):  # the local shapes each launch sees
-        shapes.append([list(q.shape), list(k.shape)])
+        shapes.append(json.dumps([list(q.shape), list(k.shape)]))
         return flash(q, k, v, **kw)
 
     L.flash_attention = recorded
     tcfg = TrainConfig()
-    out = {"rank": rank, **where, "booted_s": booted_s, "waited_s": waited_s}
-    with sh.use_mesh(mesh, rules):
-        p = convert.distribute_params(params, T.param_specs(cfg), mesh, rules, device=dev)
-        del params
-        shards = sh.tree_shardings(T.param_specs(cfg), mesh, rules)
-        out["shard_shapes_ok"] = all(list(x.to_local().shape) == list(s.shard_shape(x.shape)) for (_, x), (_, s)
-                                     in zip(leaves_with_paths(p), leaves_with_paths(shards)))
-        rows = D.local_rows(batch, mesh, rules)
-        b = D.batch_to_mesh({k: torch.from_numpy(v).to(dev) for k, v in rows.items()}, mesh, rules)
-        out["rows"] = [int(rows["tokens"].shape[0]), int(rows["tokens"][0, 0])]
-        meter = collectives.CollectiveMeter()
-        t0 = time.perf_counter()
-        with meter:
-            metrics, grads = value_and_grad(make_loss_fn(cfg, tcfg), p, b)
-        torch.cuda.synchronize()
-        out.update(metered_s=time.perf_counter() - t0, collectives=meter.kinds,
-                   collective_outputs={k: dict(v) for k, v in meter.outputs.items()},
-                   staged={k: dict(v) for k, v in collectives.STAGED.items()})
-        full = {k: g.full_tensor() for k, g in leaves_with_paths(grads)}  # every process gathers
-        if rank == 0:
-            torch.save({k: g.float().cpu() for k, g in full.items()}, os.path.join(root, "grads.pt"))
-        out["loss0"] = float(metrics["loss"])
-        del grads, full
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        opt, step = init_train_state(cfg, tcfg, p), make_train_step(cfg, tcfg)
-        shapes.clear()
-        kernels.reset_launch_counts()
-        losses, step_s = [], []
-        for _ in range(MESH_TRAIN["steps"]):
+    out = {"rank": rank, **where, "booted_s": booted_s, "waited_s": waited_s, "cells": {}}
+    for name, cell in MESH_TRAIN.items():
+        t_cell = time.perf_counter()
+        cfg, params, batch = _mesh_train_setup(dev, name)
+        rules = sh.rules_for(cfg, mesh, kind="train", global_batch=cell["B"], seq_len=cell["S"])
+        c = out["cells"][name] = {}
+        with sh.use_mesh(mesh, rules):
+            p = convert.distribute_params(params, T.param_specs(cfg), mesh, rules, device=dev)
+            del params
+            shards = sh.tree_shardings(T.param_specs(cfg), mesh, rules)
+            c["shard_shapes_ok"] = all(list(x.to_local().shape) == list(s.shard_shape(x.shape)) for (_, x), (_, s)
+                                       in zip(leaves_with_paths(p), leaves_with_paths(shards)))
+            rows = D.local_rows(batch, mesh, rules)
+            b = D.batch_to_mesh({k: torch.from_numpy(v).to(dev) for k, v in rows.items()}, mesh, rules)
+            c["rows"] = [int(rows["tokens"].shape[0]), int(rows["tokens"][0, 0])]
+            meter = collectives.CollectiveMeter()
+            collectives.STAGED.clear()  # this cell's step 1 alone
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            shapes.clear()
+            kernels.reset_launch_counts()
             t0 = time.perf_counter()
-            p, opt, m = step(p, opt, b)
-            losses.append(float(m["loss"]))  # a sync
-            step_s.append(time.perf_counter() - t0)
-        out["launches"] = kernels.instance_counts()
-        out["wgmma_launches"] = {wgmma_name(*i): n for i, n in fa_ops.wgmma_launch_counts().items()}
-        out["flash_shapes"] = sorted({json.dumps(x) for x in shapes})
-        out.update(losses=losses, step_s=step_s, peak_bytes=torch.cuda.max_memory_allocated(),
-                   host_rss_bytes=_rss_bytes())
+            with meter:
+                metrics, grads = value_and_grad(make_loss_fn(cfg, tcfg), p, b)
+            torch.cuda.synchronize()
+            grad_peak = torch.cuda.max_memory_allocated()
+            c.update(metered_s=time.perf_counter() - t0, collectives=meter.kinds,
+                     collective_outputs={k: dict(v) for k, v in meter.outputs.items()},
+                     staged={k: dict(v) for k, v in collectives.STAGED.items()})
+            full = {k: g.full_tensor() for k, g in leaves_with_paths(grads)}  # every process gathers
+            if rank == 0:
+                torch.save({k: g.float().cpu() for k, g in full.items()}, os.path.join(root, f"grads_{name}.pt"))
+            c["loss0"] = float(metrics["loss"])
+            del grads, full
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()  # not the check's gather
+            opt, step = init_train_state(cfg, tcfg, p), make_train_step(cfg, tcfg)
+            losses, step_s = [], []
+            for _ in range(cell["steps"]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                p, opt, m = step(p, opt, b)
+                losses.append(float(m["loss"]))  # a sync
+                step_s.append(time.perf_counter() - t0)
+            c["launches"] = kernels.instance_counts()
+            c["wgmma_launches"] = {wgmma_name(*i): n for i, n in fa_ops.wgmma_launch_counts().items()}
+            c["flash_shapes"] = {x: shapes.count(x) for x in sorted(set(shapes))}
+            c.update(losses=losses, step_s=step_s, peak_bytes=max(grad_peak, torch.cuda.max_memory_allocated()),
+                     host_rss_bytes=_rss_bytes())
+            del p, opt, b, metrics
+        torch.cuda.empty_cache()
+        c["cell_s"] = time.perf_counter() - t_cell
     with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
 
 
 def mesh_train(dev, root):
-    """qwen3-1.7b at full width, 2 of its 28 layers, bf16 over fp32
-    parameters, B 2 × 4,096, remat: trained in this process on the card
-    while the (2, 2) mesh's four processes (``mesh_train_worker``) start,
-    then on that mesh, the processes sharing the card.  The mesh's first loss, 3 losses and step 1's
+    """The cells of ``MESH_TRAIN``, bf16 over fp32
+    parameters, remat: each trained in this process on the card while the
+    (2, 2) mesh's four processes (``mesh_train_worker``) start, then on
+    that mesh, the processes sharing the card, one cell after the other.
+    qwen3-1.7b at full width, 2 of its 28 layers, B 2 × 4,096; whisper-small
+    whole (12 encoder and 12 decoder layers), B 4 × (1,500 frames, 128
+    tokens).  For each cell the mesh's first loss, its losses and step 1's
     gathered gradients agree with the one-process run within
     ``TRAIN_BF16_TOL``; every process ran on the card, held each leaf's
-    shard shape and launched the bf16 (128, 128) flash kernel on its local
-    shape (B 1, Hq 8, Hkv 4, S 4,096), 4 times a step (2 layers, forward
-    and recompute); gloo's bytes and seconds by collective kind beside
-    the dry run's model (``hlo_analysis.collective_bytes``) → the four
-    processes' launches of the bf16 kernel in the timed steps."""
+    shard shape and launched the bf16 flash kernel only at its cell's
+    instance ((128, 128); whisper (64, 64)) and local shapes (its rows of
+    the batch, half the heads), twice a layer's attention a step (its
+    forward and its recompute: qwen3 4, whisper 72: encoder, decoder and
+    cross attention), and no fp32 flash; gloo's bytes and seconds by
+    collective kind beside the dry run's model
+    (``hlo_analysis.collective_bytes``) → the four processes' launches
+    counted from step 1 to the last step, by cell and attention."""
     import torch
 
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch import hlo_analysis as H
     from repro_torch.launch.mesh import LogicalMesh
     from repro_torch.parallel import sharding as sh
@@ -3700,25 +3749,32 @@ def mesh_train(dev, root):
     one = {}
 
     def one_process():
-        """The same cut trained in this process, while the workers boot; then their go."""
-        t0 = time.perf_counter()
-        cfg, p, batch = _mesh_train_setup(dev)
-        tcfg = TrainConfig()
-        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        metrics, grads = value_and_grad(make_loss_fn(cfg, tcfg), p, b)
-        one.update(cfg=cfg, loss0=float(metrics["loss"]), grads={k: g.float() for k, g in leaves_with_paths(grads)})
-        del grads
-        opt, step = init_train_state(cfg, tcfg, p), make_train_step(cfg, tcfg)
-        one["losses"], one["step_s"] = [], []
-        for _ in range(MESH_TRAIN["steps"]):
+        """Each cell trained in this process, while the workers boot; then their go."""
+        for name, cell in MESH_TRAIN.items():
+            t0 = time.perf_counter()
+            cfg, p, batch = _mesh_train_setup(dev, name)
+            tcfg = TrainConfig()
+            b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            p, opt, m = step(p, opt, b)
-            one["losses"].append(float(m["loss"]))
-            one["step_s"].append(time.perf_counter() - t1)
-        del p, opt
-        torch.cuda.empty_cache()
-        one["seconds"] = time.perf_counter() - t0
+            metrics, grads = value_and_grad(make_loss_fn(cfg, tcfg), p, b)
+            r = one[name] = {"cfg": cfg, "loss0": float(metrics["loss"]),  # a sync
+                             "grad_s": time.perf_counter() - t1,
+                             "grads": {k: g.float() for k, g in leaves_with_paths(grads)}}
+            del grads
+            opt, step = init_train_state(cfg, tcfg, p), make_train_step(cfg, tcfg)
+            r["losses"], r["step_s"] = [], []
+            for _ in range(cell["steps"]):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                p, opt, m = step(p, opt, b)
+                r["losses"].append(float(m["loss"]))
+                r["step_s"].append(time.perf_counter() - t1)
+            r["peak_bytes"] = torch.cuda.max_memory_allocated()
+            del p, opt, b, metrics
+            torch.cuda.empty_cache()
+            r["seconds"] = time.perf_counter() - t0
         with open(os.path.join(root, "go"), "w"):
             pass
 
@@ -3727,53 +3783,60 @@ def mesh_train(dev, root):
     code = "import sys, chip_smoke; chip_smoke.mesh_train_worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])"
     outs, walls = _spawn([["-c", code, str(r), str(port), root] for r in range(4)], root, "mesh_train",
                          MESH_TRAIN_TIMEOUT_S, meanwhile=one_process)
-    cfg = one["cfg"]
     ranks = []
     for r in range(4):
         with open(os.path.join(root, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
-    mesh_grads = torch.load(os.path.join(root, "grads.pt"))
-    worst = max(float((mesh_grads[k].to(dev) - g).abs().max() / g.abs().max()) for k, g in one["grads"].items())
-    del mesh_grads
-    rel = [abs(a - w) / abs(w) for a, w in zip([ranks[0]["loss0"], *ranks[0]["losses"]],
-                                               [one["loss0"], *one["losses"]])]
-    rules = sh.rules_for(cfg, LogicalMesh(MESH_TRAIN["shape"], ("data", "model")), kind="train",
-                         global_batch=MESH_TRAIN["B"], seq_len=MESH_TRAIN["S"])
-    modelled = H.collective_bytes(cfg, ShapeConfig("mesh_train", "train", MESH_TRAIN["S"], MESH_TRAIN["B"]),
-                                  LogicalMesh(MESH_TRAIN["shape"], ("data", "model")), rules)
-    local = [[1, 8, MESH_TRAIN["S"], 128], [1, 4, MESH_TRAIN["S"], 128]]
-    per_step = 2 * cfg.n_layers
-    emit({"mesh_train": {
-        "mesh_shape": list(MESH_TRAIN["shape"]), "n_layers": cfg.n_layers, "B": MESH_TRAIN["B"], "S": MESH_TRAIN["S"],
-        "one_process": {"loss0": one["loss0"], "losses": one["losses"], "step_s": one["step_s"],
-                        "seconds_while_workers_boot": one["seconds"]},
-        "mesh": {"loss0": ranks[0]["loss0"], "losses": ranks[0]["losses"],
-                 "step_s": [r["step_s"] for r in ranks], "peak_bytes": [r["peak_bytes"] for r in ranks],
-                 "processes": [{k: r[k] for k in ("rank", "backend", "coordinates", "device", "rows",
-                                                  "shard_shapes_ok", "launches", "wgmma_launches", "flash_shapes")}
-                               for r in ranks],
-                 "collectives_per_step": [r["collectives"] for r in ranks],
-                 "metered_s": [r["metered_s"] for r in ranks],
-                 "collective_outputs_rank0": ranks[0]["collective_outputs"],
-                 "staged": [r["staged"] for r in ranks], "wall_s": walls,
-                 "booted_s": [r["booted_s"] for r in ranks], "waited_for_go_s": [r["waited_s"] for r in ranks],
-                 "host_rss_bytes": [r["host_rss_bytes"] for r in ranks], **host_before},
-        "loss_rel_err": rel, "grad_worst_rel_err": worst, "tol": TRAIN_BF16_TOL,
-        "modelled_collective_bytes_per_device": modelled}})
     for r in ranks:
         require(r["backend"] == "gloo" and r["device"] == "cuda" and r["device_name"].startswith("NVIDIA"),
                 f"mesh_train process {r['rank']} ran on {r['device']} over {r['backend']}")
-        require(r["shard_shapes_ok"], f"mesh_train process {r['rank']}: a leaf is not its ShardSpec.shard_shape")
-        require(r["flash_shapes"] == [json.dumps(local)], f"mesh_train process {r['rank']} launched flash on "
-                                                          f"{r['flash_shapes']}, not {local}")
-        want = {k: per_step * MESH_TRAIN["steps"] * (k == wgmma_name(128, 128)) for k in r["wgmma_launches"]}
-        require(r["wgmma_launches"] == want and r["launches"] == {"flash_attention_bf16": want[wgmma_name(128, 128)],
-                                                                  "flash_attention_f32": 0},
-                f"mesh_train process {r['rank']}: launches {r['wgmma_launches']}, {r['launches']}")
-        require(r["losses"] == ranks[0]["losses"], "mesh_train: the processes report different losses")
-    require(max(rel) <= TRAIN_BF16_TOL["loss"], f"mesh_train losses differ from one process: {rel}")
-    require(worst <= TRAIN_BF16_TOL["grad"], f"mesh_train gradients differ from one process: {worst}")
-    return sum(r["wgmma_launches"][wgmma_name(128, 128)] for r in ranks)
+    launches, report = {}, {"mesh_shape": list(MESH_SHAPE), "wall_s": walls,
+                            "booted_s": [r["booted_s"] for r in ranks],
+                            "waited_for_go_s": [r["waited_s"] for r in ranks], **host_before}
+    logical = LogicalMesh(MESH_SHAPE, ("data", "model"))
+    for name, cell in MESH_TRAIN.items():
+        o, cs = one[name], [r["cells"][name] for r in ranks]
+        cfg = o["cfg"]
+        mesh_grads = torch.load(os.path.join(root, f"grads_{name}.pt"))
+        worst = max(float((mesh_grads[k].to(dev) - g).abs().max() / g.abs().max()) for k, g in o["grads"].items())
+        del mesh_grads, o["grads"]
+        rel = [abs(a - w) / abs(w) for a, w in zip([cs[0]["loss0"], *cs[0]["losses"]], [o["loss0"], *o["losses"]])]
+        rules = sh.rules_for(cfg, logical, kind="train", global_batch=cell["B"], seq_len=cell["S"])
+        modelled = H.collective_bytes(cfg, ShapeConfig("mesh_train", "train", cell["S"], cell["B"]), logical, rules)
+        calls = _mesh_flash_calls(name)
+        per_step = {a: n for a, (_, n) in calls.items()}
+        instance = wgmma_name(*fa_ops.wgmma_instance(cfg.hd, cfg.hd))
+        want_shapes = {json.dumps(shape): n * (1 + cell["steps"]) for shape, n in calls.values()}
+        report[name] = {
+            "n_layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers, "B": cell["B"], "S": cell["S"],
+            "frames": cfg.n_frontend_tokens if cfg.family == "encdec" else None, "steps": cell["steps"],
+            "one_process": {k: o[k] for k in ("loss0", "grad_s", "losses", "step_s", "peak_bytes", "seconds")},
+            "mesh": {"loss0": cs[0]["loss0"], "losses": cs[0]["losses"],
+                     "step_s": [c["step_s"] for c in cs], "peak_bytes": [c["peak_bytes"] for c in cs],
+                     "processes": [{"rank": r["rank"], "coordinates": r["coordinates"],
+                                    **{k: c[k] for k in ("rows", "shard_shapes_ok", "launches", "wgmma_launches",
+                                                         "flash_shapes")}} for r, c in zip(ranks, cs)],
+                     "collectives_per_step": [c["collectives"] for c in cs],
+                     "metered_s": [c["metered_s"] for c in cs], "cell_s": [c["cell_s"] for c in cs],
+                     "collective_outputs_rank0": cs[0]["collective_outputs"], "staged": [c["staged"] for c in cs],
+                     "host_rss_bytes": [c["host_rss_bytes"] for c in cs]},
+            "loss_rel_err": rel, "grad_worst_rel_err": worst, "tol": TRAIN_BF16_TOL,
+            "modelled_collective_bytes_per_device": modelled}
+        for r, c in zip(ranks, cs):
+            require(c["shard_shapes_ok"], f"mesh_train {name} process {r['rank']}: a leaf is not its shard shape")
+            require(c["flash_shapes"] == want_shapes, f"mesh_train {name} process {r['rank']} launched flash on "
+                                                      f"{c['flash_shapes']}, not {want_shapes}")
+            n = sum(per_step.values()) * (1 + cell["steps"])
+            want = {k: n * (k == instance) for k in c["wgmma_launches"]}
+            require(c["wgmma_launches"] == want and c["launches"] == {"flash_attention_bf16": n,
+                                                                      "flash_attention_f32": 0},
+                    f"mesh_train {name} process {r['rank']}: launches {c['wgmma_launches']}, {c['launches']}")
+            require(c["losses"] == cs[0]["losses"], f"mesh_train {name}: the processes report different losses")
+        require(max(rel) <= TRAIN_BF16_TOL["loss"], f"mesh_train {name}: losses differ from one process: {rel}")
+        require(worst <= TRAIN_BF16_TOL["grad"], f"mesh_train {name}: gradients differ from one process: {worst}")
+        launches[name] = {a: sum(c["flash_shapes"][json.dumps(shape)] for c in cs) for a, (shape, _) in calls.items()}
+    emit({"mesh_train": report})
+    return launches
 
 
 def flex_mods(window, cap):
@@ -4963,7 +5026,8 @@ def main() -> int:
                      "replaces": "src/repro/kernels/flash_attention/flash_attention.py:83",
                      "launches": (prefill_by_kernel["flash_attention_bf16"] + offload_launches["flash_attention_bf16"]
                                   + sum(serve_launches.values()) + train_cpu_bf16_launches + train_main_launches
-                                  + mesh_train_launches + case_mesh_launches["flash_attention_bf16"]),
+                                  + mesh_train_launches["qwen3-1.7b"]["self"]
+                                  + case_mesh_launches["flash_attention_bf16"]),
                      "max_abs_err": err,
                      "ms": fa_ms, "plain_ms": cuda_ms(lambda: fa_ops.flash_attention_ref(q, k, v), 2),
                      "bound_ms": b_fa, "bound_by": by,
@@ -4981,15 +5045,18 @@ def main() -> int:
                                                      "train_cpu qwen3-1.7b (one train step, bf16, remat)":
                                                          train_cpu_bf16_launches,
                                                      "train_main": train_main_launches,
-                                                     "mesh_train (4 processes of a (2, 2) mesh, 2 steps, local B 1, "
-                                                     "Hq 8, Hkv 4)": mesh_train_launches,
+                                                     "mesh_train qwen3-1.7b (4 processes of a (2, 2) mesh, step 1's "
+                                                     "gradients and 1 train step, local B 1, Hq 8, Hkv 4)":
+                                                         mesh_train_launches["qwen3-1.7b"]["self"],
                                                      "case_mesh (c) (ShardedEngine over two entries, qwen3 "
                                                      "DecodeEngine, 8 prompts of 4,096)":
                                                          case_mesh_launches["flash_attention_bf16"]}}})
         del q, k, v, out_k, out_p
         # the (256, 256) instance at gemma2-2b's (local, global) prefill shapes, (192, 128) at
         # deepseek-v2's MLA, (128, 128) at mixtral's (window 4,096, GQA group 6)
-        rows.extend(family_flash_rows(dev, sdpa, {**families_launches, **tail_launches}))
+        rows.extend(family_flash_rows(dev, sdpa, {**families_launches, **tail_launches,
+                                                  **{f"mesh_train whisper-small {a}": n
+                                                     for a, n in mesh_train_launches["whisper-small"].items()}}))
         # breakdown of one prefill at lm_main's shape (CUDA events)
         x = torch.randn((4, S, qwen.d_model), device=dev, generator=g).to(torch.bfloat16)
         lp = T.layer(params["layers"], 0)

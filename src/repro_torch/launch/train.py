@@ -28,8 +28,8 @@ processes), so any mesh, or one process, resumes them.  ``--multi-pod``
 without ``--mesh`` is the reference's (2, 16, 16) mesh and needs 512
 processes.  Unlike the reference, no ``--mesh`` trains on one device: the
 reference's default (16, 16) mesh needs 256 processes, and the port
-refuses a group of several without ``--mesh``.  Only the dense GQA family
-trains on a mesh yet.
+refuses a group of several without ``--mesh``.  Every family trains on a
+mesh, each laid out by the reference's rules (``sharding.rules_for``).
 """
 from __future__ import annotations
 
@@ -83,7 +83,6 @@ def _refuse(args, world: int) -> None:
     """Exit non-zero, naming the reason, where the flags and the group do
     not make a mesh the port trains on."""
     from repro_torch.configs import ARCHS
-    from repro_torch.training.train_step import check_mesh_family
 
     mesh = _mesh_shape(args)
     if mesh is None:
@@ -99,10 +98,6 @@ def _refuse(args, world: int) -> None:
     if n > 1:
         cfg = ARCHS[args.arch]
         cfg = cfg.reduced() if args.reduced else cfg
-        try:
-            check_mesh_family(cfg)
-        except ValueError as e:
-            raise SystemExit(f"{TAG} {e}") from None
         _refuse_host_memory(cfg, int(os.environ.get("LOCAL_WORLD_SIZE", world)))
 
 

@@ -192,7 +192,8 @@ def _kv_heads_of(h0: int, h1: int, G: int) -> slice:
     return slice(first, last + 1)
 
 
-def mesh_attention(q, k, v, *, causal: bool, window: int | None, softcap: float | None, scale=None):
+def mesh_attention(q, k, v, *, causal: bool, window: int | None, softcap: float | None, scale=None,
+                   kv_heads: str = "kv_heads"):
     """:class:`FlashAttentionFn` over a ``DeviceMesh``: ``q [B,Hq,S,dh]``,
     ``k``, ``v [B,Hkv,S,·]`` are ``DTensor``s, and each process runs the
     kernel (forward and blocked backward) on its local rows of the batch
@@ -206,14 +207,17 @@ def mesh_attention(q, k, v, *, causal: bool, window: int | None, softcap: float 
     takes the kv heads its own query heads read; their gradients are then
     partial over ``model`` and summed there.  Every input is redistributed
     to this layout first, and the output goes back to the ``heads``
-    layout.  Each process runs the same operations on its own block, so
-    the collectives of the backward line up across processes."""
+    layout.  ``kv_heads`` names the logical axis of k's and v's heads: MLA,
+    whose keys and values are expanded to one a query head (G = 1), passes
+    ``"heads"``, so each process takes its own query heads' keys.  Each
+    process runs the same operations on its own block, so the collectives
+    of the backward line up across processes."""
     from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
 
     mesh = q.device_mesh
     names = sh.axis_names(mesh)
-    heads, kv_heads = sh.spec_for("heads")[0], sh.spec_for("kv_heads")[0]
+    heads, kv_heads = sh.spec_for("heads")[0], sh.spec_for(kv_heads)[0]
     if heads is None:
         kv_heads = None
     G = q.shape[1] // k.shape[1]
@@ -222,9 +226,7 @@ def mesh_attention(q, k, v, *, causal: bool, window: int | None, softcap: float 
     # replicated kv heads that each process reads in part: a partial gradient
     split = {names.index(a) for a in sh.entry_axes(heads)} - {names.index(a) for a in sh.entry_axes(kv_heads)}
     kv_grad = tuple(Partial() if m in split else p for m, p in enumerate(kv_pl))
-    at = 0
-    for m in sorted(split):
-        at = at * mesh.size(m) + mesh.get_local_rank(m)
+    at = sh.block_start(mesh, split, 1)
 
     def local(ql, kl, vl):
         if split:
@@ -236,6 +238,16 @@ def mesh_attention(q, k, v, *, causal: bool, window: int | None, softcap: float 
                     in_grad_placements=(q_pl, kv_grad, kv_grad), device_mesh=mesh, redistribute_inputs=True)
     q, k, v = (sh.contiguous_grad(t) for t in (q, k, v))
     return run(q, k, v)
+
+
+def attend(q, k, v, *, causal: bool, window: int | None, softcap: float | None, scale=None,
+           kv_heads: str = "kv_heads"):
+    """The attention of a layer's forward (prefill, training):
+    :class:`FlashAttentionFn` on plain tensors, :func:`mesh_attention` on
+    ``DTensor``s."""
+    if sh.is_distributed(q):
+        return mesh_attention(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale, kv_heads=kv_heads)
+    return FlashAttentionFn.apply(q, k, v, causal, window, softcap, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -327,10 +339,7 @@ def attention(
     q = sh.constrain(q, "batch", "heads", None, None)
 
     if cache is None:
-        if sh.is_distributed(q):
-            o = mesh_attention(q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap)
-        else:
-            o = FlashAttentionFn.apply(q, k, v, causal, window, cfg.attn_softcap, None)
+        o = attend(q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap)
         new_cache = (k, v) if return_kv else None
     else:
         # rolling ring buffer: capacity C == window for windowed layers, the
@@ -403,6 +412,7 @@ def mla_attention(
     adt = x.dtype
     H, nq, nr, r = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
     scale = (nq + nr) ** -0.5
+    x = sh.constrain(x, "batch", None, None)  # whole sequences into the projections
 
     qa = rmsnorm(x @ params["wq_a"].to(adt), params["q_norm"], cfg.norm_eps)
     q = proj(qa, params["wq_b"].to(adt)).transpose(1, 2)  # [B,H,S,nq+nr]
@@ -417,8 +427,12 @@ def mla_attention(
         B, _, S, _ = q.shape
         k_nope = proj(c_kv, params["wk_b"].to(adt)).transpose(1, 2)  # [B,H,S,nq]
         v = proj(c_kv, params["wv_b"].to(adt)).transpose(1, 2)  # a strided view: the kernel reads its strides
-        k = torch.cat([k_nope, k_rope.expand(B, H, S, nr)], dim=-1)  # contiguous, k_rope copied per head
-        o = FlashAttentionFn.apply(torch.cat([q_nope, q_rope], dim=-1), k, v, True, None, None, scale)
+        # over a mesh, each process's heads of both halves (of the shared k_rope, a local slice)
+        k_nope, k_rope_h = (sh.constrain(t, "batch", "heads", None, None)
+                            for t in (k_nope, k_rope.expand(B, H, S, nr)))
+        k = torch.cat([k_nope, k_rope_h], dim=-1)  # contiguous, k_rope copied per head
+        o = attend(torch.cat([q_nope, q_rope], dim=-1), k, v, causal=True, window=None, softcap=None, scale=scale,
+                   kv_heads="heads")
         new_cache = (c_kv, k_rope[:, 0]) if return_kv else None
     else:
         ck, kr, pos = cache["c_kv"], cache["k_rope"], cache["pos"]
@@ -440,7 +454,7 @@ def mla_attention(
 
     B, H, S, dv = o.shape
     out = o.to(adt).transpose(1, 2).reshape(B, S, H * dv) @ params["wo"].to(adt).reshape(H * dv, -1)
-    return out, new_cache
+    return sh.constrain(out, "batch", None, None), new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import normal, ones, pdt, rmsnorm, stacked, zeros
+from repro_torch.parallel import sharding as sh
 
 
 def dims(cfg: ModelConfig):
@@ -156,19 +157,35 @@ def mamba2_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *, cache: dict
     come back as the state.  Without one, ``return_state`` (prefill) gives
     the final SSM state and the last K−1 inputs of the conv, or ``None`` for
     the conv when the sequence is shorter than K−1, as the reference does.
+    A ``DTensor`` ``x`` trains over its mesh (:func:`_mesh_mamba2`).
     """
+    if sh.is_distributed(x):
+        if cache is not None or return_state:
+            raise ValueError("a Mamba-2 block over a mesh trains only: no decode cache, no prefill state")
+        return _mesh_mamba2(params, x, cfg), None
     adt = x.dtype
-    B, S, _ = x.shape
     d_inner, H, N, G = dims(cfg)
-    conv_dim = d_inner + 2 * G * N
-
     zxbcdt = x @ params["in_proj"].to(adt)  # [B,S, 2·d_inner + 2GN + H]
-    z = zxbcdt[..., :d_inner]
-    xBC = zxbcdt[..., d_inner:d_inner + conv_dim]
-    dt_raw = zxbcdt[..., -H:]
+    z, xBC, dt_raw = zxbcdt[..., :d_inner], zxbcdt[..., d_inner:-H], zxbcdt[..., -H:]
+    g, new_cache = _mixer(params, z, xBC, dt_raw, cfg, cache, return_state)
+    y = rmsnorm(g, params["norm"], cfg.norm_eps)  # the gated norm
+    return y @ params["out_proj"].to(adt), new_cache
+
+
+def _mixer(p: dict, z, xBC, dt_raw, cfg: ModelConfig, cache, return_state: bool):
+    """The conv, the SSD and the skip of the heads that ``z [B,S,H·P]``,
+    ``xBC [B,S,H·P + 2GN]`` (their x channels, then the B and C of the G
+    groups they read, head i reading group i // (H/G)) and ``dt_raw [B,S,H]``
+    hold, with ``p``'s conv weights and per-head vectors for the
+    same channels and heads → (``y ⊙ silu(z)``, the input of the gated
+    norm; the cache or prefill state as :func:`mamba2_block`)."""
+    adt = z.dtype
+    B, S, d_inner = z.shape
+    H, N = dt_raw.shape[-1], cfg.ssm_state
+    G = (xBC.shape[-1] - d_inner) // (2 * N)  # the groups given
 
     # the short causal depthwise conv over xBC: K shifted products, summed in order
-    w = params["conv_w"].to(adt)  # [K, convdim]
+    w = p["conv_w"].to(adt)  # [K, convdim]
     K = w.shape[0]
     if cache is None:
         xpad = F.pad(xBC, (0, 0, K - 1, 0))
@@ -178,13 +195,13 @@ def mamba2_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *, cache: dict
         hist = torch.cat([cache["conv"], xBC], dim=1)  # [B,K,convdim]
         conv = sum(hist[:, i:i + 1] * w[i] for i in range(K))
         new_conv = hist[:, 1:]
-    xBC = F.silu(conv + params["conv_b"].to(adt))
+    xBC = F.silu(conv + p["conv_b"].to(adt))
 
     xs = xBC[..., :d_inner].reshape(B, -1, H, cfg.ssm_headdim)
     Bm = xBC[..., d_inner:d_inner + G * N].reshape(B, -1, G, N)
     Cm = xBC[..., d_inner + G * N:].reshape(B, -1, G, N)
-    dt_a = F.softplus(dt_raw.float() + params["dt_bias"])
-    A = -torch.exp(params["A_log"].float())
+    dt_a = F.softplus(dt_raw.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"].float())
 
     if cache is None:
         y, final = ssd_chunked(xs, dt_a.to(adt), A.to(adt), Bm, Cm, cfg.ssm_chunk)
@@ -195,10 +212,72 @@ def mamba2_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *, cache: dict
         cache["conv"].copy_(new_conv)
         new_cache = {"ssm": cache["ssm"], "conv": cache["conv"]}
 
-    y = y + xs * params["D"].to(adt)[:, None]  # the skip
-    y = y.reshape(B, -1, d_inner)
-    y = rmsnorm(y * F.silu(z), params["norm"], cfg.norm_eps)  # the gated norm
-    return y @ params["out_proj"].to(adt), new_cache
+    y = y + xs * p["D"].to(adt)[:, None]  # the skip
+    return y.reshape(B, -1, d_inner) * F.silu(z), new_cache
+
+
+def _mesh_mamba2(params: dict, x, cfg: ModelConfig):
+    """A Mamba-2 block over a ``DeviceMesh``: ``DTensor`` ``x`` and
+    parameters in the rules' layouts (``in_proj`` split over ``mlp`` along
+    its ``[z | xBC | dt]`` columns, so no process's block holds whole parts
+    or whole heads).
+
+    The projection's columns are gathered over ``model`` on each process's
+    rows of the batch, and each process runs the conv and the SSD on its
+    own heads (``ssm_heads``' axes) inside ``local_map``: its heads' x
+    channels and the B and C channels of the groups they read (a process's
+    heads must be whole groups or lie in one), its heads' z, dt and
+    per-head vectors (:func:`_mixer`; the chunk loop as on one device).
+    Its output, split by heads, meets the gated norm (its mean reduced over
+    the heads' axes) and ``out_proj`` as ``DTensor``s.  The gradients of the
+    projection's columns and of the conv weights and per-head vectors are
+    partial over the heads' axes (B and C feed every head; each process's
+    heads read their own channels), and the weights' over the batch axes."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    adt = x.dtype
+    mesh = x.device_mesh
+    d_inner, H, N, G = dims(cfg)
+    P = cfg.ssm_headdim
+    names = sh.axis_names(mesh)
+    head_dims = {names.index(a) for a in sh.entry_axes(sh.spec_for("ssm_heads")[0])}
+    rows = sh.placements(sh.spec_for("batch", None, None), mesh)
+    batch_dims = {m for m, pl in enumerate(rows) if pl.is_shard()}
+    parts = math.prod(mesh.size(m) for m in head_dims)
+    if H % parts:
+        raise ValueError(f"{cfg.name}: {H} SSM heads do not split {parts} ways over {sorted(head_dims)}")
+    Hl, per_group = H // parts, H // G
+    if Hl % per_group and per_group % Hl:
+        raise ValueError(f"{cfg.name}: {Hl} SSM heads a process neither hold whole groups of {per_group} heads "
+                         f"nor lie in one")
+    h0 = sh.block_start(mesh, head_dims, Hl)
+    g0, Gl = h0 // per_group, max(1, Hl // per_group)  # the groups this process's heads read
+    whole = (Replicate(),) * mesh.ndim
+    zx_grad = tuple(Partial() if m in head_dims else pl for m, pl in enumerate(rows))
+    w_grad = tuple(Partial() if m in head_dims | batch_dims else Replicate() for m in range(mesh.ndim))
+    vec = ("conv_w", "conv_b", "A_log", "D", "dt_bias")
+
+    def local(zx, *ps):
+        p = dict(zip(vec, ps))
+        mine = [slice(h0 * P, (h0 + Hl) * P),  # this process's heads' channels, then its groups' B and C
+                slice(d_inner + g0 * N, d_inner + (g0 + Gl) * N),
+                slice(d_inner + (G + g0) * N, d_inner + (G + g0 + Gl) * N)]
+        xBC = torch.cat([zx[..., d_inner:-H][..., c] for c in mine], dim=-1)
+        p["conv_w"] = torch.cat([p["conv_w"][:, c] for c in mine], dim=-1)
+        p["conv_b"] = torch.cat([p["conv_b"][c] for c in mine], dim=-1)
+        for k in ("A_log", "D", "dt_bias"):
+            p[k] = p[k][h0:h0 + Hl]
+        return _mixer(p, zx[..., mine[0]], xBC, zx[..., -H:][..., h0:h0 + Hl], cfg, None, False)[0]
+
+    run = local_map(local, out_placements=list(sh.placements(sh.spec_for("batch", None, "ssm_heads"), mesh)),
+                    in_placements=(rows,) + (whole,) * len(vec), in_grad_placements=(zx_grad,) + (w_grad,) * len(vec),
+                    device_mesh=mesh, redistribute_inputs=True)
+    x = sh.constrain(x, "batch", None, None)  # whole sequences: the conv and the SSD run along them
+    zx = sh.constrain(x @ params["in_proj"].to(adt), "batch", None, None)
+    g = run(sh.contiguous_grad(zx), *(sh.contiguous_grad(params[k]) for k in vec))
+    y = rmsnorm(g, params["norm"], cfg.norm_eps)  # the gated norm, its mean reduced over the heads
+    return sh.constrain(y @ params["out_proj"].to(adt), "batch", None, None)
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device, stack: tuple = ()) -> dict:

@@ -294,10 +294,12 @@ def _attend(p, h, cfg, *, positions, window, causal=True, cache=None, return_kv=
 def _cross_attention(p, x, cfg, enc):
     """whisper's cross attention: queries from the decoder, keys and values
     from the encoder's output ``enc [B,Se,D]`` (prefill, ``forward``: through
-    the flash kernel, non-causal, Sq ≠ Skv) or from their cache ``enc =
-    {"k", "v"}`` (decode: the plain decode attention).  No positions, no mask
-    → (out, (k, v))."""
+    the flash kernel, non-causal, Sq ≠ Skv; over a mesh, on each process's
+    rows and heads: :func:`~repro_torch.models.layers.attend`) or
+    from their cache ``enc = {"k", "v"}`` (decode: the plain decode
+    attention).  No positions, no mask → (out, (k, v))."""
     adt = x.dtype
+    x = sh.constrain(x, "batch", None, None)
     q = L.proj(x, p["wq"].to(adt)).transpose(1, 2)
     if isinstance(enc, dict):
         k, v = enc["k"], enc["v"]
@@ -306,10 +308,11 @@ def _cross_attention(p, x, cfg, enc):
     else:
         k = L.proj(enc, p["wk"].to(adt)).transpose(1, 2)
         v = L.proj(enc, p["wv"].to(adt)).transpose(1, 2)
-        o = L.FlashAttentionFn.apply(q, k, v, False, None, cfg.attn_softcap, None)
+        o = L.attend(sh.constrain(q, "batch", "heads", None, None), k, v, causal=False, window=None,
+                     softcap=cfg.attn_softcap)
     B, H, Sq, hd = o.shape
     out = o.to(adt).transpose(1, 2).reshape(B, Sq, H * hd) @ p["wo"].to(adt).reshape(H * hd, -1)
-    return out, (k, v)
+    return sh.constrain(out, "batch", None, None), (k, v)
 
 
 def _block(p, x, cfg, slot: Slot, mode: str, positions, cache=None, enc=None):
@@ -430,22 +433,13 @@ def _mesh_embed(table, tokens):
     def lookup(t, ids):
         # this process's vocabulary block [lo, lo + n)
         n = t.shape[0]
-        lo = block_start(mesh, vocab_axes, n)
+        lo = sh.block_start(mesh, vocab_axes, n)
         inside = (ids >= lo) & (ids < lo + n)
         rows = t[torch.where(inside, ids - lo, 0)]
         return torch.where(inside[..., None], rows, 0).to(t.dtype)
 
     return local_map(lookup, out_placements=list(out_pl), in_placements=(t_pl, tok_pl),
                      in_grad_placements=(t_grad, tok_pl), device_mesh=mesh, redistribute_inputs=True)(table, tokens)
-
-
-def block_start(mesh, mesh_dims: set[int], n: int) -> int:
-    """The first index of this process's block of ``n`` along a dimension
-    split over ``mesh_dims`` (outer to inner)."""
-    at = 0
-    for m in sorted(mesh_dims):
-        at = at * mesh.size(m) + mesh.get_local_rank(m)
-    return at * n
 
 
 def _inputs(params, cfg, batch):
@@ -470,7 +464,8 @@ def _encode(params, cfg, batch, remat: bool = False):
     slots = [Slot("encoder", i, None, i, None, "encoder") for i in range(cfg.encoder_layers)]  # no cache
     for lp, slot in _layers(params, cfg, slots):
         e, _ = _forward_block(lp, e, cfg, slot, positions, None, remat)
-    return _norm_apply(cfg, e, params["enc_norm"])
+    # over a mesh, whole frame sequences once for every decoder layer's cross attention
+    return sh.constrain(_norm_apply(cfg, e, params["enc_norm"]), "batch", None, None)
 
 
 def _unembed(params, cfg, x):

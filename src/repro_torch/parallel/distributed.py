@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import datetime
 import itertools
+import random
 import socket
 
 import torch.distributed as torch_dist
@@ -66,9 +67,31 @@ def barrier(tag: str, *, timeout_ms: int = _BARRIER_TIMEOUT_MS) -> None:
                            f"{process_index()}: {e}") from e
 
 
+def _ephemeral_low() -> int:
+    """The first port of the OS's ephemeral range (Linux's default where it cannot be read)."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768
+
+
 def free_port() -> int:
-    """An OS-assigned free TCP port on localhost (bind, then close: another
-    process may take it before the caller binds it again)."""
+    """A free TCP port on localhost, drawn at random from the 12,288 ports
+    below the OS's ephemeral range: between this call and the caller's bind
+    (a process group's store, seconds later in a child), no socket bound to
+    port 0 or connecting out (a gloo pair, a store's client) can take it, as
+    it could an OS-assigned port; another caller of this function still may,
+    one time in thousands.  An OS-assigned port where none of 64 draws is
+    free."""
+    low = _ephemeral_low()
+    for port in random.Random().sample(range(max(1024, low - 12288), low), 64):
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]

@@ -210,6 +210,15 @@ def from_global(x, mesh, pl, device) -> Any:
     return DTensor.from_local(local, mesh, pl, run_check=False, shape=torch.Size(x.shape), stride=stride)
 
 
+def block_start(mesh, mesh_dims: set[int], n: int) -> int:
+    """The first index of this process's block of ``n`` along a dimension
+    split over ``mesh_dims`` (outer to inner)."""
+    at = 0
+    for m in sorted(mesh_dims):
+        at = at * mesh.size(m) + mesh.get_local_rank(m)
+    return at * n
+
+
 def current_mesh():
     return _state.mesh
 

@@ -17,7 +17,11 @@ the parameters and the batch are ``DTensor``s laid out by the rules
 reference's layout hints, the loss reads the vocabulary-split logits
 where they lie (:func:`cross_entropy`), each gradient is reduced to its
 parameter's layout, and the optimizer updates each process's local shards.
-Only the dense GQA family trains on a mesh (:func:`check_mesh_family`).
+Every family trains there: attention (GQA, gemma2's local/global pairs,
+whisper's encoder and cross attention, MLA) runs the flash kernel on each
+process's heads (``layers.mesh_attention``), a Mamba-2 block the SSD on its
+SSM heads (``ssm._mesh_mamba2``), and the MoE routes one group a shard of
+the batch through the experts each process holds (``moe._mesh_moe``).
 """
 from __future__ import annotations
 
@@ -41,20 +45,6 @@ class TrainConfig:
     z_loss: float = 1e-4
     aux_loss_weight: float = 1e-2
     label_ignore: int = -100
-
-
-MESH_FAMILY = ("only the dense GQA family (qwen3, granite, llama3) trains on a mesh yet; the other families on a "
-               "mesh are ROADMAP.md queue 1 item 2")
-
-
-def check_mesh_family(cfg: ModelConfig) -> None:
-    """Raise ``ValueError`` naming the family of a model that does not train
-    on a mesh of several devices yet: anything but the dense GQA stack."""
-    why = ("MLA attention" if cfg.attn_type == "mla" else "a mixture of experts" if cfg.n_experts
-           else "gemma2's local/global pair stack" if cfg.local_global
-           else f"the {cfg.family} family" if cfg.family != "dense" else None)
-    if why:
-        raise ValueError(f"{cfg.name} on a mesh: {why} does not train on several devices; {MESH_FAMILY}")
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore: int = -100):
@@ -94,7 +84,7 @@ def _mesh_lse_and_label(logits, labels):
 
     def label_logit(lg, ids):
         n = lg.shape[-1]
-        lo = T.block_start(mesh, vocab_axes, n)
+        lo = sh.block_start(mesh, vocab_axes, n)
         inside = (ids >= lo) & (ids < lo + n)
         picked = lg.gather(-1, torch.where(inside, ids - lo, 0)[..., None])[..., 0]
         return torch.where(inside, picked, 0.0)
@@ -151,13 +141,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
     """(params, opt_state, batch) → (params, opt_state, metrics); the
     optimizer by the state's type: resident :class:`AdamWState` or
     :class:`OffloadedAdamWState` (streamed with ``tcfg.offload``'s
-    schedule).  Metrics are 0-d device tensors (reading one syncs).  Made
-    under a mesh of several devices, it refuses a family that does not
-    train there (:func:`check_mesh_family`)."""
+    schedule).  Metrics are 0-d device tensors (reading one syncs)."""
     loss_fn = make_loss_fn(cfg, tcfg)
-    mesh = sh.current_mesh()
-    if mesh is not None and sh.mesh_size(mesh) > 1:
-        check_mesh_family(cfg)
 
     def train_step(params, opt_state, batch):
         metrics, grads = value_and_grad(loss_fn, params, batch)

@@ -17,6 +17,7 @@ log files rather than pipes: a child blocked on a full pipe would stall
 its sibling at a barrier.
 """
 import os
+import socket
 import subprocess
 import sys
 import textwrap
@@ -189,6 +190,17 @@ def _spawn_pair(body: str, work: str) -> list[str]:
     code = textwrap.dedent(_PRELUDE) + textwrap.dedent(body)
     return _spawn([([sys.executable, "-c", code], _env(work, DIST_PID=str(pid), DIST_PORT=port))
                    for pid in range(2)], work)
+
+
+def test_free_port_lies_below_the_ephemeral_range():
+    """A coordinator's port is free and below the OS's ephemeral range, so
+    no socket the OS numbers can take it before the store binds it."""
+    low = dist._ephemeral_low()
+    for _ in range(8):
+        port = dist.free_port()
+        assert max(1024, low - 12288) <= port < low
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", port))
 
 
 def test_two_process_campaign_kill_resume_and_world_size(tmp_path):

@@ -739,14 +739,11 @@ def test_train_entry_points_raise_without_a_card(tmp_path):
     (["--mesh", "2x4"], "--mesh 2x4 needs 8 processes, one a device; this launch has 1"),
     (["--multi-pod", "--num-processes", "4", "--coordinator", "localhost:1"],
      "--multi-pod without --mesh is the (2, 16, 16) mesh, which needs 512 processes"),
-    (["--mesh", "2x2", "--num-processes", "4", "--coordinator", "localhost:1", "--arch", "gemma2-2b"],
-     "gemma2's local/global pair stack does not train on several devices"),
     (["--host-devices", "2"], "2 processes and no --mesh: the reference's default mesh is (16, 16)")])
 def test_train_cli_refuses_several_devices(flags, message):
     """A mesh whose size is not the world size, ``--multi-pod`` on fewer
-    than 512 processes, a family that does not train on a mesh and several
-    processes without a mesh exit non-zero by name, before any process is
-    launched or joined."""
+    than 512 processes and several processes without a mesh exit non-zero
+    by name, before any process is launched or joined."""
     from repro_torch.launch import train as train_cli
 
     with pytest.raises(SystemExit) as e:
